@@ -1,0 +1,443 @@
+"""WavLM in PyTorch: the counterpart of ``stutter_tpu/models/wavlm.py``.
+
+The same model and the same numerics as the JAX package, in PyTorch's idiom:
+``nn.Module``s built on an explicit device, one Python loop over the layers
+in place of ``lax.scan``, and the attention core through
+``ops.wavlm_attention.gated_relpos_attention`` (the hand-written CUDA kernel
+on the card, its plain version on the CPU). Public functions keep the JAX
+package's layouts ([B, L, C] frames and hidden states) so that the two
+packages compare like with like; inside, the stem runs PyTorch's [B, C, T].
+
+Numerics copied from the JAX package:
+- layer norms take f32 statistics and cast back to the activation dtype;
+- GELU is the tanh form on bf16 and the erf form on f32;
+- a stem conv's bias is added in the activation dtype after the conv; the
+  stem's norm statistics use valid frames only and each stage re-zeroes its
+  padded frames, so a padded batch equals per-clip runs;
+- the positional conv adds its bias in f32, drops its last frame (SamePad,
+  even kernel), applies GELU in f32 and casts back;
+- q is scaled by head_dim^-0.5 in the activation dtype;
+- the key mask is additive -1e9 (not -inf), so padded query rows stay finite;
+- hidden state i is the INPUT of layer i; the pre-LN model's final norm
+  applies to the last state only.
+The activation dtype is the parameters' dtype: f32 for the fidelity preset,
+bf16 (the whole parameter set cast, norms included) for the fast preset.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from stutter_tpu_torch.ops.pooling import masked_mean_pool
+from stutter_tpu_torch.ops.wavlm_attention import gated_relpos_attention
+
+
+@dataclasses.dataclass(frozen=True)
+class WavLMConfig:
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    intermediate_size: int = 3072
+    conv_dim: tuple[int, ...] = (512, 512, 512, 512, 512, 512, 512)
+    conv_stride: tuple[int, ...] = (5, 2, 2, 2, 2, 2, 2)
+    conv_kernel: tuple[int, ...] = (10, 3, 3, 3, 3, 2, 2)
+    conv_bias: bool = False
+    feat_extract_norm: str = "group"  # "group" (base) | "layer" (large)
+    do_stable_layer_norm: bool = False
+    num_conv_pos_embeddings: int = 128
+    num_conv_pos_embedding_groups: int = 16
+    num_buckets: int = 320
+    max_bucket_distance: int = 800
+    layer_norm_eps: float = 1e-5
+    # frontend policy (HF preprocessor_config.json per checkpoint)
+    do_normalize: bool = False
+    # SpecAugment (training only)
+    apply_spec_augment: bool = True
+    mask_time_prob: float = 0.05
+    mask_time_length: int = 10
+    mask_feature_prob: float = 0.0
+    mask_feature_length: int = 10
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    @property
+    def stem_geometry(self) -> tuple[int, int]:
+        """(receptive_field, stride) of the conv stem in samples (400, 320
+        for the standard 7-layer stem), used for frame-aligned bucketing."""
+        k_eff, s_eff = 1, 1
+        for k, s in zip(self.conv_kernel, self.conv_stride):
+            k_eff += (k - 1) * s_eff
+            s_eff *= s
+        return k_eff, s_eff
+
+    @staticmethod
+    def base() -> "WavLMConfig":
+        return WavLMConfig()
+
+    @staticmethod
+    def base_plus() -> "WavLMConfig":
+        return WavLMConfig()
+
+    @staticmethod
+    def large() -> "WavLMConfig":
+        return WavLMConfig(
+            hidden_size=1024,
+            num_hidden_layers=24,
+            num_attention_heads=16,
+            intermediate_size=4096,
+            conv_bias=True,
+            feat_extract_norm="layer",
+            do_stable_layer_norm=True,
+            do_normalize=True,
+        )
+
+    @staticmethod
+    def tiny(hidden_size: int = 32, layers: int = 2, heads: int = 4) -> "WavLMConfig":
+        """Small config for fast numerics tests (same code paths as base)."""
+        return WavLMConfig(
+            hidden_size=hidden_size,
+            num_hidden_layers=layers,
+            num_attention_heads=heads,
+            intermediate_size=hidden_size * 4,
+            conv_dim=(16, 16, 16),
+            conv_stride=(5, 2, 2),
+            conv_kernel=(10, 3, 3),
+        )
+
+
+# ---------------------------------------------------------------------------
+# Relative position buckets: numpy, verbatim from the JAX package. The float32
+# np.log decides bucket boundaries; a torch.log could flip one.
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=32)
+def relative_position_buckets(seq_len: int, num_buckets: int, max_distance: int) -> np.ndarray:
+    """[L, L] int32 bucket index matrix (compile-time constant per length)."""
+    context = np.arange(seq_len, dtype=np.int64)[:, None]
+    memory = np.arange(seq_len, dtype=np.int64)[None, :]
+    rel = memory - context
+
+    nb = num_buckets // 2
+    buckets = (rel > 0).astype(np.int64) * nb
+    rel_abs = np.abs(rel)
+    max_exact = nb // 2
+    is_small = rel_abs < max_exact
+    with np.errstate(divide="ignore"):
+        rel_large = np.log(np.maximum(rel_abs, 1).astype(np.float32) / max_exact)
+    rel_large = rel_large / math.log(max_distance / max_exact) * (nb - max_exact)
+    rel_large = (max_exact + rel_large).astype(np.int64)
+    rel_large = np.minimum(rel_large, nb - 1)
+    buckets += np.where(is_small, rel_abs, rel_large)
+    return buckets.astype(np.int32)
+
+
+def wavlm_feature_lengths(cfg: WavLMConfig, input_lengths):
+    """Conv output length chain; takes ints, numpy arrays or tensors."""
+    lengths = input_lengths
+    for k, s in zip(cfg.conv_kernel, cfg.conv_stride):
+        lengths = (lengths - k) // s + 1
+    return lengths
+
+
+# ---------------------------------------------------------------------------
+# Building blocks
+# ---------------------------------------------------------------------------
+
+
+def layer_norm(x: torch.Tensor, scale, bias, eps: float, dim: int = -1) -> torch.Tensor:
+    """Norm over `dim` with f32 statistics, cast back to x's dtype; scale
+    and bias broadcast along `dim`."""
+    xf = x.float()
+    mean = xf.mean(dim=dim, keepdim=True)
+    var = (xf - mean).square().mean(dim=dim, keepdim=True)
+    shape = [1] * x.dim()
+    shape[dim] = -1
+    out = (xf - mean) * torch.rsqrt(var + eps) * scale.view(shape) + bias.view(shape)
+    return out.to(x.dtype)
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh" if x.dtype == torch.bfloat16 else "none")
+
+
+def _param(shape, device, dtype) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype), requires_grad=False)
+
+
+class _ConvLayer(nn.Module):
+    def __init__(self, c_in, c_out, kernel, bias, norm, device, dtype):
+        super().__init__()
+        self.weight = _param((c_out, c_in, kernel), device, dtype)
+        self.bias = _param((c_out,), device, dtype) if bias else None
+        self.norm_scale = _param((c_out,), device, dtype) if norm else None
+        self.norm_bias = _param((c_out,), device, dtype) if norm else None
+
+
+class ConvFeatureEncoder(nn.Module):
+    """Raw wave [B, T] -> frames [B, L, conv_dim[-1]] at ~49 Hz.
+
+    ``feat_extract_norm == "group"``: a per-channel norm over time after the
+    first conv only, its statistics over valid frames. ``"layer"``: a norm
+    over channels after every conv."""
+
+    def __init__(self, cfg: WavLMConfig, device=None, dtype=torch.float32):
+        super().__init__()
+        self.cfg = cfg
+        layers, c_in = [], 1
+        for i, c_out in enumerate(cfg.conv_dim):
+            norm = cfg.feat_extract_norm == "layer" or (
+                cfg.feat_extract_norm == "group" and i == 0)
+            layers.append(_ConvLayer(c_in, c_out, cfg.conv_kernel[i], cfg.conv_bias,
+                                     norm, device, dtype))
+            c_in = c_out
+        self.layers = nn.ModuleList(layers)
+
+    def forward(self, waveform: torch.Tensor, sample_lengths: torch.Tensor | None = None,
+                ) -> torch.Tensor:
+        cfg = self.cfg
+        dtype = self.layers[0].weight.dtype
+        x = waveform[:, None, :].to(dtype)  # [B, 1, T]
+        lengths = sample_lengths
+        for i, layer in enumerate(self.layers):
+            x = F.conv1d(x, layer.weight, stride=cfg.conv_stride[i])
+            if layer.bias is not None:
+                x = x + layer.bias[None, :, None]
+            mask = None
+            if lengths is not None:
+                lengths = (lengths - cfg.conv_kernel[i]) // cfg.conv_stride[i] + 1
+                mask = (torch.arange(x.shape[2], device=x.device)[None, :]
+                        < lengths[:, None])[:, None, :]
+            if cfg.feat_extract_norm == "group" and i == 0:
+                xf = x.float()
+                if mask is None:
+                    mean = xf.mean(dim=2, keepdim=True)
+                    var = (xf - mean).square().mean(dim=2, keepdim=True)
+                else:
+                    m = mask.float()
+                    n = torch.clamp(m.sum(dim=2, keepdim=True), min=1.0)
+                    mean = (xf * m).sum(dim=2, keepdim=True) / n
+                    var = ((xf - mean) * m).square().sum(dim=2, keepdim=True) / n
+                xf = (xf - mean) * torch.rsqrt(var + 1e-5)
+                x = (xf * layer.norm_scale[None, :, None]
+                     + layer.norm_bias[None, :, None]).to(x.dtype)
+            elif cfg.feat_extract_norm == "layer":
+                x = layer_norm(x, layer.norm_scale, layer.norm_bias, 1e-5, dim=1)
+            x = _gelu(x)
+            if mask is not None:
+                x = x * mask.to(x.dtype)
+        return x.transpose(1, 2)  # [B, L, C]
+
+
+class FeatureProjection(nn.Module):
+    """LN over the stem's channels, then Linear(conv_dim[-1] -> hidden)."""
+
+    def __init__(self, cfg: WavLMConfig, device=None, dtype=torch.float32):
+        super().__init__()
+        self.eps = cfg.layer_norm_eps
+        c = cfg.conv_dim[-1]
+        self.ln_scale = _param((c,), device, dtype)
+        self.ln_bias = _param((c,), device, dtype)
+        self.weight = _param((cfg.hidden_size, c), device, dtype)
+        self.bias = _param((cfg.hidden_size,), device, dtype)
+
+    def forward(self, feats: torch.Tensor) -> torch.Tensor:
+        feats = layer_norm(feats, self.ln_scale, self.ln_bias, self.eps)
+        return F.linear(feats, self.weight, self.bias).to(feats.dtype)
+
+
+class PosConvEmbedding(nn.Module):
+    """Grouped conv positional embedding with SamePad; the weight norm is
+    folded into the plain weight, as in the JAX package."""
+
+    def __init__(self, cfg: WavLMConfig, device=None, dtype=torch.float32):
+        super().__init__()
+        self.kernel = cfg.num_conv_pos_embeddings
+        self.groups = cfg.num_conv_pos_embedding_groups
+        D = cfg.hidden_size
+        self.weight = _param((D, D // self.groups, self.kernel), device, dtype)
+        self.bias = _param((D,), device, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, L, D]
+        y = F.conv1d(x.transpose(1, 2), self.weight, padding=self.kernel // 2,
+                     groups=self.groups).float()
+        y = y + self.bias.float()[None, :, None]
+        if self.kernel % 2 == 0:  # SamePad removes the trailing element
+            y = y[:, :, :-1]
+        return _gelu(y).to(x.dtype).transpose(1, 2)
+
+
+class GatedRelPosAttention(nn.Module):
+    """One gated relative-position-bias MHA. Weights are [out, in]; the GRU
+    gate projects each head's input to 8 values summed 2x4."""
+
+    def __init__(self, cfg: WavLMConfig, device=None, dtype=torch.float32):
+        super().__init__()
+        self.heads = cfg.num_attention_heads
+        self.head_dim = cfg.head_dim
+        D = cfg.hidden_size
+        for name in ("q", "k", "v", "o"):
+            setattr(self, f"{name}_w", _param((D, D), device, dtype))
+            setattr(self, f"{name}_b", _param((D,), device, dtype))
+        self.gru_w = _param((8, self.head_dim), device, dtype)
+        self.gru_b = _param((8,), device, dtype)
+        self.gru_const = _param((self.heads,), device, dtype)
+
+    def forward(self, x, position_bias, key_mask_bias, attention_fn):
+        B, L, D = x.shape
+        H, hd = self.heads, self.head_dim
+        # gate from the raw head inputs, projected in [B, L, H, hd] layout
+        proj = F.linear(x.view(B, L, H, hd), self.gru_w, self.gru_b)
+        proj = proj.view(B, L, H, 2, 4).sum(-1)
+        gates = torch.sigmoid(proj.float().permute(0, 2, 1, 3))
+        gate_a, gate_b = gates[..., 0], gates[..., 1]  # [B, H, L]
+        const = self.gru_const.float().view(1, H, 1)
+        gate = (gate_a * (gate_b * const - 1.0) + 2.0).contiguous()
+
+        def heads(t):  # [B, L, D] -> a [B, H, L, hd] view
+            return t.view(B, L, H, hd).transpose(1, 2)
+
+        q = F.linear(x, self.q_w, self.q_b).to(x.dtype) * hd**-0.5
+        k = F.linear(x, self.k_w, self.k_b).to(x.dtype)
+        v = F.linear(x, self.v_w, self.v_b).to(x.dtype)
+        out = attention_fn(heads(q), heads(k), heads(v), position_bias, gate,
+                           key_mask_bias)
+        out = out.transpose(1, 2).reshape(B, L, D)
+        return F.linear(out, self.o_w, self.o_b).to(x.dtype)
+
+
+class FeedForward(nn.Module):
+    def __init__(self, cfg: WavLMConfig, device=None, dtype=torch.float32):
+        super().__init__()
+        D, Fd = cfg.hidden_size, cfg.intermediate_size
+        self.w1 = _param((Fd, D), device, dtype)
+        self.b1 = _param((Fd,), device, dtype)
+        self.w2 = _param((D, Fd), device, dtype)
+        self.b2 = _param((D,), device, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = _gelu(F.linear(x, self.w1, self.b1).to(x.dtype))
+        return F.linear(h, self.w2, self.b2).to(x.dtype)
+
+
+class EncoderLayer(nn.Module):
+    """Post-LN layer, or the stable pre-LN layer when
+    ``cfg.do_stable_layer_norm`` (WavLM-Large)."""
+
+    def __init__(self, cfg: WavLMConfig, device=None, dtype=torch.float32):
+        super().__init__()
+        self.stable = cfg.do_stable_layer_norm
+        self.eps = cfg.layer_norm_eps
+        self.attention = GatedRelPosAttention(cfg, device, dtype)
+        self.feed_forward = FeedForward(cfg, device, dtype)
+        D = cfg.hidden_size
+        self.ln1_s, self.ln1_b = _param((D,), device, dtype), _param((D,), device, dtype)
+        self.ln2_s, self.ln2_b = _param((D,), device, dtype), _param((D,), device, dtype)
+
+    def forward(self, x, position_bias, key_mask_bias, attention_fn):
+        eps = self.eps
+        if self.stable:
+            attn_in = layer_norm(x, self.ln1_s, self.ln1_b, eps)
+            x = x + self.attention(attn_in, position_bias, key_mask_bias, attention_fn)
+            ff_in = layer_norm(x, self.ln2_s, self.ln2_b, eps)
+            return (x + self.feed_forward(ff_in)).to(x.dtype)
+        x = x + self.attention(x, position_bias, key_mask_bias, attention_fn)
+        x = layer_norm(x, self.ln1_s, self.ln1_b, eps)
+        x = x + self.feed_forward(x)
+        return layer_norm(x, self.ln2_s, self.ln2_b, eps)
+
+
+class WavLMModel(nn.Module):
+    """WavLM: stem, feature projection, positional conv and the layer stack.
+
+    ``forward`` returns every hidden state (for tests); ``encode`` returns the
+    masked mean-pool of the selected states, pooled as the loop runs, so the
+    [N+1, B, L, D] stack never exists (the extraction path). Parameters are
+    created uninitialised on ``device``; fill them with
+    ``weights.convert.init_wavlm`` or ``load_state_dict``.
+    """
+
+    def __init__(self, cfg: WavLMConfig, device=None, dtype=torch.float32):
+        super().__init__()
+        self.cfg = cfg
+        D, H = cfg.hidden_size, cfg.num_attention_heads
+        self.feature_encoder = ConvFeatureEncoder(cfg, device, dtype)
+        self.feature_projection = FeatureProjection(cfg, device, dtype)
+        self.pos_conv = PosConvEmbedding(cfg, device, dtype)
+        self.ln_scale = _param((D,), device, dtype)
+        self.ln_bias = _param((D,), device, dtype)
+        self.rel_attn_embed = _param((cfg.num_buckets, H), device, dtype)
+        self.layers = nn.ModuleList(
+            EncoderLayer(cfg, device, dtype) for _ in range(cfg.num_hidden_layers))
+        # SpecAugment's mask embedding: training only, kept so that a JAX
+        # parameter tree converts without loss
+        self.masked_spec_embed = _param((D,), device, dtype)
+        self._buckets: dict[tuple[int, torch.device], torch.Tensor] = {}
+
+    def position_bias(self, seq_len: int) -> torch.Tensor:
+        """[H, L, L] f32 bias from the bucket embedding table."""
+        device = self.rel_attn_embed.device
+        key = (seq_len, device)
+        if key not in self._buckets:
+            cfg = self.cfg
+            self._buckets[key] = torch.from_numpy(relative_position_buckets(
+                seq_len, cfg.num_buckets, cfg.max_bucket_distance).astype(np.int64)).to(device)
+        return self.rel_attn_embed[self._buckets[key]].permute(2, 0, 1).float().contiguous()
+
+    def _run(self, waveform, sample_lengths, collect, attention_fn):
+        cfg = self.cfg
+        attention_fn = attention_fn or gated_relpos_attention
+        feats = self.feature_encoder(waveform, sample_lengths)
+        hidden = self.feature_projection(feats)
+        B, L, _ = hidden.shape
+        if sample_lengths is not None:
+            frame_lengths = wavlm_feature_lengths(cfg, sample_lengths)
+            frame_mask = torch.arange(L, device=hidden.device)[None, :] < frame_lengths[:, None]
+            hidden = hidden * frame_mask[:, :, None].to(hidden.dtype)
+            key_mask_bias = torch.where(frame_mask, 0.0, -1e9).float()
+        else:
+            frame_lengths = torch.full((B,), L, dtype=torch.long, device=hidden.device)
+            key_mask_bias = torch.zeros((B, L), dtype=torch.float32, device=hidden.device)
+        hidden = hidden + self.pos_conv(hidden)
+        if not cfg.do_stable_layer_norm:
+            hidden = layer_norm(hidden, self.ln_scale, self.ln_bias, cfg.layer_norm_eps)
+        position_bias = self.position_bias(L)
+        collected = []
+        for i, layer in enumerate(self.layers):
+            collected.append(collect(i, hidden, frame_lengths))  # layer i's INPUT
+            hidden = layer(hidden, position_bias, key_mask_bias, attention_fn).to(hidden.dtype)
+        if cfg.do_stable_layer_norm:
+            hidden = layer_norm(hidden, self.ln_scale, self.ln_bias, cfg.layer_norm_eps)
+        collected.append(collect(len(self.layers), hidden, frame_lengths))
+        return hidden, collected, frame_lengths
+
+    @torch.inference_mode()
+    def forward(self, waveform, sample_lengths=None):
+        """waveform [B, T] f32 (frontend-normalised); sample_lengths [B] true
+        sample counts. Returns (last [B, L, D], hidden states [N+1, B, L, D],
+        frame lengths [B])."""
+        last, states, frame_lengths = self._run(
+            waveform, sample_lengths, lambda i, h, fl: h, None)
+        return last, torch.stack(states), frame_lengths
+
+    @torch.inference_mode()
+    def encode(self, waveform, layer_indices, sample_lengths=None, attention_fn=None):
+        """Masked mean-pooled hidden states at ``layer_indices``:
+        [len(layer_indices), B, D] f32. ``attention_fn`` replaces the
+        attention core (the default is the kernel wrapper)."""
+        wanted = set(layer_indices)
+
+        def collect(i, h, frame_lengths):
+            return masked_mean_pool(h, frame_lengths) if i in wanted else None
+
+        _, pooled, _ = self._run(waveform, sample_lengths, collect, attention_fn)
+        return torch.stack([pooled[i] for i in layer_indices])
