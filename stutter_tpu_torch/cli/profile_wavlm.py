@@ -47,7 +47,8 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from stutter_tpu_torch.extract.batcher import BucketBatcher
-    from stutter_tpu_torch.extract.pipeline import WavLMExtractor, _no_tf32, resolve_device
+    from stutter_tpu_torch.extract.pipeline import WavLMExtractor, resolve_device
+    from stutter_tpu_torch.ops.precision import no_tf32
     from stutter_tpu_torch.frontend.wavlm_frontend import wavlm_prepare_batch
     from stutter_tpu_torch.models.wavlm import WavLMConfig, wavlm_feature_lengths
     from stutter_tpu_torch.ops.wavlm_attention import gated_relpos_attention
@@ -83,7 +84,7 @@ def main(argv=None) -> int:
             times.append(e0.elapsed_time(e1))
         return statistics.median(times)
 
-    precision = _no_tf32() if args.preset == "fidelity" else contextlib.nullcontext()
+    precision = no_tf32() if args.preset == "fidelity" else contextlib.nullcontext()
     with torch.inference_mode(), precision:
         feats = model.feature_encoder(wave, lengths)
         hidden = model.feature_projection(feats)

@@ -11,8 +11,8 @@
 //
 // with q pre-scaled by head_dim^-0.5, bias [H, L, L] f32 shared by the batch,
 // gate [B, H, L] f32 and mask [B, L] f32 (0 for a valid key, -1e9 for a
-// padded one). Scores, softmax and both sums are f32; the output is stored in
-// the input type.
+// padded one). The tiles are those of attention_tiles.cuh, with the
+// GatedBias score policy below.
 //
 // What bounds it on this card. At the 3 s bucket (L = 160, d = 64) one
 // (clip, head) reads q, k, v and writes out, 80 KB in bf16, for 6.6 MFLOP:
@@ -22,371 +22,39 @@
 // writing the [B, H, L, L] scores (210 MB per layer in f32 at B = 128) to
 // device memory, which is what the plain PyTorch version does several times.
 //
-// What the design does about that (both kernels).
-// - One thread block per (clip, 32-row query tile, head), with the clip index
-//   fastest in the grid: blocks in flight share (head, query tile), so the
-//   bias rows they read (145 MB in all at L = 1504, more than the 50 MB L2)
-//   are fetched from device memory about once per head and tile, not once per
-//   clip.
-// - K and V go through shared memory in 32-key tiles; the softmax is online
-//   (running max and sum per row), so a tile's scores live only in registers
-//   whatever L is, and gate * bias + mask is formed there as the scores are.
-// - The ragged edge (L not a multiple of 32) is masked here: padded query
-//   rows are computed on zeros and not stored, keys past L score -inf. The
-//   caller never pads L.
-// - q, k, v and out may be any [B, H, L, 64] view whose last dimension is
-//   contiguous (the model passes its [B, L, H, 64] projections transposed),
-//   so no copy is made to reach a head-major layout.
-//
-// bf16 (the fast preset): both products on the tensor cores with mma.sync
-// m16n8k16 (bf16 in, f32 accumulate), two warps of 16 query rows each. The
-// probabilities are rounded to bf16 for the second product, as the Pallas
-// kernel rounds them to v's dtype; the row sums stay f32. Rows are loaded as
-// 16-byte vectors, so the wrapper requires 16-byte aligned rows.
-// f32 (the fidelity preset): scalar f32 FMAs (the tensor cores would round to
-// TF32), each thread two query rows.
-// Not yet: wgmma, TMA or cp.async staging, and overlap of a tile's loads with
-// the previous tile's products.
+// What the design does about that, beyond the shared tiles: the clip index
+// is fastest in the grid, so blocks in flight share (head, query tile) and
+// the bias rows they read (145 MB in all at L = 1504, more than the 50 MB L2)
+// are fetched from device memory about once per head and tile, not once per
+// clip; gate * bias + mask is formed in registers as the scores are.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <math_constants.h>
+#include "attention_tiles.cuh"
 
 namespace {
 
-constexpr int kHeadDim = 64;
-constexpr int kBlockQ = 32;  // query rows per block
-constexpr int kBlockK = 32;  // keys per shared-memory tile
-
-// ---------------------------------------------------------------------------
-// f32: scalar FMAs. Thread t owns query rows 2*(t/8) + {0, 1} of the tile,
-// score columns (t%8) + 8*m of each key tile (m < 4) and output columns
-// (t%8) + 8*n (n < 8). The 8 lanes that share a row are adjacent in one warp,
-// so row maxima and sums reduce with three xor shuffles.
-// ---------------------------------------------------------------------------
-
-constexpr int kF32Threads = 128;
-
-__global__ void __launch_bounds__(kF32Threads) gated_relpos_attention_f32_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ bias,
-    const float* __restrict__ gate, const float* __restrict__ mask,
-    float* __restrict__ out, int H, int L, long long stride_b,
-    long long stride_h, long long stride_l) {
-  __shared__ float qs[kBlockQ][kHeadDim + 1];
-  __shared__ float ks[kBlockK][kHeadDim + 1];
-  __shared__ float vs[kBlockK][kHeadDim];
-  __shared__ float ps[kBlockQ][kBlockK + 1];
-
-  const int b = blockIdx.x;
-  const int q0 = blockIdx.y * kBlockQ;
-  const int h = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int ty = tid >> 3;
-  const int tx = tid & 7;
-  const long long base = b * stride_b + h * stride_h;
-
-  // Stage the query tile; rows past L read as zeros.
-  for (int e = tid; e < kBlockQ * kHeadDim; e += kF32Threads) {
-    const int r = e / kHeadDim, c = e % kHeadDim;
-    const int qi = q0 + r;
-    qs[r][c] = qi < L ? q[base + qi * stride_l + c] : 0.f;
-  }
-
-  float g[2];
+struct GatedBias {
+  struct Params {
+    const float* bias;  // [H, L, L]
+    const float* gate;  // [B, H, L]
+    const float* mask;  // [B, L]
+  };
   const float* bias_row[2];
-  for (int a = 0; a < 2; ++a) {
-    const int qi = q0 + 2 * ty + a;
-    const bool ok = qi < L;
-    g[a] = ok ? gate[((long long)b * H + h) * L + qi] : 0.f;
-    bias_row[a] = bias + ((long long)h * L + (ok ? qi : 0)) * L;
-  }
-  const float* mask_row = mask + (long long)b * L;
-
-  float row_max[2] = {-CUDART_INF_F, -CUDART_INF_F};
-  float row_sum[2] = {0.f, 0.f};
-  float acc[2][8];
-  for (int a = 0; a < 2; ++a)
-    for (int n = 0; n < 8; ++n) acc[a][n] = 0.f;
-
-  for (int k0 = 0; k0 < L; k0 += kBlockK) {
-    __syncthreads();  // the previous tile's readers are done with ks/vs/ps
-    for (int e = tid; e < kBlockK * kHeadDim; e += kF32Threads) {
-      const int r = e / kHeadDim, c = e % kHeadDim;
-      const int kj = k0 + r;
-      const bool ok = kj < L;
-      const long long off = base + kj * stride_l + c;
-      ks[r][c] = ok ? k[off] : 0.f;
-      vs[r][c] = ok ? v[off] : 0.f;
-    }
-    __syncthreads();
-
-    float s[2][4];
-    for (int a = 0; a < 2; ++a)
-      for (int m = 0; m < 4; ++m) s[a][m] = 0.f;
-#pragma unroll 16
-    for (int c = 0; c < kHeadDim; ++c) {
-      const float q_a = qs[2 * ty][c];
-      const float q_b = qs[2 * ty + 1][c];
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const float kv = ks[tx + 8 * m][c];
-        s[0][m] = fmaf(q_a, kv, s[0][m]);
-        s[1][m] = fmaf(q_b, kv, s[1][m]);
-      }
-    }
-
-#pragma unroll
-    for (int a = 0; a < 2; ++a) {
-      float tile_max = -CUDART_INF_F;
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const int kj = k0 + tx + 8 * m;
-        s[a][m] = kj < L ? s[a][m] + g[a] * bias_row[a][kj] + mask_row[kj]
-                         : -CUDART_INF_F;
-        tile_max = fmaxf(tile_max, s[a][m]);
-      }
-      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
-      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
-      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 4));
-      // Key 0 lies in the first tile, so the running max is finite from then on.
-      const float new_max = fmaxf(row_max[a], tile_max);
-      const float rescale = expf(row_max[a] - new_max);
-      float tile_sum = 0.f;
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const float p = expf(s[a][m] - new_max);
-        ps[2 * ty + a][tx + 8 * m] = p;
-        tile_sum += p;
-      }
-      tile_sum += __shfl_xor_sync(0xffffffffu, tile_sum, 1);
-      tile_sum += __shfl_xor_sync(0xffffffffu, tile_sum, 2);
-      tile_sum += __shfl_xor_sync(0xffffffffu, tile_sum, 4);
-      row_sum[a] = row_sum[a] * rescale + tile_sum;
-      row_max[a] = new_max;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) acc[a][n] *= rescale;
-    }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int j = 0; j < kBlockK; ++j) {
-      const float p_a = ps[2 * ty][j];
-      const float p_b = ps[2 * ty + 1][j];
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const float vv = vs[j][tx + 8 * n];
-        acc[0][n] = fmaf(p_a, vv, acc[0][n]);
-        acc[1][n] = fmaf(p_b, vv, acc[1][n]);
-      }
-    }
-  }
-
-  for (int a = 0; a < 2; ++a) {
-    const int qi = q0 + 2 * ty + a;
-    if (qi >= L) continue;
-    const float inv = 1.f / row_sum[a];
-    float* dst = out + base + qi * stride_l;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) dst[tx + 8 * n] = acc[a][n] * inv;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16: mma.sync m16n8k16. Warp w owns query rows 16*w .. 16*w + 15 of the
-// tile. In the fragment layouts of the PTX ISA, lane l = 4*grp + tig holds
-// score/output rows grp and grp + 8 of its warp's 16, at columns 2*tig and
-// 2*tig + 1 of each 8-wide n-tile; the 4 lanes of a row reduce with xor 1, 2.
-// ---------------------------------------------------------------------------
-
-constexpr int kBf16Warps = kBlockQ / 16;
-constexpr int kBf16Threads = 32 * kBf16Warps;
-constexpr int kPad = 8;  // bf16 per smem row: 144-byte rows, conflict-free fragment loads
-
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// B fragments of v for one 16-key k-step and one 8-wide n-tile of the head
-// dimension, from v stored [key][d]: the transposing load gives lane
-// 4*grp + tig the pairs (key 2*tig, 2*tig+1; d grp) of keys 0-7 and 8-15.
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1,
-                                                  const void* row) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(b0), "=r"(b1)
-               : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__global__ void __launch_bounds__(kBf16Threads) gated_relpos_attention_bf16_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
-    const float* __restrict__ gate, const float* __restrict__ mask,
-    __nv_bfloat16* __restrict__ out, int H, int L, long long stride_b,
-    long long stride_h, long long stride_l) {
-  __shared__ __align__(16) __nv_bfloat16 qs[kBlockQ][kHeadDim + kPad];
-  __shared__ __align__(16) __nv_bfloat16 ks[kBlockK][kHeadDim + kPad];
-  __shared__ __align__(16) __nv_bfloat16 vs[kBlockK][kHeadDim + kPad];
-  constexpr int kChunks = kHeadDim / 8;  // 16-byte vectors per row
-
-  const int b = blockIdx.x;
-  const int q0 = blockIdx.y * kBlockQ;
-  const int h = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int grp = (tid & 31) >> 2;
-  const int tig = tid & 3;
-  const long long base = b * stride_b + h * stride_h;
-
-  // Stage the query tile (rows past L are zeros), then keep this warp's rows
-  // in registers as A fragments for the four 16-wide k-steps over d.
-  for (int e = tid; e < kBlockQ * kChunks; e += kBf16Threads) {
-    const int r = e / kChunks, c = (e % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < L) val = *reinterpret_cast<const uint4*>(q + base + (q0 + r) * stride_l + c);
-    *reinterpret_cast<uint4*>(&qs[r][c]) = val;
-  }
-  __syncthreads();
-  const int r_lo = 16 * warp + grp;  // this lane's rows: r_lo and r_lo + 8
-  uint32_t qa[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const int c = 16 * kk + 2 * tig;
-    qa[kk][0] = ld_pair(&qs[r_lo][c]);
-    qa[kk][1] = ld_pair(&qs[r_lo + 8][c]);
-    qa[kk][2] = ld_pair(&qs[r_lo][c + 8]);
-    qa[kk][3] = ld_pair(&qs[r_lo + 8][c + 8]);
-  }
-
   float g[2];
-  const float* bias_row[2];
-  for (int a = 0; a < 2; ++a) {
-    const int qi = q0 + r_lo + 8 * a;
-    const bool ok = qi < L;
-    g[a] = ok ? gate[((long long)b * H + h) * L + qi] : 0.f;
-    bias_row[a] = bias + ((long long)h * L + (ok ? qi : 0)) * L;
-  }
-  const float* mask_row = mask + (long long)b * L;
+  const float* mask_row;
 
-  float row_max[2] = {-CUDART_INF_F, -CUDART_INF_F};
-  float row_sum[2] = {0.f, 0.f};  // this lane's share; the quad sums at the end
-  float o[kHeadDim / 8][4];
-#pragma unroll
-  for (int n = 0; n < kHeadDim / 8; ++n)
-    for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
-
-  for (int k0 = 0; k0 < L; k0 += kBlockK) {
-    __syncthreads();  // the previous tile's readers are done with ks/vs
-    for (int e = tid; e < kBlockK * kChunks; e += kBf16Threads) {
-      const int r = e / kChunks, c = (e % kChunks) * 8;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (k0 + r < L) {
-        const long long off = base + (k0 + r) * stride_l + c;
-        kv = *reinterpret_cast<const uint4*>(k + off);
-        vv = *reinterpret_cast<const uint4*>(v + off);
-      }
-      *reinterpret_cast<uint4*>(&ks[r][c]) = kv;
-      *reinterpret_cast<uint4*>(&vs[r][c]) = vv;
-    }
-    __syncthreads();
-
-    // s = q . k^T for 4 n-tiles of 8 keys
-    float s[kBlockK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBlockK / 8; ++nt) {
-      for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const __nv_bfloat16* krow = &ks[8 * nt + grp][16 * kk + 2 * tig];
-        mma_16816(s[nt], qa[kk], ld_pair(krow), ld_pair(krow + 8));
-      }
-    }
-
-    // scores -> unnormalised probabilities; element i of n-tile nt is row
-    // r_lo + 8*(i/2), key k0 + 8*nt + 2*tig + i%2
-#pragma unroll
+  __device__ GatedBias(const Params& p, int b, int h, const int (&rows)[2], int H, int L) {
     for (int a = 0; a < 2; ++a) {
-      float tile_max = -CUDART_INF_F;
-#pragma unroll
-      for (int nt = 0; nt < kBlockK / 8; ++nt)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int kj = k0 + 8 * nt + 2 * tig + j;
-          float& x = s[nt][2 * a + j];
-          x = kj < L ? x + g[a] * bias_row[a][kj] + mask_row[kj] : -CUDART_INF_F;
-          tile_max = fmaxf(tile_max, x);
-        }
-      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
-      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
-      // Key 0 lies in the first tile, so the running max is finite from then on.
-      const float new_max = fmaxf(row_max[a], tile_max);
-      const float rescale = expf(row_max[a] - new_max);
-      float part = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < kBlockK / 8; ++nt)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          float& x = s[nt][2 * a + j];
-          x = expf(x - new_max);
-          part += x;
-        }
-      row_sum[a] = row_sum[a] * rescale + part;
-      row_max[a] = new_max;
-#pragma unroll
-      for (int n = 0; n < kHeadDim / 8; ++n) {
-        o[n][2 * a] *= rescale;
-        o[n][2 * a + 1] *= rescale;
-      }
+      const bool ok = rows[a] < L;  // padded query rows read row 0 and are not stored
+      g[a] = ok ? p.gate[((long long)b * H + h) * L + rows[a]] : 0.f;
+      bias_row[a] = p.bias + ((long long)h * L + (ok ? rows[a] : 0)) * L;
     }
-
-    // out += p . v: the score accumulators of n-tiles 2*kk, 2*kk+1 are the A
-    // fragment of k-step kk (16 keys)
-#pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const int lane = tid & 31;
-#pragma unroll
-      for (int n = 0; n < kHeadDim / 8; ++n) {
-        uint32_t b0, b1;
-        ldmatrix_x2_trans(b0, b1, &vs[16 * kk + (lane & 15)][8 * n]);
-        mma_16816(o[n], pa, b0, b1);
-      }
-    }
+    mask_row = p.mask + (long long)b * L;
   }
 
-#pragma unroll
-  for (int a = 0; a < 2; ++a) {
-    row_sum[a] += __shfl_xor_sync(0xffffffffu, row_sum[a], 1);
-    row_sum[a] += __shfl_xor_sync(0xffffffffu, row_sum[a], 2);
-    const int qi = q0 + r_lo + 8 * a;
-    if (qi >= L) continue;
-    const float inv = 1.f / row_sum[a];
-    __nv_bfloat16* dst = out + base + qi * stride_l + 2 * tig;
-#pragma unroll
-    for (int n = 0; n < kHeadDim / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
-          __floats2bfloat162_rn(o[n][2 * a] * inv, o[n][2 * a + 1] * inv);
+  __device__ __forceinline__ float operator()(int a, int kj, float s) const {
+    return s + g[a] * bias_row[a][kj] + mask_row[kj];
   }
-}
+};
 
 }  // namespace
 
@@ -400,24 +68,9 @@ extern "C" int wavlm_gated_relpos_attention(
     const void* gate, const void* mask, void* out, int B, int H, int L,
     long long stride_b, long long stride_h, long long stride_l, int dtype,
     void* stream) {
-  if (B <= 0 || H <= 0 || L <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid(B, (L + kBlockQ - 1) / kBlockQ, H);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* bias_f = static_cast<const float*>(bias);
-  const float* gate_f = static_cast<const float*>(gate);
-  const float* mask_f = static_cast<const float*>(mask);
-  if (dtype == 0) {
-    gated_relpos_attention_f32_kernel<<<grid, kF32Threads, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), bias_f, gate_f, mask_f,
-        static_cast<float*>(out), H, L, stride_b, stride_h, stride_l);
-  } else if (dtype == 1) {
-    gated_relpos_attention_bf16_kernel<<<grid, kBf16Threads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), bias_f, gate_f, mask_f,
-        static_cast<__nv_bfloat16*>(out), H, L, stride_b, stride_h, stride_l);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  const GatedBias::Params params{static_cast<const float*>(bias),
+                                 static_cast<const float*>(gate),
+                                 static_cast<const float*>(mask)};
+  return launch_attention<GatedBias>(q, k, v, params, out, B, H, L, stride_b, stride_h,
+                                     stride_l, dtype, static_cast<cudaStream_t>(stream));
 }

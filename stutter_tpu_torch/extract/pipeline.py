@@ -1,11 +1,12 @@
-"""Batched, resumable WavLM embedding extraction on one device.
+"""Batched, resumable WavLM and Whisper embedding extraction on one device.
 
-Counterpart of ``stutter_tpu/extract/pipeline.py`` for WavLM: the split loop
-feeds length-bucketed batches through ``WavLMExtractor`` and writes the
-reference's .npy+CSV store with checkpoint/resume. ``submit`` enqueues a
-batch's device work and the copy of its pooled result on the current CUDA
-stream without waiting for either, and ``collect`` waits for that copy alone,
-so the pipeline keeps one batch in flight while it stores the previous one.
+Counterpart of ``stutter_tpu/extract/pipeline.py``: the split loop feeds
+length-bucketed batches through ``WavLMExtractor`` or ``WhisperExtractor``
+and writes the reference's .npy+CSV store with checkpoint/resume. ``submit``
+enqueues a batch's device work and the copy of its pooled result on the
+current CUDA stream without waiting for either, and ``collect`` waits for
+that copy alone, so the pipeline keeps one batch in flight while it stores
+the previous one.
 """
 
 from __future__ import annotations
@@ -26,7 +27,11 @@ from stutter_tpu_torch.extract.checkpoint import (
 )
 from stutter_tpu_torch.extract.store import save_embeddings
 from stutter_tpu_torch.frontend.wavlm_frontend import wavlm_prepare_batch
+from stutter_tpu_torch.frontend.whisper_frontend import whisper_features
 from stutter_tpu_torch.models.wavlm import WavLMModel, wavlm_feature_lengths
+from stutter_tpu_torch.models.whisper import WhisperModel
+from stutter_tpu_torch.ops.logmel import WHISPER_HOP
+from stutter_tpu_torch.ops.precision import no_tf32
 
 logger = logging.getLogger("stutter_tpu_torch.extract.pipeline")
 
@@ -52,19 +57,6 @@ def encode_waves_i16(waves) -> tuple[np.ndarray, np.ndarray]:
     return q, scale
 
 
-@contextlib.contextmanager
-def _no_tf32():
-    """Full f32 for matmuls and cuDNN convolutions (cuDNN defaults to TF32)."""
-    matmul = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
-                                        allow_tf32=False):
-            yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = matmul
-
-
 def resolve_device(device: torch.device | str) -> torch.device:
     """The device asked for; a CUDA device with no card raises."""
     device = torch.device(device)
@@ -73,39 +65,27 @@ def resolve_device(device: torch.device | str) -> torch.device:
     return device
 
 
-class WavLMExtractor:
-    """Layer-selected mean-pooled WavLM embeddings.
-
-    ``model`` is a float32 ``WavLMModel``; the extractor moves it to
-    ``device`` and casts it for ``preset``."""
+class _Extractor:
+    """What both extractors share: the device, the preset's cast of the
+    float32 model, and the batch loop's submit/collect/warmup. A subclass
+    sets ``column_names`` (the order of ``_encode``'s [S, B, D] result) and
+    defines ``_encode``."""
 
     mesh = None  # single device: no data or model parallelism in this package
+    column_names: list[str]
 
-    def __init__(self, model: WavLMModel, device: torch.device | str,
-                 layer_indices: Sequence[int] | None = None, preset: str = "fidelity"):
+    def __init__(self, model, device: torch.device | str, preset: str):
         if preset not in PRESETS:
             raise ValueError(f"preset {preset!r} is not ported; choose from {sorted(PRESETS)}")
-        cfg = model.cfg
-        self.cfg = cfg
+        self.cfg = model.cfg
         self.device = resolve_device(device)
         self.preset = preset
         opts = PRESETS[preset]
         self._transfer_i16 = opts["transfer_i16"]
         self.model = model.to(device=self.device, dtype=opts["dtype"]).eval()
-        n_states = cfg.num_hidden_layers + 1
-        # reference default: [N-1, N-2, N-3, N//2] of the N+1 states
-        self.layer_indices = tuple(
-            layer_indices if layer_indices is not None
-            else (n_states - 1, n_states - 2, n_states - 3, n_states // 2))
-        self.embedding_dim = cfg.hidden_size
-        self.column_names = [f"layer_{i}" for i in self.layer_indices]
-        self.frame_align = (*cfg.stem_geometry, 16)
-
-    def frame_count(self, n_samples: int) -> int:
-        return int(wavlm_feature_lengths(self.cfg, n_samples))
 
     def _precision(self):
-        return _no_tf32() if self.preset == "fidelity" else contextlib.nullcontext()
+        return no_tf32() if self.preset == "fidelity" else contextlib.nullcontext()
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(a)
@@ -113,12 +93,13 @@ class WavLMExtractor:
             t = t.pin_memory()
         return t.to(self.device, non_blocking=True)
 
-    def _encode(self, waves: np.ndarray, scale: np.ndarray, lengths: np.ndarray):
-        w = self._to_device(waves).float() * self._to_device(scale)[:, None]
-        lens = self._to_device(lengths.astype(np.int64))
-        w = wavlm_prepare_batch(w, lens, self.cfg.do_normalize)
-        with self._precision():
-            return self.model.encode(w, self.layer_indices, sample_lengths=lens)
+    def _waves(self, waves: np.ndarray, scale: np.ndarray) -> torch.Tensor:
+        """Host batch (f32, or int16 with per-clip scales) -> f32 on the device."""
+        return self._to_device(waves).float() * self._to_device(scale)[:, None]
+
+    def _encode(self, waves: np.ndarray, scale: np.ndarray,
+                lengths: np.ndarray) -> torch.Tensor:
+        raise NotImplementedError
 
     def submit(self, batch: Batch):
         """Enqueue the batch's device work and the copy of its [S, B, D] f32
@@ -162,6 +143,75 @@ class WavLMExtractor:
         return count
 
 
+class WavLMExtractor(_Extractor):
+    """Layer-selected mean-pooled WavLM embeddings.
+
+    ``model`` is a float32 ``WavLMModel``; the extractor moves it to
+    ``device`` and casts it for ``preset``."""
+
+    def __init__(self, model: WavLMModel, device: torch.device | str,
+                 layer_indices: Sequence[int] | None = None, preset: str = "fidelity"):
+        super().__init__(model, device, preset)
+        cfg = self.cfg
+        n_states = cfg.num_hidden_layers + 1
+        # reference default: [N-1, N-2, N-3, N//2] of the N+1 states
+        self.layer_indices = tuple(
+            layer_indices if layer_indices is not None
+            else (n_states - 1, n_states - 2, n_states - 3, n_states // 2))
+        self.embedding_dim = cfg.hidden_size
+        self.column_names = [f"layer_{i}" for i in self.layer_indices]
+        self.frame_align = (*cfg.stem_geometry, 16)
+
+    def frame_count(self, n_samples: int) -> int:
+        return int(wavlm_feature_lengths(self.cfg, n_samples))
+
+    def _encode(self, waves: np.ndarray, scale: np.ndarray, lengths: np.ndarray):
+        lens = self._to_device(lengths.astype(np.int64))
+        w = wavlm_prepare_batch(self._waves(waves, scale), lens, self.cfg.do_normalize)
+        with self._precision():
+            return self.model.encode(w, self.layer_indices, sample_lengths=lens)
+
+
+class WhisperExtractor(_Extractor):
+    """Whisper encoder mean-pooled and decoder single-token embeddings.
+
+    Keeps the reference's quirks: the 30 s zero-padded mel is attended in
+    full and the encoder pool is over all 1500 frames, padding included;
+    the decoder runs exactly one step with token id 0. ``model`` is a
+    float32 ``WhisperModel``; the extractor moves it to ``device`` and casts
+    it for ``preset`` (fast: the whole tree in bf16, embeddings included)."""
+
+    preferred_buckets = (30.0,)
+
+    def __init__(self, model: WhisperModel, device: torch.device | str,
+                 encoder_indices: Sequence[int] | None = None,
+                 decoder_indices: Sequence[int] | None = None, preset: str = "fidelity"):
+        super().__init__(model, device, preset)
+        cfg = self.cfg
+        n_enc, n_dec = cfg.encoder_layers + 1, cfg.decoder_layers + 1
+        # reference: the last three hidden states of each
+        self.encoder_indices = tuple(
+            encoder_indices if encoder_indices is not None
+            else (n_enc - 1, n_enc - 2, n_enc - 3))
+        self.decoder_indices = tuple(
+            decoder_indices if decoder_indices is not None
+            else (n_dec - 1, n_dec - 2, n_dec - 3))
+        self.embedding_dim = cfg.d_model
+        self.column_names = ([f"encoder_layer_{i}" for i in self.encoder_indices]
+                             + [f"decoder_layer_{i}" for i in self.decoder_indices])
+
+    def frame_count(self, n_samples: int) -> int:
+        """True encoder frames covering n_samples of audio (mel hop 160, conv
+        stem stride 2), capped at the 1500 positions. The encoder itself
+        still pools over all 1500 padded positions."""
+        return max(1, min(self.cfg.max_source_positions, int(n_samples) // (WHISPER_HOP * 2)))
+
+    def _encode(self, waves: np.ndarray, scale: np.ndarray, lengths: np.ndarray):
+        with self._precision():
+            mel = whisper_features(self._waves(waves, scale), n_mels=self.cfg.num_mel_bins)
+            return self.model.embed(mel, self.encoder_indices, self.decoder_indices)
+
+
 class ExtractionPipeline:
     """Split loop -> bucketed batches -> device forward -> store.
 
@@ -172,8 +222,9 @@ class ExtractionPipeline:
                  checkpoint_interval: int = 50):
         self.extractor = extractor
         if batcher is None:
-            batcher = BucketBatcher(buckets_s=DEFAULT_BUCKETS_S,
-                                    frame_align=getattr(extractor, "frame_align", None))
+            batcher = BucketBatcher(
+                buckets_s=getattr(extractor, "preferred_buckets", None) or DEFAULT_BUCKETS_S,
+                frame_align=getattr(extractor, "frame_align", None))
         self.batcher = batcher
         self.checkpoint_interval = checkpoint_interval
 

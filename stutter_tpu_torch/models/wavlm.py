@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from stutter_tpu_torch.models.common import gelu, layer_norm, param
 from stutter_tpu_torch.ops.pooling import masked_mean_pool
 from stutter_tpu_torch.ops.wavlm_attention import gated_relpos_attention
 
@@ -154,33 +155,13 @@ def wavlm_feature_lengths(cfg: WavLMConfig, input_lengths):
 # ---------------------------------------------------------------------------
 
 
-def layer_norm(x: torch.Tensor, scale, bias, eps: float, dim: int = -1) -> torch.Tensor:
-    """Norm over `dim` with f32 statistics, cast back to x's dtype; scale
-    and bias broadcast along `dim`."""
-    xf = x.float()
-    mean = xf.mean(dim=dim, keepdim=True)
-    var = (xf - mean).square().mean(dim=dim, keepdim=True)
-    shape = [1] * x.dim()
-    shape[dim] = -1
-    out = (xf - mean) * torch.rsqrt(var + eps) * scale.view(shape) + bias.view(shape)
-    return out.to(x.dtype)
-
-
-def _gelu(x: torch.Tensor) -> torch.Tensor:
-    return F.gelu(x, approximate="tanh" if x.dtype == torch.bfloat16 else "none")
-
-
-def _param(shape, device, dtype) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype), requires_grad=False)
-
-
 class _ConvLayer(nn.Module):
     def __init__(self, c_in, c_out, kernel, bias, norm, device, dtype):
         super().__init__()
-        self.weight = _param((c_out, c_in, kernel), device, dtype)
-        self.bias = _param((c_out,), device, dtype) if bias else None
-        self.norm_scale = _param((c_out,), device, dtype) if norm else None
-        self.norm_bias = _param((c_out,), device, dtype) if norm else None
+        self.weight = param((c_out, c_in, kernel), device, dtype)
+        self.bias = param((c_out,), device, dtype) if bias else None
+        self.norm_scale = param((c_out,), device, dtype) if norm else None
+        self.norm_bias = param((c_out,), device, dtype) if norm else None
 
 
 class ConvFeatureEncoder(nn.Module):
@@ -232,7 +213,7 @@ class ConvFeatureEncoder(nn.Module):
                      + layer.norm_bias[None, :, None]).to(x.dtype)
             elif cfg.feat_extract_norm == "layer":
                 x = layer_norm(x, layer.norm_scale, layer.norm_bias, 1e-5, dim=1)
-            x = _gelu(x)
+            x = gelu(x)
             if mask is not None:
                 x = x * mask.to(x.dtype)
         return x.transpose(1, 2)  # [B, L, C]
@@ -245,10 +226,10 @@ class FeatureProjection(nn.Module):
         super().__init__()
         self.eps = cfg.layer_norm_eps
         c = cfg.conv_dim[-1]
-        self.ln_scale = _param((c,), device, dtype)
-        self.ln_bias = _param((c,), device, dtype)
-        self.weight = _param((cfg.hidden_size, c), device, dtype)
-        self.bias = _param((cfg.hidden_size,), device, dtype)
+        self.ln_scale = param((c,), device, dtype)
+        self.ln_bias = param((c,), device, dtype)
+        self.weight = param((cfg.hidden_size, c), device, dtype)
+        self.bias = param((cfg.hidden_size,), device, dtype)
 
     def forward(self, feats: torch.Tensor) -> torch.Tensor:
         feats = layer_norm(feats, self.ln_scale, self.ln_bias, self.eps)
@@ -264,8 +245,8 @@ class PosConvEmbedding(nn.Module):
         self.kernel = cfg.num_conv_pos_embeddings
         self.groups = cfg.num_conv_pos_embedding_groups
         D = cfg.hidden_size
-        self.weight = _param((D, D // self.groups, self.kernel), device, dtype)
-        self.bias = _param((D,), device, dtype)
+        self.weight = param((D, D // self.groups, self.kernel), device, dtype)
+        self.bias = param((D,), device, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, L, D]
         y = F.conv1d(x.transpose(1, 2), self.weight, padding=self.kernel // 2,
@@ -273,7 +254,7 @@ class PosConvEmbedding(nn.Module):
         y = y + self.bias.float()[None, :, None]
         if self.kernel % 2 == 0:  # SamePad removes the trailing element
             y = y[:, :, :-1]
-        return _gelu(y).to(x.dtype).transpose(1, 2)
+        return gelu(y).to(x.dtype).transpose(1, 2)
 
 
 class GatedRelPosAttention(nn.Module):
@@ -286,11 +267,11 @@ class GatedRelPosAttention(nn.Module):
         self.head_dim = cfg.head_dim
         D = cfg.hidden_size
         for name in ("q", "k", "v", "o"):
-            setattr(self, f"{name}_w", _param((D, D), device, dtype))
-            setattr(self, f"{name}_b", _param((D,), device, dtype))
-        self.gru_w = _param((8, self.head_dim), device, dtype)
-        self.gru_b = _param((8,), device, dtype)
-        self.gru_const = _param((self.heads,), device, dtype)
+            setattr(self, f"{name}_w", param((D, D), device, dtype))
+            setattr(self, f"{name}_b", param((D,), device, dtype))
+        self.gru_w = param((8, self.head_dim), device, dtype)
+        self.gru_b = param((8,), device, dtype)
+        self.gru_const = param((self.heads,), device, dtype)
 
     def forward(self, x, position_bias, key_mask_bias, attention_fn):
         B, L, D = x.shape
@@ -319,13 +300,13 @@ class FeedForward(nn.Module):
     def __init__(self, cfg: WavLMConfig, device=None, dtype=torch.float32):
         super().__init__()
         D, Fd = cfg.hidden_size, cfg.intermediate_size
-        self.w1 = _param((Fd, D), device, dtype)
-        self.b1 = _param((Fd,), device, dtype)
-        self.w2 = _param((D, Fd), device, dtype)
-        self.b2 = _param((D,), device, dtype)
+        self.w1 = param((Fd, D), device, dtype)
+        self.b1 = param((Fd,), device, dtype)
+        self.w2 = param((D, Fd), device, dtype)
+        self.b2 = param((D,), device, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = _gelu(F.linear(x, self.w1, self.b1).to(x.dtype))
+        h = gelu(F.linear(x, self.w1, self.b1).to(x.dtype))
         return F.linear(h, self.w2, self.b2).to(x.dtype)
 
 
@@ -340,8 +321,8 @@ class EncoderLayer(nn.Module):
         self.attention = GatedRelPosAttention(cfg, device, dtype)
         self.feed_forward = FeedForward(cfg, device, dtype)
         D = cfg.hidden_size
-        self.ln1_s, self.ln1_b = _param((D,), device, dtype), _param((D,), device, dtype)
-        self.ln2_s, self.ln2_b = _param((D,), device, dtype), _param((D,), device, dtype)
+        self.ln1_s, self.ln1_b = param((D,), device, dtype), param((D,), device, dtype)
+        self.ln2_s, self.ln2_b = param((D,), device, dtype), param((D,), device, dtype)
 
     def forward(self, x, position_bias, key_mask_bias, attention_fn):
         eps = self.eps
@@ -373,14 +354,14 @@ class WavLMModel(nn.Module):
         self.feature_encoder = ConvFeatureEncoder(cfg, device, dtype)
         self.feature_projection = FeatureProjection(cfg, device, dtype)
         self.pos_conv = PosConvEmbedding(cfg, device, dtype)
-        self.ln_scale = _param((D,), device, dtype)
-        self.ln_bias = _param((D,), device, dtype)
-        self.rel_attn_embed = _param((cfg.num_buckets, H), device, dtype)
+        self.ln_scale = param((D,), device, dtype)
+        self.ln_bias = param((D,), device, dtype)
+        self.rel_attn_embed = param((cfg.num_buckets, H), device, dtype)
         self.layers = nn.ModuleList(
             EncoderLayer(cfg, device, dtype) for _ in range(cfg.num_hidden_layers))
         # SpecAugment's mask embedding: training only, kept so that a JAX
         # parameter tree converts without loss
-        self.masked_spec_embed = _param((D,), device, dtype)
+        self.masked_spec_embed = param((D,), device, dtype)
         self._buckets: dict[tuple[int, torch.device], torch.Tensor] = {}
 
     def position_bias(self, seq_len: int) -> torch.Tensor:

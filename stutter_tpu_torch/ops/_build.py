@@ -1,11 +1,13 @@
 """Build and load the package's CUDA kernels.
 
 Every ``*.cu`` under ``stutter_tpu_torch/csrc/`` is compiled by ``nvcc`` for
-Hopper (``sm_90a``) into one shared library with a plain C interface, which is
+Hopper (``sm_90a``), one ``nvcc`` per source, all started together, and the
+objects are linked into one shared library with a plain C interface, which is
 loaded with ``ctypes``. The library goes into ``build/stutter_tpu_torch/`` at
-the repository root, named by a hash of the sources and flags, and is built
-at first use: a checkout with no build directory builds its kernels the first
-time one is launched, and a changed source builds a new library.
+the repository root, named by a hash of the sources (``*.cu`` and the
+``*.cuh`` headers they share) and flags, and is built at first use: a
+checkout with no build directory builds its kernels the first time one is
+launched, and a changed source builds a new library.
 """
 
 from __future__ import annotations
@@ -21,10 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "stutter_tpu_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _p = ctypes.c_void_p
 _i = ctypes.c_int
@@ -33,6 +33,8 @@ _ll = ctypes.c_longlong
 SIGNATURES = {
     "wavlm_gated_relpos_attention": (
         [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _ll, _ll, _ll, _i, _p], _i),
+    "flash_mha": ([_p, _p, _p, _p, _p, _i, _i, _i, _ll, _ll, _ll, _i, _p], _i),
+    "whisper_log_mel": ([_p, _p, _p, _p, _i, _i, _p], _i),
 }
 
 
@@ -51,7 +53,7 @@ def _sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
     for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -67,13 +69,33 @@ def build() -> tuple[Path, float]:
         return lib, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"kernel build failed ({' '.join(cmd)}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent build sees a whole library
+    objs, procs = [], []
+    try:
+        for src in _sources():  # one nvcc per source, all at once
+            obj = tmp.with_name(f"{tmp.name}.{src.stem}.o")
+            cmd = [nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+            objs.append(obj)
+        for cmd, proc in procs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"kernel build failed ({' '.join(cmd)}):\n{out}")
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"kernel link failed ({' '.join(cmd)}):\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, lib)  # atomic: a concurrent build sees a whole library
+    finally:
+        for _, proc in procs:  # on a failure, stop the compilers still running
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return lib, time.perf_counter() - t0
 
 

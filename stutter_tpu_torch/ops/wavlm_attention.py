@@ -16,8 +16,7 @@ from __future__ import annotations
 
 import torch
 
-HEAD_DIM = 64
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+from stutter_tpu_torch.ops._attention import DTYPE_CODES, check_qkv, empty_like_q
 
 
 def gated_relpos_attention_reference(q, k, v, position_bias, gate, key_mask_bias):
@@ -30,33 +29,14 @@ def gated_relpos_attention_reference(q, k, v, position_bias, gate, key_mask_bias
 
 
 def _check(q, k, v, position_bias, gate, key_mask_bias) -> None:
-    if q.dim() != 4:
-        raise ValueError(f"q must be [B, H, L, d], got shape {tuple(q.shape)}")
-    B, H, L, d = q.shape
-    if d != HEAD_DIM:
-        raise ValueError(f"the kernel takes head_dim {HEAD_DIM}, got {d}")
-    if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"the kernel takes float32 or bfloat16, got {q.dtype}")
-    for name, t in (("k", k), ("v", v)):
-        if t.shape != q.shape or t.dtype != q.dtype:
-            raise ValueError(f"{name} is {t.dtype} {tuple(t.shape)}, "
-                             f"q is {q.dtype} {tuple(q.shape)}")
-        if t.stride() != q.stride():
-            raise ValueError(f"{name} strides {t.stride()} differ from q's {q.stride()}")
-    if q.stride(-1) != 1:
-        raise ValueError("the head dimension must be contiguous")
-    if q.dtype == torch.bfloat16 and (
-            any(s % 8 for s in q.stride()[:3])
-            or any(t.data_ptr() % 16 for t in (q, k, v))):
-        raise ValueError("the bf16 kernel loads 16-byte rows: strides must be "
-                         f"multiples of 8 and data 16-byte aligned, got {q.stride()}")
+    check_qkv(q, k, v)
+    B, H, L, _ = q.shape
     expect = {"position_bias": (position_bias, (H, L, L)),
               "gate": (gate, (B, H, L)), "key_mask_bias": (key_mask_bias, (B, L))}
     for name, (t, shape) in expect.items():
         if tuple(t.shape) != shape or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 {shape}, got "
                              f"{t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}")
-    for t in (k, v, position_bias, gate, key_mask_bias):
         if t.device != q.device:
             raise ValueError(f"all inputs must be on {q.device}, found one on {t.device}")
 
@@ -75,9 +55,7 @@ def gated_relpos_attention(q, k, v, position_bias, gate, key_mask_bias):
     from stutter_tpu_torch.ops._build import kernel_library
 
     lib = kernel_library()
-    out = torch.empty_like(q)
-    if out.stride() != q.stride():
-        raise ValueError(f"cannot lay the output out like q (strides {q.stride()})")
+    out = empty_like_q(q)
     B, H, L, _ = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -85,7 +63,7 @@ def gated_relpos_attention(q, k, v, position_bias, gate, key_mask_bias):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), position_bias.data_ptr(),
             gate.data_ptr(), key_mask_bias.data_ptr(), out.data_ptr(),
             B, H, L, q.stride(0), q.stride(1), q.stride(2),
-            _DTYPE_CODES[q.dtype], stream)
+            DTYPE_CODES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"wavlm_gated_relpos_attention launch failed: CUDA error {rc}")
     gated_relpos_attention.launches += 1

@@ -1,17 +1,18 @@
-"""WavLM parameters for the port: from the JAX package's pytree, or seeded.
+"""WavLM and Whisper parameters for the port: from the JAX package's pytree, or seeded.
 
-``wavlm_params_from_numpy`` maps the parameter pytree of
-``stutter_tpu.models.wavlm.init_wavlm_params`` (or of the JAX package's HF
-converter), given as numpy arrays, onto ``WavLMModel``'s state dict: the
-stacked leading layer axis is split into one entry per layer, and dense
-weights go from JAX's [in, out] to PyTorch's [out, in]. Every leaf must be
-used exactly once.
+``wavlm_params_from_numpy`` and ``whisper_params_from_numpy`` map the
+parameter pytree of ``stutter_tpu.models.wavlm.init_wavlm_params`` /
+``stutter_tpu.models.whisper.init_whisper_params`` (or of the JAX package's
+HF converters), given as numpy arrays, onto ``WavLMModel``'s /
+``WhisperModel``'s state dict: the stacked leading layer axis is split into
+one entry per layer, and dense weights go from JAX's [in, out] to PyTorch's
+[out, in]. Every leaf must be used exactly once.
 
-``init_wavlm`` builds a model with a seeded random init drawn like
-``init_wavlm_params`` (normal * fan_in^-0.5 weights, zero biases, unit norm
-scales), from a ``torch.Generator`` on the CPU so that the same seed gives the
-same weights on every device. Loading HF checkpoints is not in this package
-yet.
+``init_wavlm`` and ``init_whisper`` build a model with a seeded random init
+drawn like the JAX package's (normal * fan_in^-0.5 weights, zero biases, unit
+norm scales), from a ``torch.Generator`` on the CPU so that the same seed
+gives the same weights on every device. Loading HF checkpoints is not in
+this package yet.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from stutter_tpu_torch.models.wavlm import WavLMConfig, WavLMModel
+from stutter_tpu_torch.models.whisper import WhisperConfig, WhisperModel, sinusoids
 
 # per-layer JAX key -> (port name under layers.{i}, transpose [in, out] -> [out, in])
 _LAYER_KEYS = {
@@ -52,21 +54,38 @@ def _flatten(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
     return out
 
 
+class _Leaves:
+    """The flattened leaves of a pytree, each to be taken exactly once."""
+
+    def __init__(self, tree: Any):
+        self.leaves = _flatten(tree)
+        self.used: set[str] = set()
+
+    def __call__(self, path: str, transpose: bool = False) -> torch.Tensor:
+        if path not in self.leaves:
+            raise KeyError(f"parameter tree has no leaf {path!r}")
+        self.used.add(path)
+        a = self.leaves[path]
+        return torch.from_numpy(np.array(a.T if transpose else a, order="C"))
+
+    def stacked(self, path: str, n_layers: int) -> torch.Tensor:
+        t = self(path)
+        if t.shape[0] != n_layers:
+            raise ValueError(f"{path} stacks {t.shape[0]} layers, config has {n_layers}")
+        return t
+
+    def check_all_used(self) -> None:
+        unused = sorted(set(self.leaves) - self.used)
+        if unused:
+            raise ValueError(f"parameter tree leaves not used by the model: {unused}")
+
+
 def wavlm_params_from_numpy(tree: Any, cfg: WavLMConfig) -> dict[str, torch.Tensor]:
     """JAX WavLM parameter pytree (numpy leaves) -> ``WavLMModel`` state dict.
 
     Raises KeyError if a leaf the model needs is missing and ValueError if a
     leaf is left unused."""
-    leaves = _flatten(tree)
-    used: set[str] = set()
-
-    def take(path: str, transpose: bool = False) -> torch.Tensor:
-        if path not in leaves:
-            raise KeyError(f"parameter tree has no leaf {path!r}")
-        used.add(path)
-        a = leaves[path]
-        return torch.from_numpy(np.array(a.T if transpose else a, order="C"))
-
+    take = _Leaves(tree)
     state: dict[str, torch.Tensor] = {}
     for i in range(len(cfg.conv_dim)):
         src, dst = f"feature_encoder/conv_layers/{i}", f"feature_encoder.layers.{i}"
@@ -87,16 +106,56 @@ def wavlm_params_from_numpy(tree: Any, cfg: WavLMConfig) -> dict[str, torch.Tens
     state["rel_attn_embed"] = take("encoder/rel_attn_embed")
     state["masked_spec_embed"] = take("masked_spec_embed")
     for key, (name, transpose) in _LAYER_KEYS.items():
-        stacked = take(f"encoder/layers/{key}")
-        if stacked.shape[0] != cfg.num_hidden_layers:
-            raise ValueError(f"encoder/layers/{key} stacks {stacked.shape[0]} layers, "
-                             f"config has {cfg.num_hidden_layers}")
+        stacked = take.stacked(f"encoder/layers/{key}", cfg.num_hidden_layers)
         for layer in range(cfg.num_hidden_layers):
             t = stacked[layer]
             state[f"layers.{layer}.{name}"] = t.T.contiguous() if transpose else t
-    unused = sorted(set(leaves) - used)
-    if unused:
-        raise ValueError(f"parameter tree leaves not used by the model: {unused}")
+    take.check_all_used()
+    return state
+
+
+def _whisper_layer_name(key: str) -> str:
+    """Stacked JAX layer key -> the port's name under ``layers.{i}``:
+    attn_q_w -> attn.q_w, xattn_v_b -> xattn.v_b, fc1_w -> ffn.fc1_w,
+    ln1_s -> ln1_s."""
+    prefix, _, rest = key.partition("_")
+    if prefix in ("attn", "xattn"):
+        return f"{prefix}.{rest}"
+    if prefix in ("fc1", "fc2"):
+        return f"ffn.{key}"
+    return key
+
+
+def whisper_params_from_numpy(tree: Any, cfg: WhisperConfig) -> dict[str, torch.Tensor]:
+    """JAX Whisper parameter pytree (numpy leaves) -> ``WhisperModel`` state dict.
+
+    Raises KeyError if a leaf the model needs is missing and ValueError if a
+    leaf is left unused."""
+    take = _Leaves(tree)
+    state: dict[str, torch.Tensor] = {}
+    for name in ("conv1_w", "conv1_b", "conv2_w", "conv2_b", "pos_embed", "ln_s", "ln_b"):
+        state[f"encoder.{name}"] = take(f"encoder/{name}")  # convs are [out, in, k] in both
+    for name in ("embed_tokens", "pos_embed", "ln_s", "ln_b"):
+        state[f"decoder.{name}"] = take(f"decoder/{name}")
+    template = WhisperModel(cfg, device="meta").state_dict()
+    for block, n_layers in (("encoder", cfg.encoder_layers), ("decoder", cfg.decoder_layers)):
+        prefix = f"{block}/layers/"
+        for path in [p for p in take.leaves if p.startswith(prefix)]:
+            key = path[len(prefix):]
+            stacked = take.stacked(path, n_layers)
+            name = _whisper_layer_name(key)
+            for layer in range(n_layers):
+                t = stacked[layer]
+                # dense weights are [in, out] in JAX, [out, in] here
+                state[f"{block}.layers.{layer}.{name}"] = (
+                    t.T.contiguous() if key.endswith("_w") else t)
+    take.check_all_used()
+    missing = sorted(set(template) - set(state))
+    if missing:
+        raise KeyError(f"parameter tree has no leaves for {missing}")
+    extra = sorted(set(state) - set(template))
+    if extra:
+        raise ValueError(f"parameter tree leaves not used by the model: {extra}")
     return state
 
 
@@ -125,5 +184,37 @@ def init_wavlm(cfg: WavLMConfig, generator: torch.Generator,
         else:  # biases and norm shifts
             state[name] = torch.zeros(shape)
     model = WavLMModel(cfg, device=device)
+    model.load_state_dict(state, strict=True)
+    return model
+
+
+@torch.no_grad()
+def init_whisper(cfg: WhisperConfig, generator: torch.Generator,
+                 device: torch.device | str | None = None) -> WhisperModel:
+    """A float32 ``WhisperModel`` on ``device`` with a seeded random init,
+    drawn like ``init_whisper_params``: dense and conv weights normal *
+    fan_in^-0.5, token and decoder position embeddings normal * 0.02, the
+    encoder's positions sinusoidal, zero biases, unit norm scales."""
+    model = WhisperModel(cfg, device="meta")
+
+    def normal(shape, std):
+        return torch.randn(shape, generator=generator) * std
+
+    state: dict[str, torch.Tensor] = {}
+    for name, p in model.named_parameters():
+        shape, leaf = tuple(p.shape), name.rsplit(".", 1)[-1]
+        if name == "encoder.pos_embed":
+            state[name] = torch.from_numpy(sinusoids(*shape))
+        elif name in ("decoder.embed_tokens", "decoder.pos_embed"):
+            state[name] = normal(shape, 0.02)
+        elif leaf.startswith("ln") and leaf.endswith("_s"):
+            state[name] = torch.ones(shape)
+        elif p.dim() == 3:  # conv [out, in, k]
+            state[name] = normal(shape, (shape[1] * shape[2]) ** -0.5)
+        elif p.dim() == 2:  # dense [out, in]
+            state[name] = normal(shape, shape[1] ** -0.5)
+        else:  # biases and norm shifts
+            state[name] = torch.zeros(shape)
+    model = WhisperModel(cfg, device=device)
     model.load_state_dict(state, strict=True)
     return model

@@ -267,6 +267,10 @@ def test_port_imports_neither_jax_nor_pandas():
         "import sys\n"
         "import stutter_tpu_torch, stutter_tpu_torch.extract.pipeline\n"
         "import stutter_tpu_torch.cli.extract_wavlm, stutter_tpu_torch.cli.profile_wavlm\n"
+        "import stutter_tpu_torch.cli.extract_whisper, stutter_tpu_torch.cli.profile_whisper\n"
+        "import stutter_tpu_torch.frontend.whisper_frontend, stutter_tpu_torch.models.whisper\n"
+        "import stutter_tpu_torch.ops.logmel, stutter_tpu_torch.ops.flash_mha\n"
+        "import stutter_tpu_torch.ops.mel, stutter_tpu_torch.weights.convert\n"
         "bad = [m for m in sys.modules if m in ('jax', 'pandas') or m == 'stutter_tpu'"
         " or m.startswith(('jax.', 'pandas.', 'stutter_tpu.'))]\n"
         "assert not bad, bad\n"
