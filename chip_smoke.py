@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's WavLM-Large and Whisper-large extraction on one NVIDIA GPU and check it.
+"""Run the PyTorch port's WavLM-Large and Whisper-large extraction and WavLM-Large
+fine-tuning on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
@@ -10,6 +11,11 @@ Phases, one line each on stdout ([time] lines give each phase's seconds):
 3. kernel: the WavLM attention kernel against its plain PyTorch version on
    the card, at the extraction path's shapes and a ragged length, with masks
    that cut clips short: errors against stated tolerances, median times;
+3b. attn_bwd: the WavLM attention backward kernels (and the forward's row
+   statistics) against the plain backward, bf16 and f32, at the fine-tune
+   CLI's 3 s and 10 s batches and a ragged L = 1008, with a fully padded
+   clip: per gradient the max-abs error over the plain result's max and the
+   cosine distance, median times;
 4. logmel: the Whisper log-mel kernel against its plain version at 16 x 30 s
    (80 and 128 mels; silent, quiet and zero-padded clips among them);
 5. mha: the Whisper encoder's flash-attention kernel against its plain
@@ -30,11 +36,20 @@ Phases, one line each on stdout ([time] lines give each phase's seconds):
 10. whisper_path: one 16 x 30 s batch through the kernel path and the plain
    path (plain log-mel and attention), in both presets;
 11. whisper_throughput: fast, 64 clips of 2-3 s in batches of 16, after a
-   warm batch: clips/s, audio-s/s, one batch's device time.
-Each extraction path is driven with every kernel's launch count set to 0
-just before it and read just after. Then one JSON line with the kernels'
-numbers and, last, the device line. Any failed check exits non-zero; with
-no CUDA card it exits non-zero at once.
+   warm batch: clips/s, audio-s/s, one batch's device time;
+12. finetune_path: one fixed WavLM-Large training step at 8 x 3 s through
+   the kernels and through the plain attention, bf16 and f32: the loss and
+   the gradient cosine distance per group (encoder, layer weights, head);
+13. finetune: stutter_tpu_torch.cli.finetune.main on a synthetic labeled
+   corpus (128 clips of 2-3 s and 6 of 8-10 s to train on) at WavLM-Large:
+   2 epochs with checkpoints, a --resume run for a third, a --grad_accum 2
+   run; losses, parameters, launch counts (per-layer remat: 2 forwards and
+   1 backward per layer per microbatch, 1 forward per eval batch), resume,
+   outputs, ms per update, training audio-s/s, peak memory.
+Each extraction and fine-tune path is driven with every kernel's launch
+count set to 0 just before it and read just after. Then one JSON line with
+the kernels' numbers and, last, the device line. Any failed check exits
+non-zero; with no CUDA card it exits non-zero at once.
 """
 
 from __future__ import annotations
@@ -66,6 +81,29 @@ LOGMEL_MAX_ABS = 1e-4
 # distance from the f32 path included (measured on the H100), so the fast
 # bar there is 5e-4, under the repo's 1e-3; the encoder columns keep 1e-4
 WHISPER_FAST_DECODER_COSINE = 5e-4
+# the attention backward against the plain backward, per gradient (dq, dk,
+# dv, dbias, dgate): max-abs error over the plain result's max, and cosine
+# distance. bf16: dq, dk and dv are rounded once to bf16 in both (~4e-3 of
+# an element), and dp is rounded to bf16 before the products, where a
+# last-bit difference in the recomputed f32 dp can flip that rounding.
+# f32: the probabilities come from exp((s - max) - log sum) against the
+# plain softmax's division, and the sums run in another order.
+BWD_BF16_REL, BWD_BF16_COSINE = 2e-2, 1e-4
+BWD_F32_REL, BWD_F32_COSINE = 1e-4, 1e-8
+# the forward's row statistics: the max of scores up to -1e9 (f32 spacing
+# 64 there) and a log-sum of at most log(L)
+BWD_STATS_MAX_ABS = 1e-3
+# one training step through the kernels against the same step through the
+# plain attention (autograd of the plain forward), WavLM-Large, 8 x 3 s: the
+# loss's relative difference and the gradient cosine distance per group.
+# bf16: every activation is rounded to bf16 in both, and the kernels round
+# dp and the probabilities before their products where autograd keeps f32;
+# the pooled states then differ by ~5e-6 in cosine (~3e-3 per element), and
+# random-init logits are large (loss ~3.9 over 4 classes), so the loss moves
+# by ~1e-3 of itself (8.2e-4 measured on the H100): its bar is 5e-3.
+# f32: the same math, summed in another order.
+FT_BF16_LOSS_REL, FT_BF16_GRAD_COSINE = 5e-3, 1e-3
+FT_F32_LOSS_REL, FT_F32_GRAD_COSINE = 1e-5, 1e-8
 
 
 class CheckFailed(Exception):
@@ -86,9 +124,11 @@ def cosine_distance(a, b) -> float:
     return float(1.0 - (a @ b) / (a.norm() * b.norm()))
 
 
-def write_corpus(root: Path, n_per_split: dict, dur_range, seed: int) -> float:
-    """KSF layout: wav/{split}_{i}.wav at 16 kHz plus lab/{split}.csv.
-    Returns the total audio seconds."""
+def write_corpus(root: Path, n_per_split: dict, dur_range, seed: int,
+                 long_per_split: dict | None = None, long_range=(8.2, 9.8)) -> float:
+    """KSF layout: wav/{split}_{i}.wav at 16 kHz plus lab/{split}.csv, with
+    ``long_per_split[split]`` more clips of ``long_range`` seconds. Returns
+    the total audio seconds."""
     import numpy as np
 
     from stutter_tpu_torch.audio.wavio import write_wav
@@ -100,9 +140,11 @@ def write_corpus(root: Path, n_per_split: dict, dur_range, seed: int) -> float:
     labels = ("no_disfluency", "block", "prolongation", "sound_repetition")
     for split, n in n_per_split.items():
         rows = []
-        for i in range(n):
+        n_long = (long_per_split or {}).get(split, 0)
+        for i in range(n + n_long):
             name = f"{split}_{i:04d}.wav"
-            t = np.arange(int(rng.uniform(*dur_range) * 16000)) / 16000
+            seconds = rng.uniform(*(dur_range if i < n else long_range))
+            t = np.arange(int(seconds * 16000)) / 16000
             f0 = rng.uniform(100, 600)
             x = 0.4 * np.sin(2 * np.pi * f0 * t) + 0.05 * rng.randn(len(t))
             write_wav(str(root / "wav" / name), x / max(1.0, np.abs(x).max() * 1.05), 16000)
@@ -165,6 +207,69 @@ def phase_kernel(torch, attn):
     return worst_abs, headline
 
 
+def attention_inputs(torch, g, B, H, L, dtype, lengths):
+    """q, k, v as [B, L, H, 64] projections viewed [B, H, L, 64] (as the
+    model passes them), bias, gate and the key mask of `lengths`."""
+    def make():
+        return (torch.randn(B, L, H, 64, device="cuda", generator=g) * 0.5).to(dtype) \
+            .transpose(1, 2)
+    q, k, v = make(), make(), make()
+    bias = torch.randn(H, L, L, device="cuda", generator=g)
+    gate = torch.rand(B, H, L, device="cuda", generator=g) * 2
+    mask = torch.where(torch.arange(L, device="cuda")[None] < lengths[:, None],
+                       0.0, -1e9).float().contiguous()
+    return q, k, v, bias, gate, mask
+
+
+def phase_attn_bwd(torch, attn, card: str):
+    """Backward kernels against the plain backward; returns (worst max-abs
+    error, the worst of it relative to the plain result's max, (ms, plain
+    ms) at the CLI's 3 s batch in bf16)."""
+    cases = [  # (B, H, L): the CLI's batch 32 at 3 s, its 10 s bucket, a ragged long length
+        (32, 16, 160), (9, 16, 512), (4, 16, 1008)]
+    g = torch.Generator(device="cuda").manual_seed(7)
+    worst_abs, worst, headline = 0.0, 0.0, None
+    for B, H, L in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            lengths = torch.randint(1, L + 1, (B,), device="cuda", generator=g)
+            lengths[0], lengths[-1] = L, 0  # one full clip, one fully padded clip
+            args = attention_inputs(torch, g, B, H, L, dtype, lengths)
+            stats = torch.empty(2, B, H, L, device="cuda")
+            out = attn.gated_relpos_attention(*args, stats)
+            do = (torch.randn(B, L, H, 64, device="cuda", generator=g) * 0.5).to(dtype) \
+                .transpose(1, 2)
+            got = attn.gated_relpos_attention_backward(*args, out, do, stats)
+            ref = attn.gated_relpos_attention_backward_reference(*args, out, do)
+            ref_stats = attn.attention_row_stats_reference(*args[:2], *args[3:])
+            torch.cuda.synchronize()
+            stats_err = float((stats - ref_stats).abs().max())
+            tol_rel, tol_cos = ((BWD_BF16_REL, BWD_BF16_COSINE) if dtype == torch.bfloat16
+                                else (BWD_F32_REL, BWD_F32_COSINE))
+            fields = {}
+            for name, a, b in zip(("dq", "dk", "dv", "dbias", "dgate"), got, ref):
+                check(a.shape == b.shape and a.dtype == b.dtype,
+                      f"{name}: {a.dtype} {tuple(a.shape)} vs {b.dtype} {tuple(b.shape)}")
+                check(bool(torch.isfinite(a).all()), f"{name} has non-finite values")
+                max_abs = float((a.float() - b.float()).abs().max())
+                rel = max_abs / float(b.float().abs().max())
+                cos = cosine_distance(a.float(), b.float())
+                fields[name] = f"{rel:.2e}/{cos:.2e}"
+                check(rel <= tol_rel and cos <= tol_cos,
+                      f"backward {name} disagrees at {B}x{H}x{L} {dtype}: "
+                      f"rel max-abs {rel:.3e}, cosine {cos:.3e}")
+                worst, worst_abs = max(worst, rel), max(worst_abs, max_abs)
+            check(stats_err <= BWD_STATS_MAX_ABS, f"row statistics differ by {stats_err:.3e}")
+            ms, plain_ms = time_pair(
+                torch, lambda: attn.gated_relpos_attention_backward(*args, out, do, stats),
+                lambda: attn.gated_relpos_attention_backward_reference(*args, out, do))
+            say("attn_bwd", shape=f"{B}x{H}x{L}x64", dtype=str(dtype).split(".")[-1],
+                **{f"{k}_rel_cos": v for k, v in fields.items()},
+                rel_tol=tol_rel, cosine_tol=tol_cos, stats_max_abs=f"{stats_err:.2e}",
+                ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", card=f'"{card}"')
+            headline = headline or (ms, plain_ms)
+    return worst_abs, worst, headline
+
+
 def time_pair(torch, fn_a, fn_b, runs: int = 20):
     """Median ms of each, timed per launch with CUDA events, in turns."""
     for _ in range(3):
@@ -199,10 +304,14 @@ def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port, by kernel name."""
     from stutter_tpu_torch.ops.flash_mha import flash_mha
     from stutter_tpu_torch.ops.logmel import whisper_log_mel
-    from stutter_tpu_torch.ops.wavlm_attention import gated_relpos_attention
+    from stutter_tpu_torch.ops.wavlm_attention import (
+        gated_relpos_attention,
+        gated_relpos_attention_backward,
+    )
 
-    return {"gated_relpos_attention": gated_relpos_attention, "flash_mha": flash_mha,
-            "whisper_log_mel": whisper_log_mel}
+    return {"gated_relpos_attention": gated_relpos_attention,
+            "gated_relpos_attention_bwd": gated_relpos_attention_backward,
+            "flash_mha": flash_mha, "whisper_log_mel": whisper_log_mel}
 
 
 def zero_counts() -> None:
@@ -264,6 +373,7 @@ def phase_slice(torch, extractor, work: Path):
     del extractor.submit
     check(counts["flash_mha"] == counts["whisper_log_mel"] == 0,
           f"the WavLM path launched a Whisper kernel: {counts}")
+    check(counts["gated_relpos_attention_bwd"] == 0, "extraction launched the backward")
     for split, n in (("train", 12), ("test", 6), ("devel", 6)):
         d = out / split
         check((d / "embedding_metadata.csv").is_file(), f"{d}/embedding_metadata.csv missing")
@@ -477,7 +587,8 @@ def phase_whisper_slice(torch, extractor, work: Path) -> dict:
           f"log-mel kernel launched {counts['whisper_log_mel']} times for {batches} batches")
     check(counts["flash_mha"] == cfg.encoder_layers * batches,
           f"flash_mha launched {counts['flash_mha']} times for {batches} batches")
-    check(counts["gated_relpos_attention"] == 0, "the Whisper path launched WavLM's kernel")
+    check(counts["gated_relpos_attention"] == counts["gated_relpos_attention_bwd"] == 0,
+          "the Whisper path launched WavLM's kernels")
     say("whisper_slice", clips=len(meta), audio_s=f"{audio_s:.2f}", batches=batches,
         batch=pipe.batcher.batch_size_for(30.0), log_mel_launches=counts["whisper_log_mel"],
         flash_mha_launches=counts["flash_mha"],
@@ -577,6 +688,269 @@ def phase_whisper_throughput(torch, extractor, work: Path, card: str):
         card=f'"{card}"')
 
 
+def group_cosines(grads_a: dict, grads_b: dict) -> dict:
+    """Gradient cosine distance per group: encoder (the backbone above the
+    frozen stem), layer weights, head."""
+    import torch
+
+    groups = {"encoder": lambda n: n.startswith("backbone."),
+              "layer_weights": lambda n: n == "layer_weights",
+              "head": lambda n: n.startswith("head.")}
+    out = {}
+    for group, member in groups.items():
+        names = sorted(n for n in grads_b if member(n) and grads_b[n] is not None)
+        check(bool(names) and all(grads_a.get(n) is not None for n in names),
+              f"no or missing {group} gradients")
+        a = torch.cat([grads_a[n].float().flatten() for n in names])
+        b = torch.cat([grads_b[n].float().flatten() for n in names])
+        check(bool(torch.isfinite(a).all()), f"{group} gradients have non-finite values")
+        out[group] = cosine_distance(a, b)
+    return out
+
+
+def phase_finetune_path(torch, attn, cfg_model, device: str = "cuda", T: int = 51_280):
+    """One fixed training step at 8 x 3 s (no SpecAugment, no dropout,
+    per-layer remat) through the kernel Function and through the plain
+    attention, in bf16 and f32: the loss and the gradient cosine distance
+    per group, and the kernel run's launches (2 forwards, 1 backward a layer)."""
+    import dataclasses
+
+    import numpy as np
+
+    from stutter_tpu_torch.train.finetune import (
+        FinetuneConfig,
+        FinetuneTrainer,
+        init_finetune_model,
+    )
+
+    mcfg = dataclasses.replace(cfg_model, apply_spec_augment=False)
+    rng = np.random.RandomState(11)
+    B = 8  # T = 51 280 samples: the CLI's 3 s bucket, L = 160 frames
+    lengths = rng.randint(T * 5 // 8, T + 1, size=B)
+    lengths[0] = T
+    waves = (rng.randn(B, T) * 0.1 * (np.arange(T)[None] < lengths[:, None])).astype(np.float32)
+    labels, cw = rng.randint(0, 4, size=B), np.array([1.0, 2.0, 0.5, 1.5], np.float32)
+    batch = [torch.from_numpy(waves).to(device), torch.from_numpy(lengths).long().to(device),
+             torch.from_numpy(labels).long().to(device), torch.ones(B, device=device)]
+    state = init_finetune_model(FinetuneConfig(model=mcfg, n_classes=4)).state_dict()
+    n_layers = mcfg.num_hidden_layers
+    for name, dtype, loss_bar, cos_bar in (
+            ("bf16", torch.bfloat16, FT_BF16_LOSS_REL, FT_BF16_GRAD_COSINE),
+            ("f32", torch.float32, FT_F32_LOSS_REL, FT_F32_GRAD_COSINE)):
+        cfg = FinetuneConfig(model=mcfg, n_classes=4, head_dropout=0.0, activation_dtype=dtype)
+        trainer = FinetuneTrainer(cfg, device=device, params=state)
+        runs = {}
+        for path, fn in (("kernel", None), ("plain", attn.gated_relpos_attention_reference)):
+            trainer.attention_fn = fn
+            zero_counts()
+            grads, loss, _ = trainer.gradients([batch], cw, normalize_in_graph=True)
+            runs[path] = (grads, float(loss), read_counts())
+        (g_k, loss_k, counts), (g_p, loss_p, plain_counts) = runs["kernel"], runs["plain"]
+        on_card = device == "cuda"
+        check(counts["gated_relpos_attention"] == 2 * n_layers * on_card
+              and counts["gated_relpos_attention_bwd"] == n_layers * on_card,
+              f"{name} kernel step launched {counts}, expected {2 * n_layers} forwards "
+              f"and {n_layers} backwards")
+        check(not any(plain_counts.values()), f"the plain step launched {plain_counts}")
+        loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+        cos = group_cosines(g_k, g_p)
+        say("finetune_path", batch=f"{B}x3s", dtype=name, layers=n_layers, loss=f"{loss_k:.6f}",
+            plain_loss=f"{loss_p:.6f}", loss_rel=f"{loss_rel:.2e}", loss_rel_tol=loss_bar,
+            **{f"{k}_grad_cosine_dist": f"{v:.3e}" for k, v in cos.items()},
+            grad_cosine_tol=cos_bar, fwd_launches=counts["gated_relpos_attention"],
+            bwd_launches=counts["gated_relpos_attention_bwd"])
+        check(np.isfinite(loss_k) and loss_rel <= loss_bar,
+              f"{name}: kernel step loss {loss_k} vs plain {loss_p}")
+        for group, d in cos.items():
+            check(d <= cos_bar, f"{name}: {group} gradient cosine {d:.3e} > {cos_bar}")
+        del trainer, runs, g_k, g_p
+
+
+class TrainerSpy:
+    """Watches ``FinetuneTrainer`` while the CLI runs: the trainers built,
+    the microbatches and shape of each gradient pass, the eval batches, each
+    update's span on the device timeline, aux, audio seconds and host
+    enqueue ms, and
+    the watched parameters as they were before the first update."""
+
+    def __init__(self, torch, watch):
+        self.torch, self.watch = torch, watch
+        self.trainers, self.passes, self.updates = [], [], []
+        self.eval_batches, self.before = 0, None
+
+    def mark(self):
+        """A point on the device timeline (the host clock without a card)."""
+        torch = self.torch
+        if not torch.cuda.is_available():
+            return time.perf_counter()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+
+    @staticmethod
+    def ms(start, end) -> float:
+        if isinstance(start, float):
+            return (end - start) * 1e3
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    @contextlib.contextmanager
+    def attached(self):
+        import numpy as np
+
+        from stutter_tpu_torch.train.finetune import FinetuneTrainer
+
+        names = ("__init__", "gradients", "predict", "step", "step_accum")
+        real = {n: getattr(FinetuneTrainer, n) for n in names}
+        spy = self
+
+        def __init__(trainer, *args, **kw):
+            real["__init__"](trainer, *args, **kw)
+            spy.trainers.append(trainer)
+
+        def gradients(trainer, microbatches, *args, **kw):
+            if spy.before is None:
+                spy.before = {n: trainer.params[n].detach().clone() for n in spy.watch}
+            spy.passes.append((len(microbatches), {tuple(mb[0].shape) for mb in microbatches}))
+            return real["gradients"](trainer, microbatches, *args, **kw)
+
+        def predict(trainer, *args, **kw):
+            spy.eval_batches += 1
+            return real["predict"](trainer, *args, **kw)
+
+        def timed_update(name, audio_of):
+            def update(trainer, *args, **kw):
+                start, host0 = spy.mark(), time.perf_counter()
+                aux = real[name](trainer, *args, **kw)
+                host_ms = (time.perf_counter() - host0) * 1e3
+                spy.updates.append((start, spy.mark(), aux, audio_of(*args), host_ms))
+                return aux
+            return update
+
+        def clip_seconds(lengths):
+            return float(np.sum(lengths)) / 16000.0
+
+        patched = {
+            "__init__": __init__, "gradients": gradients, "predict": predict,
+            "step": timed_update("step", lambda w, lengths, *_: clip_seconds(lengths)),
+            "step_accum": timed_update("step_accum", lambda mbs, *_: sum(
+                clip_seconds(mb[1]) for mb in mbs))}
+        for n, fn in patched.items():
+            setattr(FinetuneTrainer, n, fn)
+        try:
+            yield self
+        finally:
+            for n, fn in real.items():
+                setattr(FinetuneTrainer, n, fn)
+
+
+def phase_finetune(torch, work: Path, card: str, device: str = "cuda", batch_size: int = 32,
+                   clips=(128, 6, 12), durations=((2.0, 3.0), (8.2, 9.8)),
+                   max_length: float = 10.0) -> dict:
+    """The fine-tune CLI end to end at WavLM-Large (random weights, seed 0)
+    on a synthetic labeled corpus of ``clips`` = (short train clips, long
+    train clips, clips per eval split): 2 epochs with a checkpoint after
+    each, a --resume run for a third, and a --grad_accum 2 run. Checks the
+    losses, that the backbone moved and the frozen stem did not, the launch
+    counts, the resume, the outputs; prints ms per update, training
+    audio-s/s and peak memory. Returns the first run's launch counts."""
+    import math
+
+    import numpy as np
+
+    from stutter_tpu_torch.cli import finetune as cli
+    from stutter_tpu_torch.extract.batcher import BucketBatcher
+    from stutter_tpu_torch.extract.scanner import create_metadata_from_files
+    from stutter_tpu_torch.models.wavlm import WavLMConfig
+    from stutter_tpu_torch.train.checkpointing import latest_step
+
+    on_card = device == "cuda"
+    n_layers = WavLMConfig.large().num_hidden_layers
+    n_short, n_long, n_eval = clips
+    corpus = work / "ft_corpus"
+    write_corpus(corpus, {"train": n_short, "test": n_eval, "devel": n_eval}, durations[0],
+                 seed=6, long_per_split={"train": n_long, "test": 1}, long_range=durations[1])
+    # the CLI's batch plan, for the expected number of updates
+    batcher = BucketBatcher(audio_budget_s=batch_size * 3.0, max_batch=batch_size,
+                            max_length_s=max_length)
+    train = [r["path"] for r in create_metadata_from_files(str(corpus), split="all")
+             if r["split"] == "train"]
+    per_bucket = [math.ceil(len(idxs) / batcher.batch_size_for(b))
+                  for b, idxs in batcher.assign_buckets(train).items()]
+    n_batches = sum(per_bucket)
+    ckpt, results, results_accum = work / "ft_ckpt", work / "ft_results", work / "ft_accum"
+    common = ["--data_dir", str(corpus), "--random_init", "--batch_size", str(batch_size),
+              "--max_length", str(max_length), "--device", device]
+    watch = ("backbone.feature_encoder.layers.0.weight", "backbone.layers.0.attention.q_w",
+             f"backbone.layers.{n_layers - 1}.feed_forward.w2", "head.layers.0.w")
+
+    def run(what, args, epochs, updates, microbatches):
+        spy = TrainerSpy(torch, watch)
+        zero_counts()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        with spy.attached():
+            t0 = time.perf_counter()
+            rc = cli.main(common + args)
+            wall = time.perf_counter() - t0
+        counts = read_counts()
+        check(rc == 0, f"finetune {what}: the CLI returned {rc}")
+        losses = [float(aux["loss"]) for _, _, aux, _, _ in spy.updates]
+        check(len(spy.updates) == updates, f"finetune {what}: {len(spy.updates)} updates, "
+              f"expected {updates}")
+        check(sum(n for n, _ in spy.passes) == microbatches
+              and all(len(shapes) == 1 for _, shapes in spy.passes),
+              f"finetune {what}: gradient passes {spy.passes}")
+        check(bool(np.isfinite(losses).all()), f"finetune {what}: losses {losses}")
+        fwd = n_layers * (2 * microbatches + spy.eval_batches) * on_card
+        bwd = n_layers * microbatches * on_card
+        check((counts["gated_relpos_attention"], counts["gated_relpos_attention_bwd"])
+              == (fwd, bwd), f"finetune {what}: launches {counts}, expected {fwd} forwards and {bwd} backwards")
+        check(counts["flash_mha"] == counts["whisper_log_mel"] == 0,
+              f"finetune {what} launched a Whisper kernel: {counts}")
+        out = results_accum if "--grad_accum" in args else results
+        for name in ("finetune_results.json", "wavlm_finetune_weighted_sum_mlp_model.npz",
+                     "wavlm_finetune_weighted_sum_mlp_info.json"):
+            check((out / name).is_file(), f"finetune {what}: {name} missing")
+        last = spy.updates[-(updates // epochs):]  # the last epoch, on the device timeline
+        step_ms = [spy.ms(s, e) for s, e, *_ in last]
+        epoch_ms = spy.ms(last[0][0], last[-1][1])
+        peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
+        say("finetune", run=what, updates=len(spy.updates), microbatches=microbatches,
+            eval_batches=spy.eval_batches, first_loss=f"{losses[0]:.4f}",
+            last_loss=f"{losses[-1]:.4f}", fwd_launches=counts["gated_relpos_attention"],
+            bwd_launches=counts["gated_relpos_attention_bwd"],
+            expected=f"{n_layers}x(2x{microbatches}+{spy.eval_batches}),{n_layers}x{microbatches}",
+            last_epoch_ms_per_update=",".join(f"{t:.1f}" for t in step_ms),
+            last_epoch_host_ms_per_update=",".join(f"{u[-1]:.1f}" for u in last),
+            last_epoch_s=f"{epoch_ms / 1e3:.3f}",
+            train_audio_s_per_s=f"{sum(u[3] for u in last) / (epoch_ms / 1e3):.1f}",
+            cli_wall_s=f"{wall:.1f}", max_memory_gib=f"{peak:.2f}", card=f'"{card}"')
+        return spy, counts
+
+    spy, counts = run("epochs_2", ["--results_dir", str(results), "--checkpoint_dir", str(ckpt),
+                                   "--epochs", "2"], 2, 2 * n_batches, 2 * n_batches)
+    check(latest_step(str(ckpt)) == 2, f"checkpoints {latest_step(str(ckpt))}, expected step 2")
+    trained = spy.trainers[0].params
+    stem, *moving = watch
+    check(torch.equal(trained[stem], spy.before[stem]), "the frozen stem moved")
+    for name in moving:
+        check(not torch.equal(trained[name], spy.before[name]), f"{name} did not move")
+
+    resumed, _ = run("resume", ["--results_dir", str(results), "--checkpoint_dir", str(ckpt),
+                                "--epochs", "3", "--resume"], 1, n_batches, n_batches)
+    check(latest_step(str(ckpt)) == 3, "the resumed run wrote no step 3")
+    for name in watch:  # the resumed run started from the 2-epoch state
+        check(torch.equal(resumed.before[name], trained[name]), f"resume did not restore {name}")
+    del spy, trained, resumed
+
+    K = 2
+    accum_updates = sum(math.ceil(n / K) for n in per_bucket)
+    run("grad_accum_2", ["--results_dir", str(results_accum), "--epochs", "1",
+                         "--grad_accum", str(K)], 1, accum_updates, K * accum_updates)
+    return counts
+
+
 @contextlib.contextmanager
 def timed(phase: str):
     t0 = time.perf_counter()
@@ -623,6 +997,8 @@ def main() -> int:
     try:
         with timed("kernel"):
             wavlm_err, wavlm_times = phase_kernel(torch, attn)
+        with timed("attn_bwd"):
+            bwd_err, bwd_rel, bwd_times = phase_attn_bwd(torch, attn, card)
         with timed("logmel"):
             logmel_err, logmel_times = phase_logmel(torch, logmel)
         with timed("mha"):
@@ -659,6 +1035,14 @@ def main() -> int:
             del fid_model
             with timed("whisper_throughput"):
                 phase_whisper_throughput(torch, extractor, Path(tmp), card)
+            del extractor
+            torch.cuda.empty_cache()
+
+            with timed("finetune_path"):
+                phase_finetune_path(torch, attn, WavLMConfig.large())
+            torch.cuda.empty_cache()
+            with timed("finetune"):
+                ft_counts = phase_finetune(torch, Path(tmp), card)
     except CheckFailed as e:
         print(f"FAILED: {e}", flush=True)
         return 1
@@ -678,6 +1062,15 @@ def main() -> int:
              "launches": launches, "max_abs_err": err, "ms": times[0], "plain_ms": times[1]}
             for name, source, replaces, launches, err, times in kernels]
     line[0]["also_replaces"] = "stutter_tpu/ops/wavlm_attention_pallas.py:93"
+    line[0]["finetune_launches"] = ft_counts["gated_relpos_attention"]
+    line.insert(1, {
+        "name": "gated_relpos_attention_bwd", "route": "cuda",
+        "source": "stutter_tpu_torch/csrc/wavlm_attention_bwd.cu",
+        "replaces": "stutter_tpu/ops/wavlm_attention_vjp.py:145",
+        "also_replaces": ["stutter_tpu/ops/wavlm_attention_vjp.py:68",
+                          "stutter_tpu/ops/wavlm_attention_vjp.py:115"],
+        "launches": ft_counts["gated_relpos_attention_bwd"], "max_abs_err": bwd_err,
+        "max_rel_err": bwd_rel, "ms": bwd_times[0], "plain_ms": bwd_times[1]})
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

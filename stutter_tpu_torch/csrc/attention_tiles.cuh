@@ -13,7 +13,12 @@
 // (params, b, h, rows[2], H, L) for the two query rows a thread owns, and
 // `float operator()(int a, int kj, float s)` for row a and key kj < L.
 // Scores, softmax and both sums are f32; the output is stored in the input
-// type.
+// type. Given a non-null `row_stats` ([2, B, H, L] f32), a kernel also writes
+// each query row's score max (plane 0) and the log of its sum of
+// exp(score - max) (plane 1), which the WavLM backward
+// (wavlm_attention_bwd.cu) recomputes the probabilities from; the two stay
+// apart because a fully padded row scores -1e9 everywhere, where
+// max + log(sum) would round back to the max.
 //
 // Design (what bounds it and why, per caller, is in the .cu files):
 // - One thread block per (clip, 32-row query tile, head), with the clip index
@@ -67,8 +72,8 @@ template <class Score>
 __global__ void __launch_bounds__(kF32Threads) attention_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const typename Score::Params params,
-    float* __restrict__ out, int H, int L, long long stride_b,
-    long long stride_h, long long stride_l) {
+    float* __restrict__ out, float* __restrict__ row_stats, int B, int H, int L,
+    long long stride_b, long long stride_h, long long stride_l) {
   __shared__ float qs[kBlockQ][kHeadDim + 1];
   __shared__ float ks[kBlockK][kHeadDim + 1];
   __shared__ float vs[kBlockK][kHeadDim];
@@ -178,6 +183,11 @@ __global__ void __launch_bounds__(kF32Threads) attention_f32_kernel(
     float* dst = out + base + qi * stride_l;
 #pragma unroll
     for (int n = 0; n < 8; ++n) dst[tx + 8 * n] = acc[a][n] * inv;
+    if (row_stats != nullptr && tx == 0) {
+      const long long r = ((long long)b * H + h) * L + qi;
+      row_stats[r] = row_max[a];
+      row_stats[(long long)B * H * L + r] = logf(row_sum[a]);
+    }
   }
 }
 
@@ -225,8 +235,8 @@ template <class Score>
 __global__ void __launch_bounds__(kBf16Threads) attention_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const typename Score::Params params,
-    __nv_bfloat16* __restrict__ out, int H, int L, long long stride_b,
-    long long stride_h, long long stride_l) {
+    __nv_bfloat16* __restrict__ out, float* __restrict__ row_stats, int B, int H,
+    int L, long long stride_b, long long stride_h, long long stride_l) {
   __shared__ __align__(16) __nv_bfloat16 qs[kBlockQ][kHeadDim + kPad];
   __shared__ __align__(16) __nv_bfloat16 ks[kBlockK][kHeadDim + kPad];
   __shared__ __align__(16) __nv_bfloat16 vs[kBlockK][kHeadDim + kPad];
@@ -366,30 +376,35 @@ __global__ void __launch_bounds__(kBf16Threads) attention_bf16_kernel(
     for (int n = 0; n < kHeadDim / 8; ++n)
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
           __floats2bfloat162_rn(o[n][2 * a] * inv, o[n][2 * a + 1] * inv);
+    if (row_stats != nullptr && tig == 0) {
+      const long long r = ((long long)b * H + h) * L + qi;
+      row_stats[r] = row_max[a];
+      row_stats[(long long)B * H * L + r] = logf(row_sum[a]);
+    }
   }
 }
 
 // dtype: 0 = float32, 1 = bfloat16. q, k, v and out share the strides
 // (stride_b, stride_h, stride_l) in elements, with a unit head-dim stride
-// (for bf16: 16-byte aligned rows). Launches on `stream` and returns
-// cudaGetLastError() (0 on success).
+// (for bf16: 16-byte aligned rows); row_stats: [2, B, H, L] f32 or null.
+// Launches on `stream` and returns cudaGetLastError() (0 on success).
 template <class Score>
 int launch_attention(const void* q, const void* k, const void* v,
                      const typename Score::Params& params, void* out, int B, int H,
                      int L, long long stride_b, long long stride_h, long long stride_l,
-                     int dtype, cudaStream_t stream) {
+                     int dtype, cudaStream_t stream, float* row_stats = nullptr) {
   if (B <= 0 || H <= 0 || L <= 0 || H > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid(B, (L + kBlockQ - 1) / kBlockQ, H);
   if (dtype == 0) {
     attention_f32_kernel<Score><<<grid, kF32Threads, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), params, static_cast<float*>(out), H, L, stride_b,
-        stride_h, stride_l);
+        static_cast<const float*>(v), params, static_cast<float*>(out), row_stats, B, H, L,
+        stride_b, stride_h, stride_l);
   } else if (dtype == 1) {
     attention_bf16_kernel<Score><<<grid, kBf16Threads, 0, stream>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), params, static_cast<__nv_bfloat16*>(out), H,
-        L, stride_b, stride_h, stride_l);
+        static_cast<const __nv_bfloat16*>(v), params, static_cast<__nv_bfloat16*>(out),
+        row_stats, B, H, L, stride_b, stride_h, stride_l);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -12,7 +12,8 @@
 // with q pre-scaled by head_dim^-0.5, bias [H, L, L] f32 shared by the batch,
 // gate [B, H, L] f32 and mask [B, L] f32 (0 for a valid key, -1e9 for a
 // padded one). The tiles are those of attention_tiles.cuh, with the
-// GatedBias score policy below.
+// GatedBias score policy below. The training forward also has the kernel
+// write each row's softmax statistics for wavlm_attention_bwd.cu.
 //
 // What bounds it on this card. At the 3 s bucket (L = 160, d = 64) one
 // (clip, head) reads q, k, v and writes out, 80 KB in bf16, for 6.6 MFLOP:
@@ -61,16 +62,18 @@ struct GatedBias {
 // dtype: 0 = float32, 1 = bfloat16. q, k, v and out share the strides
 // (stride_b, stride_h, stride_l) in elements, with a unit head-dim stride (for
 // bf16: 16-byte aligned rows); bias [H, L, L], gate [B, H, L] and mask [B, L]
-// are contiguous f32. Launches on `stream` and returns cudaGetLastError()
-// (0 on success).
+// are contiguous f32; row_stats is a [2, B, H, L] f32 buffer to fill, or null
+// (extraction). Launches on `stream` and returns cudaGetLastError() (0 on
+// success).
 extern "C" int wavlm_gated_relpos_attention(
     const void* q, const void* k, const void* v, const void* bias,
-    const void* gate, const void* mask, void* out, int B, int H, int L,
+    const void* gate, const void* mask, void* out, void* row_stats, int B, int H, int L,
     long long stride_b, long long stride_h, long long stride_l, int dtype,
     void* stream) {
   const GatedBias::Params params{static_cast<const float*>(bias),
                                  static_cast<const float*>(gate),
                                  static_cast<const float*>(mask)};
   return launch_attention<GatedBias>(q, k, v, params, out, B, H, L, stride_b, stride_h,
-                                     stride_l, dtype, static_cast<cudaStream_t>(stream));
+                                     stride_l, dtype, static_cast<cudaStream_t>(stream),
+                                     static_cast<float*>(row_stats));
 }

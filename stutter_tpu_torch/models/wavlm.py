@@ -26,6 +26,7 @@ bf16 (the whole parameter set cast, norms included) for the fast preset.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -34,10 +35,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from stutter_tpu_torch.models.common import gelu, layer_norm, param
 from stutter_tpu_torch.ops.pooling import masked_mean_pool
-from stutter_tpu_torch.ops.wavlm_attention import gated_relpos_attention
+from stutter_tpu_torch.ops.wavlm_attention import (
+    gated_relpos_attention,
+    gated_relpos_attention_diff,
+)
+
+REMAT_MODES = (None, "layer", "nothing")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -342,9 +350,11 @@ class WavLMModel(nn.Module):
 
     ``forward`` returns every hidden state (for tests); ``encode`` returns the
     masked mean-pool of the selected states, pooled as the loop runs, so the
-    [N+1, B, L, D] stack never exists (the extraction path). Parameters are
-    created uninitialised on ``device``; fill them with
-    ``weights.convert.init_wavlm`` or ``load_state_dict``.
+    [N+1, B, L, D] stack never exists (the extraction path); both run under
+    ``inference_mode``. ``pooled_states`` is the differentiable counterpart
+    of ``encode`` for fine-tuning. Parameters are created uninitialised on
+    ``device``; fill them with ``weights.convert.init_wavlm`` or
+    ``load_state_dict``.
     """
 
     def __init__(self, cfg: WavLMConfig, device=None, dtype=torch.float32):
@@ -364,41 +374,78 @@ class WavLMModel(nn.Module):
         self.masked_spec_embed = param((D,), device, dtype)
         self._buckets: dict[tuple[int, torch.device], torch.Tensor] = {}
 
-    def position_bias(self, seq_len: int) -> torch.Tensor:
-        """[H, L, L] f32 bias from the bucket embedding table."""
-        device = self.rel_attn_embed.device
-        key = (seq_len, device)
+    def position_bias(self, seq_len: int, table: torch.Tensor | None = None) -> torch.Tensor:
+        """[H, L, L] f32 bias from the bucket embedding table (``table``
+        replaces ``rel_attn_embed``)."""
+        table = self.rel_attn_embed if table is None else table
+        key = (seq_len, table.device)
         if key not in self._buckets:
             cfg = self.cfg
             self._buckets[key] = torch.from_numpy(relative_position_buckets(
-                seq_len, cfg.num_buckets, cfg.max_bucket_distance).astype(np.int64)).to(device)
-        return self.rel_attn_embed[self._buckets[key]].permute(2, 0, 1).float().contiguous()
+                seq_len, cfg.num_buckets, cfg.max_bucket_distance).astype(np.int64)).to(
+                    table.device)
+        return table[self._buckets[key]].permute(2, 0, 1).float().contiguous()
 
-    def _run(self, waveform, sample_lengths, collect, attention_fn):
+    def _run(self, waveform, sample_lengths, collect, attention_fn, params=None,
+             stop_stem_gradient=False, augment=None, remat=None):
+        """The forward. ``params`` ({state-dict name: tensor}) replaces the
+        module's parameters (the training step's cast weights); the other
+        options are ``pooled_states``'."""
         cfg = self.cfg
+        if remat not in REMAT_MODES:
+            raise ValueError(f"remat must be one of {REMAT_MODES}, got {remat!r}")
         attention_fn = attention_fn or gated_relpos_attention
-        feats = self.feature_encoder(waveform, sample_lengths)
-        hidden = self.feature_projection(feats)
+
+        def call(module, prefix, *args):
+            if params is None:
+                return module(*args)
+            return functional_call(module, {k[len(prefix):]: v for k, v in params.items()
+                                            if k.startswith(prefix)}, args)
+
+        def weight(name):
+            return getattr(self, name) if params is None else params[name]
+
+        with torch.no_grad() if stop_stem_gradient else contextlib.nullcontext():
+            feats = call(self.feature_encoder, "feature_encoder.", waveform, sample_lengths)
+        hidden = call(self.feature_projection, "feature_projection.", feats)
         B, L, _ = hidden.shape
         if sample_lengths is not None:
             frame_lengths = wavlm_feature_lengths(cfg, sample_lengths)
+        else:
+            frame_lengths = torch.full((B,), L, dtype=torch.long, device=hidden.device)
+        if augment is not None:  # SpecAugment, before the frame mask and pos conv
+            hidden = augment(hidden, frame_lengths, weight("masked_spec_embed"))
+        if sample_lengths is not None:
             frame_mask = torch.arange(L, device=hidden.device)[None, :] < frame_lengths[:, None]
             hidden = hidden * frame_mask[:, :, None].to(hidden.dtype)
             key_mask_bias = torch.where(frame_mask, 0.0, -1e9).float()
         else:
-            frame_lengths = torch.full((B,), L, dtype=torch.long, device=hidden.device)
             key_mask_bias = torch.zeros((B, L), dtype=torch.float32, device=hidden.device)
-        hidden = hidden + self.pos_conv(hidden)
+        hidden = hidden + call(self.pos_conv, "pos_conv.", hidden)
         if not cfg.do_stable_layer_norm:
-            hidden = layer_norm(hidden, self.ln_scale, self.ln_bias, cfg.layer_norm_eps)
-        position_bias = self.position_bias(L)
-        collected = []
-        for i, layer in enumerate(self.layers):
-            collected.append(collect(i, hidden, frame_lengths))  # layer i's INPUT
-            hidden = layer(hidden, position_bias, key_mask_bias, attention_fn).to(hidden.dtype)
-        if cfg.do_stable_layer_norm:
-            hidden = layer_norm(hidden, self.ln_scale, self.ln_bias, cfg.layer_norm_eps)
-        collected.append(collect(len(self.layers), hidden, frame_lengths))
+            hidden = layer_norm(hidden, weight("ln_scale"), weight("ln_bias"),
+                                cfg.layer_norm_eps)
+        position_bias = self.position_bias(L, weight("rel_attn_embed"))
+
+        def encoder(hidden):
+            collected = []
+            for i, layer in enumerate(self.layers):
+                collected.append(collect(i, hidden, frame_lengths))  # layer i's INPUT
+
+                def run_layer(h, layer=layer, prefix=f"layers.{i}."):
+                    return call(layer, prefix, h, position_bias, key_mask_bias,
+                                attention_fn).to(h.dtype)
+
+                hidden = (checkpoint(run_layer, hidden, use_reentrant=False)
+                          if remat == "layer" else run_layer(hidden))
+            if cfg.do_stable_layer_norm:
+                hidden = layer_norm(hidden, weight("ln_scale"), weight("ln_bias"),
+                                    cfg.layer_norm_eps)
+            collected.append(collect(len(self.layers), hidden, frame_lengths))
+            return hidden, collected
+
+        hidden, collected = (checkpoint(encoder, hidden, use_reentrant=False)
+                             if remat == "nothing" else encoder(hidden))
         return hidden, collected, frame_lengths
 
     @torch.inference_mode()
@@ -422,3 +469,25 @@ class WavLMModel(nn.Module):
 
         _, pooled, _ = self._run(waveform, sample_lengths, collect, attention_fn)
         return torch.stack([pooled[i] for i in layer_indices])
+
+    def pooled_states(self, waveform, sample_lengths=None, params=None,
+                      stop_stem_gradient=False, augment=None, remat=None, attention_fn=None):
+        """Masked mean-pool of all N+1 hidden states, [N+1, B, D] f32,
+        differentiable (the fine-tuning forward).
+
+        - ``params``: {state-dict name: tensor} used in place of the module's
+          parameters (the step's cast of the f32 masters, so that gradients
+          reach the masters through the cast);
+        - ``stop_stem_gradient``: the conv stem runs under ``no_grad``;
+        - ``augment(hidden, frame_lengths, masked_spec_embed)``: SpecAugment,
+          applied after the feature projection, before the frame mask and
+          the positional conv;
+        - ``remat``: "layer" checkpoints each layer, "nothing" the whole
+          encoder, None neither;
+        - ``attention_fn``: the attention core, by default the kernel's
+          autograd Function."""
+        _, pooled, _ = self._run(
+            waveform, sample_lengths, lambda i, h, fl: masked_mean_pool(h, fl),
+            attention_fn or gated_relpos_attention_diff, params, stop_stem_gradient,
+            augment, remat)
+        return torch.stack(pooled)

@@ -8,6 +8,12 @@ HF converters), given as numpy arrays, onto ``WavLMModel``'s /
 one entry per layer, and dense weights go from JAX's [in, out] to PyTorch's
 [out, in]. Every leaf must be used exactly once.
 
+``finetune_params_from_numpy`` maps the JAX fine-tune tree
+(``{"backbone", "layer_weights", "head": [{"w", "b"}, ...]}``) onto
+``train.finetune.FinetuneModel``'s state dict; ``finetune_params_to_numpy``
+(with ``wavlm_params_to_numpy``) is its inverse, for saving a fine-tuned model
+keyed by the JAX tree's paths.
+
 ``init_wavlm`` and ``init_whisper`` build a model with a seeded random init
 drawn like the JAX package's (normal * fan_in^-0.5 weights, zero biases, unit
 norm scales), from a ``torch.Generator`` on the CPU so that the same seed
@@ -40,7 +46,7 @@ _LAYER_KEYS = {
 }
 
 
-def _flatten(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
+def flatten_tree(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
     """Nested dicts/lists -> {"a/b/0/c": leaf}; None leaves are absent."""
     out: dict[str, np.ndarray] = {}
     if isinstance(tree, Mapping):
@@ -50,7 +56,7 @@ def _flatten(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
     else:
         return {} if tree is None else {prefix: np.asarray(tree)}
     for k, v in items:
-        out.update(_flatten(v, f"{prefix}/{k}" if prefix else str(k)))
+        out.update(flatten_tree(v, f"{prefix}/{k}" if prefix else str(k)))
     return out
 
 
@@ -58,7 +64,7 @@ class _Leaves:
     """The flattened leaves of a pytree, each to be taken exactly once."""
 
     def __init__(self, tree: Any):
-        self.leaves = _flatten(tree)
+        self.leaves = flatten_tree(tree)
         self.used: set[str] = set()
 
     def __call__(self, path: str, transpose: bool = False) -> torch.Tensor:
@@ -92,7 +98,7 @@ def wavlm_params_from_numpy(tree: Any, cfg: WavLMConfig) -> dict[str, torch.Tens
         state[f"{dst}.weight"] = take(f"{src}/w")
         if cfg.conv_bias:
             state[f"{dst}.bias"] = take(f"{src}/b")
-        if cfg.feat_extract_norm == "layer" or (cfg.feat_extract_norm == "group" and i == 0):
+        if _conv_has_norm(cfg, i):
             state[f"{dst}.norm_scale"] = take(f"{src}/norm/scale")
             state[f"{dst}.norm_bias"] = take(f"{src}/norm/bias")
     state["feature_projection.ln_scale"] = take("feature_projection/ln/scale")
@@ -112,6 +118,96 @@ def wavlm_params_from_numpy(tree: Any, cfg: WavLMConfig) -> dict[str, torch.Tens
             state[f"layers.{layer}.{name}"] = t.T.contiguous() if transpose else t
     take.check_all_used()
     return state
+
+
+def _conv_has_norm(cfg: WavLMConfig, i: int) -> bool:
+    return cfg.feat_extract_norm == "layer" or (cfg.feat_extract_norm == "group" and i == 0)
+
+
+def wavlm_params_to_numpy(state: Mapping[str, torch.Tensor], cfg: WavLMConfig) -> dict:
+    """``WavLMModel`` state dict -> the JAX WavLM parameter pytree (numpy
+    leaves; per-layer entries stacked, dense weights back to [in, out]).
+    The inverse of ``wavlm_params_from_numpy``; every entry must be used."""
+    used: set[str] = set()
+
+    def take(name, transpose=False):
+        used.add(name)
+        t = state[name].detach().float().cpu().numpy()
+        return np.ascontiguousarray(t.T if transpose else t)
+
+    conv_layers = []
+    for i in range(len(cfg.conv_dim)):
+        src = f"feature_encoder.layers.{i}"
+        layer = {"w": take(f"{src}.weight"),
+                 "b": take(f"{src}.bias") if cfg.conv_bias else None}
+        if _conv_has_norm(cfg, i):
+            layer["norm"] = {"scale": take(f"{src}.norm_scale"),
+                             "bias": take(f"{src}.norm_bias")}
+        conv_layers.append(layer)
+    layers = {key: np.stack([take(f"layers.{i}.{name}", transpose)
+                             for i in range(cfg.num_hidden_layers)])
+              for key, (name, transpose) in _LAYER_KEYS.items()}
+    tree = {
+        "masked_spec_embed": take("masked_spec_embed"),
+        "feature_encoder": {"conv_layers": conv_layers},
+        "feature_projection": {
+            "ln": {"scale": take("feature_projection.ln_scale"),
+                   "bias": take("feature_projection.ln_bias")},
+            "w": take("feature_projection.weight", transpose=True),
+            "b": take("feature_projection.bias"),
+        },
+        "encoder": {
+            "pos_conv": {"w": take("pos_conv.weight"), "b": take("pos_conv.bias")},
+            "ln": {"scale": take("ln_scale"), "bias": take("ln_bias")},
+            "rel_attn_embed": take("rel_attn_embed"),
+            "layers": layers,
+        },
+    }
+    unused = sorted(set(state) - used)
+    if unused:
+        raise ValueError(f"state dict entries not in the JAX tree: {unused}")
+    return tree
+
+
+def finetune_params_from_numpy(tree: Any, cfg: WavLMConfig) -> dict[str, torch.Tensor]:
+    """JAX fine-tune tree ``{"backbone", "layer_weights", "head": [{"w", "b"},
+    ...]}`` (numpy leaves) -> ``FinetuneModel`` state dict. The head's
+    weights keep the JAX layout [in, out]. Raises KeyError for a missing leaf
+    and ValueError for an unused one."""
+    extra = sorted(set(tree) - {"backbone", "layer_weights", "head"})
+    if extra:
+        raise ValueError(f"parameter tree leaves not used by the model: {extra}")
+    state = {f"backbone.{k}": v for k, v in
+             wavlm_params_from_numpy(tree["backbone"], cfg).items()}
+    take = _Leaves({"layer_weights": tree["layer_weights"], "head": tree["head"]})
+    state["layer_weights"] = take("layer_weights")
+    if state["layer_weights"].shape != (cfg.num_hidden_layers + 1,):
+        raise ValueError(f"layer_weights {tuple(state['layer_weights'].shape)} for "
+                         f"{cfg.num_hidden_layers + 1} hidden states")
+    for i in range(len(tree["head"])):
+        state[f"head.layers.{i}.w"] = take(f"head/{i}/w")
+        state[f"head.layers.{i}.b"] = take(f"head/{i}/b")
+    take.check_all_used()
+    return state
+
+
+def finetune_params_to_numpy(state: Mapping[str, torch.Tensor], cfg: WavLMConfig) -> dict:
+    """``FinetuneModel`` state dict -> the JAX fine-tune tree (numpy leaves):
+    the inverse of ``finetune_params_from_numpy``."""
+    prefix = "backbone."
+    backbone = {k[len(prefix):]: v for k, v in state.items() if k.startswith(prefix)}
+    n_head = len([k for k in state if k.startswith("head.layers.") and k.endswith(".w")])
+    head = [{"w": state[f"head.layers.{i}.w"].detach().float().cpu().numpy(),
+             "b": state[f"head.layers.{i}.b"].detach().float().cpu().numpy()}
+            for i in range(n_head)]
+    head_keys = {f"head.layers.{i}.{w}" for i in range(n_head) for w in ("w", "b")}
+    unused = sorted(k for k in state if not k.startswith(prefix)
+                    and k != "layer_weights" and k not in head_keys)
+    if unused:
+        raise ValueError(f"state dict entries not in the JAX tree: {unused}")
+    return {"backbone": wavlm_params_to_numpy(backbone, cfg),
+            "layer_weights": state["layer_weights"].detach().float().cpu().numpy(),
+            "head": head}
 
 
 def _whisper_layer_name(key: str) -> str:
