@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's WavLM-Large and Whisper-large extraction and WavLM-Large
-fine-tuning on one NVIDIA GPU and check them.
+"""Run the PyTorch port's WavLM-Large and Whisper-large extraction (fidelity,
+fast, turbo), the fused WavLM stem and WavLM-Large fine-tuning on one NVIDIA
+GPU and check them.
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
@@ -20,23 +21,33 @@ Phases, one line each on stdout ([time] lines give each phase's seconds):
    (80 and 128 mels; silent, quiet and zero-padded clips among them);
 5. mha: the Whisper encoder's flash-attention kernel against its plain
    version at 16 x 20 x 1500 x 64 in bf16 and f32, with key padding and at a
-   ragged length;
+   ragged length; scaled_dot_product_attention timed beside it;
+5b. stem: the fused WavLM stem kernels against their plain version and the
+   plain ConvFeatureEncoder (cuDNN) at 128 x 3 s and 12 x 30 s, with ragged
+   lengths, a silent clip and a clip of 4 frames;
 6. slice: a synthetic 16 kHz corpus through ExtractionPipeline.run with
    WavLM-Large (random weights, seed 0) in the fast preset; checks the store,
    the checkpoints, that every attention call went through the kernel, and
    that a resumed run skips finished rows;
 7. path: one 3 s bucket batch through WavLMModel.encode with the kernel and
    with the plain attention, in the fast and the fidelity preset;
-8. throughput: the fast WavLM extraction's audio-seconds per second over
-   1280 clips of 2-3 s, after a warm batch, and one batch's device time;
+7b. turbo_slice: the slice again in turbo (6 int8 GEMMs per layer and
+   batch), then turbo's pooled distance from the f32 path on one batch;
+8. throughput: WavLM extraction's audio-seconds per second over 1280 clips
+   of 2-3 s, after a warm batch, and one batch's device time, fast and turbo;
+8b. stem_ab: cli.stem_fused_ab at its defaults (turbo) and in fast: the stem
+   and the encode with and without the fused stem, fidelity, launches;
 9. whisper_slice: a synthetic corpus through a default-constructed
    ExtractionPipeline with Whisper-large (random weights, seed 0, fast):
    the store, the checkpoints, one log-mel launch per batch and 32 attention
    launches per batch, and resume;
 10. whisper_path: one 16 x 30 s batch through the kernel path and the plain
    path (plain log-mel and attention), in both presets;
-11. whisper_throughput: fast, 64 clips of 2-3 s in batches of 16, after a
-   warm batch: clips/s, audio-s/s, one batch's device time;
+10b. whisper_turbo_slice: the Whisper slice in turbo (5 int8 GEMMs per
+   encoder layer and batch, none in the decoder) and turbo's distance from
+   the f32 path on the 16 x 30 s batch;
+11. whisper_throughput: 64 clips of 2-3 s in batches of 16, after a warm
+   batch: clips/s, audio-s/s, one batch's device time, fast and turbo;
 12. finetune_path: one fixed WavLM-Large training step at 8 x 3 s through
    the kernels and through the plain attention, bf16 and f32: the loss and
    the gradient cosine distance per group (encoder, layer weights, head);
@@ -46,15 +57,17 @@ Phases, one line each on stdout ([time] lines give each phase's seconds):
    run; losses, parameters, launch counts (per-layer remat: 2 forwards and
    1 backward per layer per microbatch, 1 forward per eval batch), resume,
    outputs, ms per update, training audio-s/s, peak memory.
-Each extraction and fine-tune path is driven with every kernel's launch
-count set to 0 just before it and read just after. Then one JSON line with
-the kernels' numbers and, last, the device line. Any failed check exits
-non-zero; with no CUDA card it exits non-zero at once.
+Each extraction, stem A/B and fine-tune path is driven with every kernel's
+launch count (and the int8 GEMM count) set to 0 just before it and read just
+after. Then one JSON line with the kernels' numbers (time, plain time,
+bound, library time, launches on their path) and, last, the device line.
+Any failed check exits non-zero; with no CUDA card it exits non-zero at once.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import csv
 import json
 import subprocess
@@ -106,6 +119,25 @@ FT_BF16_LOSS_REL, FT_BF16_GRAD_COSINE = 5e-3, 1e-3
 FT_F32_LOSS_REL, FT_F32_GRAD_COSINE = 1e-5, 1e-8
 
 
+# the card's peaks for the bounds (H100 SXM, dense)
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12      # outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+# the fused stem against its plain version, and the kernel path's end-masked
+# frames against the plain ConvFeatureEncoder: the JAX test's bars
+# (tests/test_stem_pallas.py:98-102). Both share the rounding points (conv ->
+# bf16, bias in bf16, f32 statistics, tanh GELU on bf16) but sum in another
+# order, and one flipped bf16 rounding propagates through seven layer norms.
+STEM_COSINE, STEM_NRMSE = 5e-4, 0.03
+# pooled embeddings of the fused-stem encode against the f32 path: the repo's
+# bar in fast, the JAX turbo tests' in turbo (tests/test_quant.py:153,184);
+# and no farther than 1.25x the plain-stem path's own distance (the criterion
+# of tests/test_stem_pallas.py:96-98, with a floor of 5e-5, under which a
+# flipped rounding in either stem moves the ratio by more than 25 %)
+STEM_AB_FAST_COSINE, TURBO_COSINE = 1e-3, 2e-2
+STEM_AB_RATIO, STEM_AB_FLOOR = 1.25, 5e-5
+
+
 class CheckFailed(Exception):
     pass
 
@@ -124,12 +156,18 @@ def cosine_distance(a, b) -> float:
     return float(1.0 - (a @ b) / (a.norm() * b.norm()))
 
 
+_CORPORA: dict[Path, float] = {}  # corpora written in this run: their audio seconds
+
+
 def write_corpus(root: Path, n_per_split: dict, dur_range, seed: int,
                  long_per_split: dict | None = None, long_range=(8.2, 9.8)) -> float:
     """KSF layout: wav/{split}_{i}.wav at 16 kHz plus lab/{split}.csv, with
     ``long_per_split[split]`` more clips of ``long_range`` seconds. Returns
-    the total audio seconds."""
+    the total audio seconds; a corpus already written at ``root`` is reused."""
     import numpy as np
+
+    if root in _CORPORA:
+        return _CORPORA[root]
 
     from stutter_tpu_torch.audio.wavio import write_wav
 
@@ -154,11 +192,15 @@ def write_corpus(root: Path, n_per_split: dict, dur_range, seed: int,
             w = csv.writer(f, lineterminator="\n")
             w.writerow(("filename", "label"))
             w.writerows(rows)
+    _CORPORA[root] = total
     return total
 
 
 def phase_kernel(torch, attn):
-    """Kernel against its plain version; returns (summary, headline timings)."""
+    """Kernel against its plain version; returns (worst max-abs error, the
+    numbers at the 3 s bf16 shape). No single PyTorch call computes the
+    gated bias (gate * bias formed per row in the kernel), so no library
+    time."""
     cases = [  # (B, H, L, dtype, layout): the main path passes [B, L, H, d] views
         (128, 16, 160, torch.bfloat16, "blhd"),   # 3 s bucket, fast preset
         (12, 16, 1504, torch.bfloat16, "blhd"),   # 30 s bucket, fast preset
@@ -193,18 +235,38 @@ def phase_kernel(torch, attn):
         cos = cosine_distance(out.float(), ref.float())
         tol_abs, tol_cos = ((BF16_MAX_ABS, BF16_COSINE) if dtype == torch.bfloat16
                             else (F32_MAX_ABS, F32_COSINE))
-        ms, plain_ms = time_pair(torch, lambda: attn.gated_relpos_attention(*args),
+        ms, plain_ms = time_turns(torch, lambda: attn.gated_relpos_attention(*args),
                                  lambda: attn.gated_relpos_attention_reference(*args))
+        # q k^T and p v; q, k, v and out once each, bias, gate, mask
+        n = B * H * L * 64
+        nbytes = 4 * n * q.element_size() + 4 * (H * L * L + B * H * L + B * L)
+        numbers = timing(ms, plain_ms, *bound(4 * n * L, nbytes, peak_flops(torch, dtype)))
         say("kernel", shape=f"{B}x{H}x{L}x64", dtype=str(dtype).split(".")[-1],
             layout=layout, max_abs_err=f"{max_abs:.3e}", max_abs_tol=tol_abs,
-            cosine_dist=f"{cos:.3e}", cosine_tol=tol_cos, ms=f"{ms:.4f}",
-            plain_ms=f"{plain_ms:.4f}")
+            cosine_dist=f"{cos:.3e}", cosine_tol=tol_cos, **shown(numbers))
         check(max_abs <= tol_abs and cos <= tol_cos,
               f"kernel disagrees with its plain version at {B}x{H}x{L} {dtype}")
         worst_abs = max(worst_abs, max_abs)
-        if headline is None:
-            headline = (ms, plain_ms)
+        headline = headline or numbers
     return worst_abs, headline
+
+
+def timing(ms, plain_ms, bound_ms, bound_by, library_ms=None) -> dict:
+    """A kernel's numbers for the JSON line (library_ms: one PyTorch call
+    that computes the same function, where there is one)."""
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def shown(numbers: dict) -> dict:
+    """A kernel's numbers as a phase line prints them."""
+    return {k: v if isinstance(v, str) or v is None else f"{v:.4f}"
+            for k, v in numbers.items()}
+
+
+def peak_flops(torch, dtype) -> float:
+    """bf16 runs on the tensor cores; the f32 kernels are scalar FMAs."""
+    return BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
 
 
 def attention_inputs(torch, g, B, H, L, dtype, lengths):
@@ -223,8 +285,8 @@ def attention_inputs(torch, g, B, H, L, dtype, lengths):
 
 def phase_attn_bwd(torch, attn, card: str):
     """Backward kernels against the plain backward; returns (worst max-abs
-    error, the worst of it relative to the plain result's max, (ms, plain
-    ms) at the CLI's 3 s batch in bf16)."""
+    error, the worst of it relative to the plain result's max, the numbers
+    at the CLI's 3 s batch in bf16)."""
     cases = [  # (B, H, L): the CLI's batch 32 at 3 s, its 10 s bucket, a ragged long length
         (32, 16, 160), (9, 16, 512), (4, 16, 1008)]
     g = torch.Generator(device="cuda").manual_seed(7)
@@ -259,24 +321,32 @@ def phase_attn_bwd(torch, attn, card: str):
                       f"rel max-abs {rel:.3e}, cosine {cos:.3e}")
                 worst, worst_abs = max(worst, rel), max(worst_abs, max_abs)
             check(stats_err <= BWD_STATS_MAX_ABS, f"row statistics differ by {stats_err:.3e}")
-            ms, plain_ms = time_pair(
+            ms, plain_ms = time_turns(
                 torch, lambda: attn.gated_relpos_attention_backward(*args, out, do, stats),
                 lambda: attn.gated_relpos_attention_backward_reference(*args, out, do))
+            # reads q, k, v, do, out, bias, gate, mask, the row statistics;
+            # writes dq, dk, dv, dbias, dgate; recomputes q k^T, then do v^T,
+            # dq, dk and dv: five products of 2 B H L^2 64 operations
+            n = B * H * L * 64
+            nbytes = 8 * n * out.element_size() + 4 * (2 * H * L * L + 4 * B * H * L + B * L)
+            numbers = timing(ms, plain_ms,
+                             *bound(10 * n * L, nbytes, peak_flops(torch, dtype)))
             say("attn_bwd", shape=f"{B}x{H}x{L}x64", dtype=str(dtype).split(".")[-1],
                 **{f"{k}_rel_cos": v for k, v in fields.items()},
                 rel_tol=tol_rel, cosine_tol=tol_cos, stats_max_abs=f"{stats_err:.2e}",
-                ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", card=f'"{card}"')
-            headline = headline or (ms, plain_ms)
+                **shown(numbers), card=f'"{card}"')
+            headline = headline or numbers
     return worst_abs, worst, headline
 
 
-def time_pair(torch, fn_a, fn_b, runs: int = 20):
-    """Median ms of each, timed per launch with CUDA events, in turns."""
+def time_turns(torch, *fns, runs: int = 20):
+    """Median ms of each function, timed per launch with CUDA events, in turns."""
     for _ in range(3):
-        fn_a(), fn_b()
-    times = ([], [])
+        for fn in fns:
+            fn()
+    times = tuple([] for _ in fns)
     for _ in range(runs):
-        for fn, acc in ((fn_a, times[0]), (fn_b, times[1])):
+        for fn, acc in zip(fns, times):
             e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             e0.record()
             fn()
@@ -284,6 +354,14 @@ def time_pair(torch, fn_a, fn_b, runs: int = 20):
             e1.synchronize()
             acc.append(e0.elapsed_time(e1))
     return tuple(sorted(t)[len(t) // 2] for t in times)
+
+
+def bound(flops: float, nbytes: float, peak_flops: float) -> tuple[float, str]:
+    """The least ms the card could take: the larger of the operations over
+    their peak rate and the bytes over the memory rate (H100 SXM data sheet,
+    dense, at 700 W), and which of the two it is."""
+    ops_ms, bytes_ms = flops / peak_flops * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
 def count_submits(extractor):
@@ -308,19 +386,29 @@ def kernel_wrappers() -> dict:
         gated_relpos_attention,
         gated_relpos_attention_backward,
     )
+    from stutter_tpu_torch.ops.wavlm_stem import wavlm_fused_stem
 
     return {"gated_relpos_attention": gated_relpos_attention,
             "gated_relpos_attention_bwd": gated_relpos_attention_backward,
-            "flash_mha": flash_mha, "whisper_log_mel": whisper_log_mel}
+            "flash_mha": flash_mha, "whisper_log_mel": whisper_log_mel,
+            "wavlm_fused_stem": wavlm_fused_stem}
 
 
 def zero_counts() -> None:
+    """Every kernel's launch count, and the int8 GEMM count, to 0."""
+    from stutter_tpu_torch.ops.quant import qdot
+
     for wrapper in kernel_wrappers().values():
         wrapper.launches = 0
+    qdot.calls = 0
 
 
 def read_counts() -> dict:
-    return {name: wrapper.launches for name, wrapper in kernel_wrappers().items()}
+    from stutter_tpu_torch.ops.quant import qdot
+
+    counts = {name: wrapper.launches for name, wrapper in kernel_wrappers().items()}
+    counts["int8_gemm"] = qdot.calls
+    return counts
 
 
 def check_resume(torch, pipe, extractor, meta, out: Path, results) -> None:
@@ -349,7 +437,9 @@ def check_resume(torch, pipe, extractor, meta, out: Path, results) -> None:
     say("resume", skipped_rows=skipped, extracted_rows=len(seen["paths"]))
 
 
-def phase_slice(torch, extractor, work: Path):
+def phase_slice(torch, extractor, work: Path, phase: str = "slice") -> dict:
+    """The WavLM slice through ExtractionPipeline.run and a resumed run;
+    returns the kernels' launch counts and the batches."""
     import numpy as np
 
     from stutter_tpu_torch.extract.batcher import BucketBatcher
@@ -357,7 +447,7 @@ def phase_slice(torch, extractor, work: Path):
     from stutter_tpu_torch.extract.scanner import create_metadata_from_files
 
     cfg, layers, dim = extractor.cfg, extractor.layer_indices, extractor.embedding_dim
-    corpus, out = work / "corpus", work / "store"
+    corpus, out = work / "corpus", work / f"{phase}_store"
     audio_s = write_corpus(corpus, {"train": 12, "test": 6, "devel": 6}, (0.5, 4.0), seed=0)
     meta = create_metadata_from_files(str(corpus))
     pipe = ExtractionPipeline(extractor, batcher=BucketBatcher(frame_align=extractor.frame_align),
@@ -374,6 +464,10 @@ def phase_slice(torch, extractor, work: Path):
     check(counts["flash_mha"] == counts["whisper_log_mel"] == 0,
           f"the WavLM path launched a Whisper kernel: {counts}")
     check(counts["gated_relpos_attention_bwd"] == 0, "extraction launched the backward")
+    check(counts["wavlm_fused_stem"] == 0, "the pipeline took the fused stem (off by default)")
+    int8 = 6 * cfg.num_hidden_layers * seen["batches"] if extractor.preset == "turbo" else 0
+    check(counts["int8_gemm"] == int8,
+          f"{counts['int8_gemm']} int8 GEMMs for {seen['batches']} batches, expected {int8}")
     for split, n in (("train", 12), ("test", 6), ("devel", 6)):
         d = out / split
         check((d / "embedding_metadata.csv").is_file(), f"{d}/embedding_metadata.csv missing")
@@ -387,13 +481,27 @@ def phase_slice(torch, extractor, work: Path):
     expected = cfg.num_hidden_layers * seen["batches"]
     check(launches > 0 and launches == expected,
           f"attention kernel launched {launches} times for {seen['batches']} batches")
-    say("slice", clips=len(meta), audio_s=f"{audio_s:.2f}", batches=seen["batches"],
-        launches=launches, expected=f"{cfg.num_hidden_layers}x{seen['batches']}",
+    say(phase, preset=extractor.preset, clips=len(meta), audio_s=f"{audio_s:.2f}",
+        batches=seen["batches"], launches=launches,
+        expected=f"{cfg.num_hidden_layers}x{seen['batches']}", int8_gemms=counts["int8_gemm"],
         wall_s=f"{wall:.2f}",
         store=f"3 splits x layers {','.join(map(str, layers))} x [n,{dim}]")
 
     check_resume(torch, pipe, extractor, meta, out, results)
-    return launches
+    return dict(counts, batches=seen["batches"])
+
+
+def wavlm_test_batch(torch, cfg):
+    """One 16-clip batch of the 3 s bucket (L = 160 frames) on the card,
+    ragged lengths from 0.5 s, prepared as the extractor prepares it."""
+    from stutter_tpu_torch.frontend.wavlm_frontend import wavlm_prepare_batch
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    B, T = 16, 51_280
+    lengths = torch.randint(8_000, T + 1, (B,), device="cuda", generator=g)
+    lengths[0] = T
+    wave = torch.randn(B, T, device="cuda", generator=g) * 0.1
+    return wavlm_prepare_batch(wave, lengths, cfg.do_normalize), lengths
 
 
 def phase_kernel_path_vs_plain(torch, attn, layers, fast_model, fid_model):
@@ -401,13 +509,8 @@ def phase_kernel_path_vs_plain(torch, attn, layers, fast_model, fid_model):
     from stutter_tpu_torch.frontend.wavlm_frontend import wavlm_prepare_batch
     from stutter_tpu_torch.ops.precision import no_tf32
 
-    device = fast_model.rel_attn_embed.device
-    g = torch.Generator(device=device).manual_seed(1)
-    B, T = 16, 51_280  # the 3 s bucket: L = 160 frames
-    lengths = torch.randint(8_000, T + 1, (B,), device=device, generator=g)
-    lengths[0] = T
-    wave = torch.randn(B, T, device=device, generator=g) * 0.1
-    wave = wavlm_prepare_batch(wave, lengths, fast_model.cfg.do_normalize)
+    wave, lengths = wavlm_test_batch(torch, fast_model.cfg)
+    B = wave.shape[0]
     dists = {}
     for name, model, bar in (("fast", fast_model, FAST_POOLED_COSINE),
                              ("fidelity", fid_model, FIDELITY_POOLED_COSINE)):
@@ -425,9 +528,10 @@ def phase_kernel_path_vs_plain(torch, attn, layers, fast_model, fid_model):
         fidelity_tol=FIDELITY_POOLED_COSINE)
 
 
-def phase_throughput(torch, extractor, work: Path, card: str):
-    """The fast pipeline's audio-s/s over 10 full 3 s batches, and the device
-    time of one batch's encode alone (input already on the card)."""
+def phase_throughput(torch, extractor, work: Path, card: str) -> float:
+    """The pipeline's audio-s/s in the extractor's preset over 10 full 3 s
+    batches, and the device time of one batch's encode alone (input already
+    on the card); returns the audio-s/s."""
     import numpy as np
 
     from stutter_tpu_torch.extract.batcher import BucketBatcher
@@ -442,7 +546,7 @@ def phase_throughput(torch, extractor, work: Path, card: str):
     pipe = ExtractionPipeline(extractor, batcher=batcher, checkpoint_interval=10_000)
     meta = create_metadata_from_files(str(corpus))
     t0 = time.perf_counter()
-    pipe.run(meta, str(work / "timing_store"), splits=("train",))
+    pipe.run(meta, str(work / f"timing_store_{extractor.preset}"), splits=("train",))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
 
@@ -460,11 +564,12 @@ def phase_throughput(torch, extractor, work: Path, card: str):
         e1.synchronize()
         times.append(e0.elapsed_time(e1))
     encode_ms = float(np.median(times))
-    say("throughput", preset="fast", clips=len(meta), audio_s=f"{audio_s:.1f}",
+    say("throughput", preset=extractor.preset, clips=len(meta), audio_s=f"{audio_s:.1f}",
         wall_s=f"{wall:.3f}", audio_s_per_s=f"{audio_s / wall:.1f}",
         batch=f"{len(batch.lengths)}x3s", encode_device_ms=f"{encode_ms:.1f}",
         encode_audio_s_per_s=f"{batch.audio_seconds / (encode_ms / 1e3):.1f}",
         card=f'"{card}"')
+    return audio_s / wall
 
 
 def whisper_test_clips(torch, B: int, seed: int):
@@ -482,9 +587,30 @@ def whisper_test_clips(torch, B: int, seed: int):
     return wave
 
 
+def logmel_work(wave, out, n_mels: int) -> tuple[float, float, float]:
+    """The least work of the log-mel, as f32 operations outside the tensor
+    cores, per frame: the window (400), a 400-point real FFT (2.5 N log2 N),
+    the power of 201 bins (3 each), the mel bank's nonzero taps (2 each; each
+    bin lies in at most two triangles), the log and the floor-affine (4 per
+    mel); the bytes of the wave read once and the features written once.
+    Also the operations of the kernel's design, the dense 400 x 402 DFT and
+    201 x n_mels mel products."""
+    import math
+
+    from stutter_tpu_torch.ops.logmel import WHISPER_N_FFT, WHISPER_SR, _whisper_mel_matrix
+
+    n = WHISPER_N_FFT
+    taps = int((_whisper_mel_matrix(n, n_mels, WHISPER_SR) != 0).sum())
+    frames = wave.shape[0] * out.shape[-1]
+    per_frame = n + 2.5 * n * math.log2(n) + 3 * (n // 2 + 1) + 2 * taps + 4 * n_mels
+    dense = 2 * (n * 2 * (n // 2 + 1) + (n // 2 + 1) * n_mels)
+    nbytes = wave.numel() * wave.element_size() + out.numel() * out.element_size() + 4 * taps
+    return frames * per_frame, nbytes, frames * dense
+
+
 def phase_logmel(torch, logmel):
     """Log-mel kernel against its plain version at the path's 16 x 30 s;
-    returns (worst max-abs error, (ms, plain ms) at 80 mels)."""
+    returns (worst max-abs error, the numbers at 80 mels)."""
     worst, headline = 0.0, None
     for n_mels in (80, 128):
         wave = whisper_test_clips(torch, 16, seed=n_mels)
@@ -496,21 +622,28 @@ def phase_logmel(torch, logmel):
         check(bool(torch.isfinite(out).all()), "log-mel kernel output has non-finite values")
         max_abs = float((out - ref).abs().max())
         silent_ok = bool((out[0] == out[0, 0, 0]).all())  # one constant image
-        ms, plain_ms = time_pair(torch, lambda: logmel.whisper_log_mel(wave, n_mels),
+        ms, plain_ms = time_turns(torch, lambda: logmel.whisper_log_mel(wave, n_mels),
                                  lambda: logmel.log_mel_spectrogram_reference(wave, n_mels))
+        flops, nbytes, dense_flops = logmel_work(wave, out, n_mels)
+        numbers = timing(ms, plain_ms, *bound(flops, nbytes, F32_FLOPS))
+        # the kernel's own design (the dense windowed DFT as a product) for comparison
+        dense_ms, _ = bound(dense_flops, nbytes, F32_FLOPS)
         say("logmel", shape="16x480000", n_mels=n_mels, max_abs_err=f"{max_abs:.3e}",
-            max_abs_tol=LOGMEL_MAX_ABS, silent_clip_exact=silent_ok, ms=f"{ms:.4f}",
-            plain_ms=f"{plain_ms:.4f}")
+            max_abs_tol=LOGMEL_MAX_ABS, silent_clip_exact=silent_ok, **shown(numbers),
+            bound_dense_dft_ms=f"{dense_ms:.4f}")
         check(max_abs <= LOGMEL_MAX_ABS and silent_ok,
               f"log-mel kernel disagrees with its plain version at {n_mels} mels")
         worst = max(worst, max_abs)
-        headline = headline or (ms, plain_ms)
+        headline = headline or numbers
     return worst, headline
 
 
 def phase_mha(torch, mha):
-    """Flash-attention kernel against its plain version; returns (worst
-    max-abs error, (ms, plain ms) at the bf16 encoder shape)."""
+    """Flash-attention kernel against its plain version, and the time of
+    ``scaled_dot_product_attention`` on the same inputs; returns (worst
+    max-abs error, the numbers at the bf16 encoder shape)."""
+    import torch.nn.functional as F
+
     cases = [  # (B, H, L, dtype, kv_valid): [B, L, H, d] views, as the encoder passes them
         (16, 20, 1500, torch.bfloat16, None),   # Whisper-large encoder, fast preset
         (16, 20, 1500, torch.float32, None),    # fidelity preset
@@ -535,20 +668,32 @@ def phase_mha(torch, mha):
         cos = cosine_distance(out.float(), ref.float())
         tol_abs, tol_cos = ((BF16_MAX_ABS, BF16_COSINE) if dtype == torch.bfloat16
                             else (F32_MAX_ABS, F32_COSINE))
-        ms, plain_ms = time_pair(torch, lambda: mha.flash_mha(q, k, v, kv_valid),
-                                 lambda: mha.flash_mha_reference(q, k, v, kv_valid))
+        # the library's one call for the same function: scaled_dot_product_attention
+        # with q's scale 1 (q comes pre-scaled) and the additive key-padding mask
+        # (-1e9 past each clip's keys; every key valid where kv_valid is None)
+        valid = kv_valid if kv_valid is not None else torch.full(
+            (B,), L, dtype=torch.int32, device="cuda")
+        key_mask = torch.where(torch.arange(L, device="cuda")[None, :] < valid[:, None],
+                               0.0, -1e9).to(dtype)[:, None, None, :]
+        ms, plain_ms, library_ms = time_turns(
+            torch, lambda: mha.flash_mha(q, k, v, kv_valid),
+            lambda: mha.flash_mha_reference(q, k, v, kv_valid),
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=key_mask, scale=1.0))
+        n = B * H * L * 64  # q k^T and p v; q, k, v and out once each
+        numbers = timing(ms, plain_ms, *bound(4 * n * L, 4 * n * q.element_size(),
+                                              peak_flops(torch, dtype)), library_ms)
         say("mha", shape=f"{B}x{H}x{L}x64", dtype=str(dtype).split(".")[-1],
             kv_valid=",".join(map(str, kv)) if kv else "all", max_abs_err=f"{max_abs:.3e}",
             max_abs_tol=tol_abs, cosine_dist=f"{cos:.3e}", cosine_tol=tol_cos,
-            ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}")
+            **shown(numbers))
         check(max_abs <= tol_abs and cos <= tol_cos,
               f"flash_mha disagrees with its plain version at {B}x{H}x{L} {dtype} kv={kv}")
         worst = max(worst, max_abs)
-        headline = headline or (ms, plain_ms)
+        headline = headline or numbers
     return worst, headline
 
 
-def phase_whisper_slice(torch, extractor, work: Path) -> dict:
+def phase_whisper_slice(torch, extractor, work: Path, phase: str = "whisper_slice") -> dict:
     """The Whisper slice through a default-constructed pipeline; returns the
     kernels' launch counts."""
     import numpy as np
@@ -557,7 +702,7 @@ def phase_whisper_slice(torch, extractor, work: Path) -> dict:
     from stutter_tpu_torch.extract.scanner import create_metadata_from_files
 
     cfg, dim = extractor.cfg, extractor.embedding_dim
-    corpus, out = work / "whisper_corpus", work / "whisper_store"
+    corpus, out = work / "whisper_corpus", work / f"{phase}_store"
     sizes = {"train": 30, "test": 6, "devel": 6}
     audio_s = write_corpus(corpus, sizes, (0.5, 4.0), seed=3)
     meta = create_metadata_from_files(str(corpus))
@@ -587,15 +732,19 @@ def phase_whisper_slice(torch, extractor, work: Path) -> dict:
           f"log-mel kernel launched {counts['whisper_log_mel']} times for {batches} batches")
     check(counts["flash_mha"] == cfg.encoder_layers * batches,
           f"flash_mha launched {counts['flash_mha']} times for {batches} batches")
-    check(counts["gated_relpos_attention"] == counts["gated_relpos_attention_bwd"] == 0,
-          "the Whisper path launched WavLM's kernels")
-    say("whisper_slice", clips=len(meta), audio_s=f"{audio_s:.2f}", batches=batches,
-        batch=pipe.batcher.batch_size_for(30.0), log_mel_launches=counts["whisper_log_mel"],
-        flash_mha_launches=counts["flash_mha"],
-        expected=f"{batches},{cfg.encoder_layers}x{batches}", wall_s=f"{wall:.2f}",
-        store=f"3 splits x {','.join(extractor.column_names)} x [n,{dim}]")
+    check(counts["gated_relpos_attention"] == counts["gated_relpos_attention_bwd"]
+          == counts["wavlm_fused_stem"] == 0, "the Whisper path launched WavLM's kernels")
+    # turbo: q, k, v, fc1, fc2 of each encoder layer; attn_o and the decoder stay bf16
+    int8 = 5 * cfg.encoder_layers * batches if extractor.preset == "turbo" else 0
+    check(counts["int8_gemm"] == int8,
+          f"{counts['int8_gemm']} int8 GEMMs for {batches} batches, expected {int8}")
+    say(phase, preset=extractor.preset, clips=len(meta), audio_s=f"{audio_s:.2f}",
+        batches=batches, batch=pipe.batcher.batch_size_for(30.0),
+        log_mel_launches=counts["whisper_log_mel"], flash_mha_launches=counts["flash_mha"],
+        int8_gemms=counts["int8_gemm"], expected=f"{batches},{cfg.encoder_layers}x{batches}",
+        wall_s=f"{wall:.2f}", store=f"3 splits x {','.join(extractor.column_names)} x [n,{dim}]")
     check_resume(torch, pipe, extractor, meta, out, results)
-    return counts
+    return dict(counts, batches=batches)
 
 
 def phase_whisper_path(torch, fast_model, fid_model):
@@ -645,9 +794,10 @@ def phase_whisper_path(torch, fast_model, fid_model):
           f"fidelity: kernel vs plain path cosine {d['fid']:.3e}")
 
 
-def phase_whisper_throughput(torch, extractor, work: Path, card: str):
-    """The fast Whisper pipeline over 64 clips of 2-3 s in batches of 16 (the
-    CLI's batch), after a warm batch, and one batch's device time."""
+def phase_whisper_throughput(torch, extractor, work: Path, card: str) -> float:
+    """The Whisper pipeline in the extractor's preset over 64 clips of 2-3 s
+    in batches of 16 (the CLI's batch), after a warm batch, and one batch's
+    device time; returns the clips/s."""
     import numpy as np
 
     from stutter_tpu_torch.extract.batcher import BucketBatcher
@@ -662,7 +812,7 @@ def phase_whisper_throughput(torch, extractor, work: Path, card: str):
     pipe = ExtractionPipeline(extractor, batcher=batcher, checkpoint_interval=10_000)
     meta = create_metadata_from_files(str(corpus))
     t0 = time.perf_counter()
-    pipe.run(meta, str(work / "whisper_timing_store"), splits=("train",))
+    pipe.run(meta, str(work / f"whisper_timing_store_{extractor.preset}"), splits=("train",))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
 
@@ -680,12 +830,14 @@ def phase_whisper_throughput(torch, extractor, work: Path, card: str):
         e1.synchronize()
         times.append(e0.elapsed_time(e1))
     encode_ms = float(np.median(times))
-    say("whisper_throughput", preset="fast", clips=len(meta), audio_s=f"{audio_s:.1f}",
+    say("whisper_throughput", preset=extractor.preset, clips=len(meta),
+        audio_s=f"{audio_s:.1f}",
         wall_s=f"{wall:.3f}", clips_per_s=f"{len(meta) / wall:.2f}",
         audio_s_per_s=f"{audio_s / wall:.1f}", batch=f"{len(batch.lengths)}x30s",
         encode_device_ms=f"{encode_ms:.1f}",
         encode_clips_per_s=f"{len(batch.lengths) / (encode_ms / 1e3):.2f}",
         card=f'"{card}"')
+    return len(meta) / wall
 
 
 def group_cosines(grads_a: dict, grads_b: dict) -> dict:
@@ -951,6 +1103,161 @@ def phase_finetune(torch, work: Path, card: str, device: str = "cuda", batch_siz
     return counts
 
 
+def seeded_stem(torch, cfg):
+    """WavLM-Large's conv stem in bf16 on the card: weights drawn like
+    init_wavlm's, biases and norm affines given seeded noise so that every
+    term of the epilogue is exercised."""
+    from stutter_tpu_torch.models.wavlm import ConvFeatureEncoder
+
+    g = torch.Generator().manual_seed(0)
+    stem = ConvFeatureEncoder(cfg)
+    with torch.no_grad():
+        for layer in stem.layers:
+            c_out, c_in, k = layer.weight.shape
+            layer.weight.copy_(torch.randn(layer.weight.shape, generator=g) * (c_in * k) ** -0.5)
+            layer.bias.copy_(torch.randn(c_out, generator=g) * 0.1)
+            layer.norm_scale.copy_(1.0 + 0.1 * torch.randn(c_out, generator=g))
+            layer.norm_bias.copy_(0.1 * torch.randn(c_out, generator=g))
+    return stem.to("cuda", torch.bfloat16)
+
+
+def stem_flops_bytes(st, B: int, T: int, weights, table):
+    """The fused stem's operations, the bytes of its inputs and output (each
+    once), and the bytes the per-layer design also moves: each intermediate
+    layer's bf16 frames written once and read once."""
+    lengths = st.stem_layer_lengths(T)
+    taps = (10,) + tuple(k * st.CHANNELS for k in (3, 3, 3, 3, 2, 2))
+    flops = sum(2 * B * n * k * st.CHANNELS for n, k in zip(lengths, taps))
+    io = 4 * B * T + 2 * weights.numel() + 4 * table.numel() + 2 * B * lengths[-1] * st.CHANNELS
+    between = sum(2 * 2 * B * n * st.CHANNELS for n in lengths[:-1])
+    return flops, io, between
+
+
+def phase_stem(torch, card: str):
+    """The fused stem kernel against its plain version, and its end-masked
+    frames against the plain ConvFeatureEncoder (cuDNN, per-layer masking),
+    at the 3 s and 30 s buckets with ragged lengths, a silent clip and a
+    clip of 4 frames; median times of all three. Returns (worst max-abs
+    error, the numbers at the 3 s bucket)."""
+    from stutter_tpu_torch.frontend.wavlm_frontend import wavlm_prepare_batch
+    from stutter_tpu_torch.models.wavlm import WavLMConfig, wavlm_feature_lengths
+    from stutter_tpu_torch.ops import wavlm_stem as st
+
+    cfg = WavLMConfig.large()
+    stem = seeded_stem(torch, cfg)
+    weights, table = stem.packed()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    worst, headline = 0.0, None
+    for B, T in ((128, 51_280), (12, 481_360)):  # the 3 s and 30 s buckets
+        lengths = torch.randint(T // 4, T + 1, (B,), device="cuda", generator=g)
+        lengths[0], lengths[1], lengths[2] = T, T, 400 + 3 * 320  # full, silent, 4 frames
+        wave = torch.randn(B, T, device="cuda", generator=g) * 0.1
+        wave = wave * (torch.arange(T, device="cuda")[None] < lengths[:, None])
+        wave[1] = 0.0
+        wave = wavlm_prepare_batch(wave, lengths, cfg.do_normalize)
+        out = st.wavlm_fused_stem(wave, weights, table)
+        ref = st.wavlm_fused_stem_reference(wave, weights, table)
+        lib = stem(wave, lengths)
+        torch.cuda.synchronize()
+        L = st.stem_frames_for_samples(T)
+        check(out.shape == ref.shape == lib.shape == (B, L, 512) and out.dtype == torch.bfloat16,
+              f"stem output {out.dtype} {tuple(out.shape)}")
+        check(bool(torch.isfinite(out).all()), "stem output has non-finite values")
+        d = out.float() - ref.float()
+        max_abs = float(d.abs().max())
+        nrmse = float(d.norm() / ref.float().norm())
+        cos = cosine_distance(out.float(), ref.float())
+        fl = wavlm_feature_lengths(cfg, lengths)
+        keep = (torch.arange(L, device="cuda")[None] < fl[:, None])[:, :, None]
+        masked = out.float() * keep
+        lib_nrmse = float((masked - lib.float()).norm() / lib.float().norm())
+        lib_cos = cosine_distance(masked, lib.float())
+        ms, plain_ms, library_ms = time_turns(
+            torch, lambda: st.wavlm_fused_stem(wave, weights, table),
+            lambda: st.wavlm_fused_stem_reference(wave, weights, table),
+            lambda: stem(wave, lengths))
+        flops, io, between = stem_flops_bytes(st, B, T, weights, table)
+        bound_ms, bound_by = bound(flops, io, BF16_FLOPS)
+        design_ms, _ = bound(flops, io + between, BF16_FLOPS)
+        say("stem", shape=f"{B}x{T}", frames=L, max_abs_err=f"{max_abs:.3e}",
+            nrmse=f"{nrmse:.3e}", nrmse_tol=STEM_NRMSE, cosine_dist=f"{cos:.3e}",
+            cosine_tol=STEM_COSINE, vs_convfeature_nrmse=f"{lib_nrmse:.3e}",
+            vs_convfeature_cosine=f"{lib_cos:.3e}", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            library_ms=f"{library_ms:.4f}", tflop=f"{flops / 1e12:.4f}",
+            bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+            bound_with_intermediates_ms=f"{design_ms:.4f}", card=f'"{card}"')
+        check(nrmse <= STEM_NRMSE and cos <= STEM_COSINE,
+              f"stem kernel disagrees with its plain version at {B}x{T}")
+        check(lib_nrmse <= STEM_NRMSE and lib_cos <= STEM_COSINE,
+              f"stem kernel disagrees with ConvFeatureEncoder at {B}x{T}")
+        worst = max(worst, max_abs)
+        if headline is None:
+            headline = timing(ms, plain_ms, bound_ms, bound_by, library_ms)
+        del out, ref, lib, masked, d
+        torch.cuda.empty_cache()
+    return worst, headline
+
+
+def phase_stem_ab(torch, card: str) -> int:
+    """cli.stem_fused_ab.main at its defaults (turbo) and with --preset fast:
+    fidelity of the fused path against the f32 path and against the plain
+    stem's, one stem launch per encode, the four timings. Returns the stem
+    kernel's launches over both runs."""
+    import io
+
+    from stutter_tpu_torch.cli import stem_fused_ab
+
+    zero_counts()
+    for argv in ([], ["--preset", "fast"]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = stem_fused_ab.main(argv)
+        check(rc == 0, f"stem_fused_ab {argv} returned {rc}")
+        r = json.loads(buf.getvalue().strip().splitlines()[-1])
+        bar = TURBO_COSINE if r["preset"] == "turbo" else STEM_AB_FAST_COSINE
+        fused, plain = r["fused_fidelity_vs_f32"], r["plain_fidelity_vs_f32"]
+        say("stem_ab", preset=r["preset"], batch=f"{r['batch']}x{r['n_samples']}",
+            fused_cosine_vs_f32=f"{fused:.3e}", plain_cosine_vs_f32=f"{plain:.3e}",
+            bar=bar, ratio_bar=f"{STEM_AB_RATIO}x max(plain, {STEM_AB_FLOOR})",
+            launches_per_encode=r["stem_launches_per_encode"],
+            **{k: ",".join(f"{t:.3f}" for t in r[k])
+               for k in ("stem_plain_ms", "stem_fused_ms", "e2e_plain_ms", "e2e_fused_ms")},
+            e2e_plain_audio_s_per_s=f"{r['e2e_plain_audio_s_per_s']:.1f}",
+            e2e_fused_audio_s_per_s=f"{r['e2e_fused_audio_s_per_s']:.1f}", card=f'"{card}"')
+        check(r["stem_launches_per_encode"] == 1,
+              f"{r['stem_launches_per_encode']} stem launches in one fused encode")
+        check(fused <= bar, f"{r['preset']}: fused path {fused:.3e} from f32, bar {bar}")
+        check(fused <= STEM_AB_RATIO * max(plain, STEM_AB_FLOOR),
+              f"{r['preset']}: fused path {fused:.3e} from f32, plain path {plain:.3e}")
+        torch.cuda.empty_cache()
+    launches = read_counts()["wavlm_fused_stem"]
+    check(launches > 0, "the stem A/B launched no stem kernel")
+    return launches
+
+
+def worst_pooled(a, b) -> float:
+    """Worst cosine distance over the [S, B, D] pooled embeddings."""
+    return max(cosine_distance(a[s, i], b[s, i])
+               for s in range(a.shape[0]) for i in range(a.shape[1]))
+
+
+def phase_turbo_fidelity(torch, name: str, embed, turbo_model, fast_model, fid_model):
+    """One batch through the turbo, fast and f32 models (``embed(model)``
+    gives pooled [S, B, D]): turbo's worst pooled cosine distance from f32
+    (bar 2e-2, the JAX turbo tests'), fast's beside it."""
+    from stutter_tpu_torch.ops.precision import no_tf32
+
+    with no_tf32():
+        ref = embed(fid_model)
+    turbo, fast = embed(turbo_model), embed(fast_model)
+    check(bool(torch.isfinite(turbo).all()), f"{name} turbo: non-finite pooled embeddings")
+    d_turbo, d_fast = worst_pooled(turbo, ref), worst_pooled(fast, ref)
+    say("turbo_fidelity", model=name, batch=f"{turbo.shape[1]}",
+        turbo_cosine_vs_f32=f"{d_turbo:.3e}", fast_cosine_vs_f32=f"{d_fast:.3e}",
+        bar=TURBO_COSINE)
+    check(d_turbo <= TURBO_COSINE, f"{name} turbo {d_turbo:.3e} from f32, bar {TURBO_COSINE}")
+
+
 @contextlib.contextmanager
 def timed(phase: str):
     t0 = time.perf_counter()
@@ -974,6 +1281,7 @@ def main() -> int:
     logging.basicConfig(level=logging.WARNING)
 
     from stutter_tpu_torch.extract.pipeline import WavLMExtractor, WhisperExtractor
+    from stutter_tpu_torch.frontend.whisper_frontend import whisper_features
     from stutter_tpu_torch.models.wavlm import WavLMConfig, WavLMModel
     from stutter_tpu_torch.models.whisper import WhisperConfig, WhisperModel
     from stutter_tpu_torch.ops import _build
@@ -1003,23 +1311,42 @@ def main() -> int:
             logmel_err, logmel_times = phase_logmel(torch, logmel)
         with timed("mha"):
             mha_err, mha_times = phase_mha(torch, mha)
+        with timed("stem"):
+            stem_err, stem_times = phase_stem(torch, card)
 
         with tempfile.TemporaryDirectory() as tmp:
+            work = Path(tmp)
             with timed("wavlm_init"):
                 cfg = WavLMConfig.large()
                 base = init_wavlm(cfg, torch.Generator().manual_seed(0))
                 fid_model = WavLMModel(cfg, device="cuda")
                 fid_model.load_state_dict(base.state_dict())
                 extractor = WavLMExtractor(base, "cuda", preset="fast")  # casts to bf16
+                # turbo from the same f32 weights: bf16 cast, then int8 projections
+                turbo = WavLMExtractor(copy.deepcopy(fid_model), "cuda", preset="turbo")
             with timed("slice"):
-                wavlm_launches = phase_slice(torch, extractor, Path(tmp))
+                wavlm_counts = phase_slice(torch, extractor, work)
             with timed("path"):
                 phase_kernel_path_vs_plain(torch, attn, extractor.layer_indices,
                                            extractor.model, fid_model)
+            with timed("turbo_slice"):
+                phase_slice(torch, turbo, work, phase="turbo_slice")
+                wave, lengths = wavlm_test_batch(torch, extractor.cfg)
+                phase_turbo_fidelity(
+                    torch, "wavlm-large",
+                    lambda m: m.encode(wave, extractor.layer_indices, lengths),
+                    turbo.model, extractor.model, fid_model)
             del fid_model
             with timed("throughput"):
-                phase_throughput(torch, extractor, Path(tmp), card)
-            del extractor, base
+                fast_rate = phase_throughput(torch, extractor, work, card)
+                turbo_rate = phase_throughput(torch, turbo, work, card)
+            say("turbo", model="wavlm-large", fast_audio_s_per_s=f"{fast_rate:.1f}",
+                turbo_audio_s_per_s=f"{turbo_rate:.1f}",
+                turbo_over_fast=f"{turbo_rate / fast_rate:.3f}", card=f'"{card}"')
+            del extractor, turbo, base
+            torch.cuda.empty_cache()
+            with timed("stem_ab"):
+                stem_launches = phase_stem_ab(torch, card)
 
             with timed("whisper_init"):
                 cfg = WhisperConfig.large()
@@ -1029,48 +1356,59 @@ def main() -> int:
                 extractor = WhisperExtractor(base, "cuda", preset="fast")  # casts to bf16
                 del base
             with timed("whisper_slice"):
-                whisper_counts = phase_whisper_slice(torch, extractor, Path(tmp))
+                whisper_counts = phase_whisper_slice(torch, extractor, work)
             with timed("whisper_path"):
                 phase_whisper_path(torch, extractor.model, fid_model)
+            with timed("whisper_turbo_slice"):
+                turbo = WhisperExtractor(copy.deepcopy(fid_model), "cuda", preset="turbo")
+                phase_whisper_slice(torch, turbo, work, phase="whisper_turbo_slice")
+                mel = whisper_features(whisper_test_clips(torch, 16, seed=5))
+                idx = extractor.encoder_indices
+                phase_turbo_fidelity(torch, "whisper-large", lambda m: m.embed(mel, idx, idx),
+                                     turbo.model, extractor.model, fid_model)
+                del mel
             del fid_model
+            torch.cuda.empty_cache()
             with timed("whisper_throughput"):
-                phase_whisper_throughput(torch, extractor, Path(tmp), card)
-            del extractor
+                fast_rate = phase_whisper_throughput(torch, extractor, work, card)
+                turbo_rate = phase_whisper_throughput(torch, turbo, work, card)
+            say("turbo", model="whisper-large", fast_clips_per_s=f"{fast_rate:.2f}",
+                turbo_clips_per_s=f"{turbo_rate:.2f}",
+                turbo_over_fast=f"{turbo_rate / fast_rate:.3f}", card=f'"{card}"')
+            del extractor, turbo
             torch.cuda.empty_cache()
 
             with timed("finetune_path"):
                 phase_finetune_path(torch, attn, WavLMConfig.large())
             torch.cuda.empty_cache()
             with timed("finetune"):
-                ft_counts = phase_finetune(torch, Path(tmp), card)
+                ft_counts = phase_finetune(torch, work, card)
     except CheckFailed as e:
         print(f"FAILED: {e}", flush=True)
         return 1
 
-    kernels = [
-        ("gated_relpos_attention", "stutter_tpu_torch/csrc/wavlm_attention.cu",
-         "stutter_tpu/ops/wavlm_attention_pallas.py:31", wavlm_launches, wavlm_err,
-         wavlm_times),
-        ("whisper_log_mel", "stutter_tpu_torch/csrc/logmel.cu",
-         "stutter_tpu/ops/logmel_pallas.py:43", whisper_counts["whisper_log_mel"],
-         logmel_err, logmel_times),
-        ("flash_mha", "stutter_tpu_torch/csrc/flash_mha.cu",
-         "stutter_tpu/models/attention.py:54", whisper_counts["flash_mha"], mha_err,
-         mha_times),
+    kernels = [  # name, source, replaces, launches on its path, max-abs error, numbers
+        ("gated_relpos_attention", "wavlm_attention.cu", "wavlm_attention_pallas.py:31",
+         wavlm_counts["gated_relpos_attention"], wavlm_err, wavlm_times),
+        ("gated_relpos_attention_bwd", "wavlm_attention_bwd.cu",
+         "wavlm_attention_vjp.py:145", ft_counts["gated_relpos_attention_bwd"], bwd_err,
+         bwd_times),
+        ("whisper_log_mel", "logmel.cu", "logmel_pallas.py:43",
+         whisper_counts["whisper_log_mel"], logmel_err, logmel_times),
+        ("flash_mha", "flash_mha.cu", "models/attention.py:54", whisper_counts["flash_mha"],
+         mha_err, mha_times),
+        ("wavlm_fused_stem", "wavlm_stem.cu", "wavlm_stem_pallas.py:113", stem_launches,
+         stem_err, stem_times),
     ]
-    line = [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
-             "launches": launches, "max_abs_err": err, "ms": times[0], "plain_ms": times[1]}
+    line = [{"name": name, "route": "cuda", "source": f"stutter_tpu_torch/csrc/{source}",
+             "replaces": "stutter_tpu/" + (replaces if "/" in replaces else f"ops/{replaces}"),
+             "launches": launches, "max_abs_err": err, **times}
             for name, source, replaces, launches, err, times in kernels]
     line[0]["also_replaces"] = "stutter_tpu/ops/wavlm_attention_pallas.py:93"
     line[0]["finetune_launches"] = ft_counts["gated_relpos_attention"]
-    line.insert(1, {
-        "name": "gated_relpos_attention_bwd", "route": "cuda",
-        "source": "stutter_tpu_torch/csrc/wavlm_attention_bwd.cu",
-        "replaces": "stutter_tpu/ops/wavlm_attention_vjp.py:145",
-        "also_replaces": ["stutter_tpu/ops/wavlm_attention_vjp.py:68",
-                          "stutter_tpu/ops/wavlm_attention_vjp.py:115"],
-        "launches": ft_counts["gated_relpos_attention_bwd"], "max_abs_err": bwd_err,
-        "max_rel_err": bwd_rel, "ms": bwd_times[0], "plain_ms": bwd_times[1]})
+    line[1]["also_replaces"] = ["stutter_tpu/ops/wavlm_attention_vjp.py:68",
+                                "stutter_tpu/ops/wavlm_attention_vjp.py:115"]
+    line[1]["max_rel_err"] = bwd_rel
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,14 @@
 """WavLM embedding extraction CLI on one GPU (flags of ``stutter_tpu.cli.extract_wavlm``).
 
     python -m stutter_tpu_torch.cli.extract_wavlm --data_dir <corpus> \\
-        --output_dir <out> --random_init [--preset fast|fidelity] [--device cuda]
+        --output_dir <out> --random_init [--preset fast|fidelity|turbo] [--device cuda]
 
 ``--device`` names the torch device (default ``cuda``); with no card it
 fails rather than running on the CPU. ``--random_init`` (seed 0) is the only
-model source for now: HF checkpoint loading, ``--long_files chunk``, the
-turbo preset, ``--verify_model`` and the multi-device flags raise.
+model source for now: HF checkpoint loading, ``--long_files chunk``,
+``--verify_model`` and the multi-device flags raise. ``--preset`` takes the
+JAX CLI's three: fast (bf16), fidelity (f32, no TF32) and turbo (fast with
+int8 projections).
 """
 
 from __future__ import annotations
@@ -57,8 +59,10 @@ def parse_args(argv=None):
                         help="Number of devices (only 1 is supported)")
     parser.add_argument("--tp", type=int, default=1,
                         help="Tensor-parallel size (only 1 is supported)")
-    parser.add_argument("--preset", type=str, default="fast", choices=["fast", "fidelity"],
-                        help="Numerics preset: fast=bf16, fidelity=f32 without TF32")
+    parser.add_argument("--preset", type=str, default="fast",
+                        choices=["fast", "fidelity", "turbo"],
+                        help="Numerics preset: fast=bf16, fidelity=f32 without TF32, "
+                             "turbo=fast with int8 W8A8 projections")
     parser.add_argument("--device", type=str, default="cuda",
                         help="Torch device to run on (default: cuda)")
     return parser.parse_args(argv)

@@ -1,12 +1,14 @@
 """Whisper embedding extraction CLI on one GPU (flags of ``stutter_tpu.cli.extract_whisper``).
 
     python -m stutter_tpu_torch.cli.extract_whisper --data_dir <corpus> \\
-        --output_dir <out> --random_init [--preset fast|fidelity] [--device cuda]
+        --output_dir <out> --random_init [--preset fast|fidelity|turbo] [--device cuda]
 
 ``--device`` names the torch device (default ``cuda``); with no card it
 fails rather than running on the CPU. ``--random_init`` (seed 0) is the only
-model source for now: HF checkpoint loading, ``--long_files chunk``, the
-turbo preset, ``--verify_model`` and the multi-device flags raise. As in the
+model source for now: HF checkpoint loading, ``--long_files chunk``,
+``--verify_model`` and the multi-device flags raise. ``--preset`` takes the
+JAX CLI's three: fast (bf16), fidelity (f32, no TF32) and turbo (fast with
+int8 projections). As in the
 reference, every clip is padded or trimmed to 30 s, the one decoder step
 uses token id 0, and a run always resumes from the latest checkpoint.
 """
@@ -52,8 +54,8 @@ def parse_args(argv=None):
                         help="Tensor-parallel size (only 1 is supported)")
     parser.add_argument("--preset", type=str, default="fast",
                         choices=["fast", "fidelity", "turbo"],
-                        help="Numerics preset: fast=bf16, fidelity=f32 without TF32 "
-                             "(turbo is not ported)")
+                        help="Numerics preset: fast=bf16, fidelity=f32 without TF32, "
+                             "turbo=fast with int8 W8A8 encoder projections")
     parser.add_argument("--device", type=str, default="cuda",
                         help="Torch device to run on (default: cuda)")
     return parser.parse_args(argv)
@@ -68,9 +70,6 @@ def _check_supported(args) -> None:
         raise NotImplementedError(
             "--long_files chunk is not ported yet (ROADMAP Queue 1, the chunk "
             "long-file policy)")
-    if args.preset == "turbo":
-        raise NotImplementedError(
-            "the turbo preset is not ported yet (ROADMAP Queue 1, presets turbo and turbo_ffn)")
     if args.verify_model:
         raise NotImplementedError("--verify_model is not ported yet")
     if (args.devices or 1) != 1 or args.tp != 1:

@@ -1,6 +1,6 @@
 """Where one WavLM encode spends its time on a CUDA card.
 
-    python -m stutter_tpu_torch.cli.profile_wavlm [--preset fast|fidelity] [--seconds 3.0]
+    python -m stutter_tpu_torch.cli.profile_wavlm [--preset fast|fidelity|turbo] [--seconds 3.0]
 
 One full batch of the ``--seconds`` bucket, shaped as the extraction path
 shapes it (default batcher: 128 clips at 3 s, 12 at 30 s; frame-aligned), of
@@ -34,7 +34,8 @@ TOP = 25
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="Device-time breakdown of one WavLM encode")
-    parser.add_argument("--preset", type=str, default="fast", choices=["fast", "fidelity"])
+    parser.add_argument("--preset", type=str, default="fast",
+                        choices=["fast", "fidelity", "turbo"])
     parser.add_argument("--seconds", type=float, default=3.0, help="Bucket length")
     return parser.parse_args(argv)
 

@@ -1,6 +1,6 @@
 """Where one Whisper-large extraction batch spends its time on a CUDA card.
 
-    python -m stutter_tpu_torch.cli.profile_whisper [--preset fast|fidelity]
+    python -m stutter_tpu_torch.cli.profile_whisper [--preset fast|fidelity|turbo]
 
 One batch of 16 clips of 30 s (the extraction CLI's default batch), noise at
 full length, goes through Whisper-large's extraction path (random weights, seed
@@ -36,7 +36,8 @@ BATCH = 16
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(
         description="Device-time breakdown of one Whisper-large extraction batch")
-    parser.add_argument("--preset", type=str, default="fast", choices=["fast", "fidelity"])
+    parser.add_argument("--preset", type=str, default="fast",
+                        choices=["fast", "fidelity", "turbo"])
     return parser.parse_args(argv)
 
 

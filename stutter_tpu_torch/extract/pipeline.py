@@ -32,6 +32,11 @@ from stutter_tpu_torch.models.wavlm import WavLMModel, wavlm_feature_lengths
 from stutter_tpu_torch.models.whisper import WhisperModel
 from stutter_tpu_torch.ops.logmel import WHISPER_HOP
 from stutter_tpu_torch.ops.precision import no_tf32
+from stutter_tpu_torch.ops.quant import (
+    WAVLM_QUANT_KEYS,
+    WHISPER_QUANT_KEYS,
+    quantize_layer_stack,
+)
 
 logger = logging.getLogger("stutter_tpu_torch.extract.pipeline")
 
@@ -41,11 +46,37 @@ PRESETS = {
     # fast: the whole parameter set in bf16 (norms included), f32 norm
     # statistics, attention softmax and pooling; int16 waveform transfer
     "fast": dict(dtype=torch.bfloat16, transfer_i16=True),
+    # turbo: fast, then int8 W8A8 projections (ops/quant.py): WavLM's
+    # q/k/v/o and FFN, the Whisper encoder's q/k/v and FFN (its attn_o and the
+    # whole decoder stay bf16). Inference only; its fidelity is measured, not
+    # held to the 1e-3 bar.
+    "turbo": dict(dtype=torch.bfloat16, transfer_i16=True),
+    # turbo_ffn: the step between turbo and fast, int8 on the FFN GEMMs only
+    "turbo_ffn": dict(dtype=torch.bfloat16, transfer_i16=True),
 }
+
+_FFN_QUANT_KEYS = ("feed_forward.w1", "feed_forward.w2", "ffn.fc1_w", "ffn.fc2_w")
+
+
+def cast_for_preset(model, device: torch.device, preset: str):
+    """Move the float32 model to ``device`` in the preset's dtype and, for the
+    turbo presets, quantize the encoder layers' weights from that bf16 cast
+    (quantizing the f32 weights would give other int8 values than JAX's), as
+    ``cast_params_for_preset`` does: turbo takes WavLM's six keys and the
+    Whisper encoder's but ``attn.o_w``, turbo_ffn the FFN's. The Whisper
+    decoder, the conv stems, biases, norms and embeddings keep the preset's
+    dtype."""
+    model = model.to(device=device, dtype=PRESETS[preset]["dtype"]).eval()
+    whisper = isinstance(model, WhisperModel)
+    keys = {"turbo": WHISPER_QUANT_KEYS if whisper else WAVLM_QUANT_KEYS,
+            "turbo_ffn": _FFN_QUANT_KEYS}.get(preset)
+    if keys:
+        quantize_layer_stack((model.encoder if whisper else model).layers, keys)
+    return model
 
 
 def encode_waves_i16(waves) -> tuple[np.ndarray, np.ndarray]:
-    """Per-clip peak-scaled int16 host->device encoding (the fast preset's).
+    """Per-clip peak-scaled int16 host->device encoding (the bf16 presets').
 
     Scaling each clip to the full int16 range bounds the quantisation noise
     at ~3e-5 relative to that clip's peak. Returns (int16 [B, T], f32 scale
@@ -66,23 +97,22 @@ def resolve_device(device: torch.device | str) -> torch.device:
 
 
 class _Extractor:
-    """What both extractors share: the device, the preset's cast of the
-    float32 model, and the batch loop's submit/collect/warmup. A subclass
-    sets ``column_names`` (the order of ``_encode``'s [S, B, D] result) and
-    defines ``_encode``."""
+    """What both extractors share: the device, the preset's cast (and turbo's
+    quantization) of the float32 model, and the batch loop's
+    submit/collect/warmup. A subclass sets ``column_names`` (the order of
+    ``_encode``'s [S, B, D] result) and defines ``_encode``."""
 
     mesh = None  # single device: no data or model parallelism in this package
     column_names: list[str]
 
     def __init__(self, model, device: torch.device | str, preset: str):
         if preset not in PRESETS:
-            raise ValueError(f"preset {preset!r} is not ported; choose from {sorted(PRESETS)}")
+            raise ValueError(f"unknown preset {preset!r}; choose from {sorted(PRESETS)}")
         self.cfg = model.cfg
         self.device = resolve_device(device)
         self.preset = preset
-        opts = PRESETS[preset]
-        self._transfer_i16 = opts["transfer_i16"]
-        self.model = model.to(device=self.device, dtype=opts["dtype"]).eval()
+        self._transfer_i16 = PRESETS[preset]["transfer_i16"]
+        self.model = cast_for_preset(model, self.device, preset)
 
     def _precision(self):
         return no_tf32() if self.preset == "fidelity" else contextlib.nullcontext()

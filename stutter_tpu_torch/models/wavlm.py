@@ -7,6 +7,10 @@ in place of ``lax.scan``, and the attention core through
 on the card, its plain version on the CPU). Public functions keep the JAX
 package's layouts ([B, L, C] frames and hidden states) so that the two
 packages compare like with like; inside, the stem runs PyTorch's [B, C, T].
+``forward``/``encode(use_fused_stem=True)`` run the stem through the fused
+kernel of ``ops.wavlm_stem`` instead, where it applies (off by default, as
+in the JAX package). The projections go through ``ops.quant.linear``, which
+takes the turbo presets' int8 weights.
 
 Numerics copied from the JAX package:
 - layer norms take f32 statistics and cast back to the activation dtype;
@@ -40,9 +44,16 @@ from torch.utils.checkpoint import checkpoint
 
 from stutter_tpu_torch.models.common import gelu, layer_norm, param
 from stutter_tpu_torch.ops.pooling import masked_mean_pool
+from stutter_tpu_torch.ops.quant import linear
 from stutter_tpu_torch.ops.wavlm_attention import (
     gated_relpos_attention,
     gated_relpos_attention_diff,
+)
+from stutter_tpu_torch.ops.wavlm_stem import (
+    fused_stem_applicable,
+    fused_stem_supported,
+    pack_stem_weights,
+    wavlm_fused_stem,
 )
 
 REMAT_MODES = (None, "layer", "nothing")
@@ -190,6 +201,17 @@ class ConvFeatureEncoder(nn.Module):
                                      norm, device, dtype))
             c_in = c_out
         self.layers = nn.ModuleList(layers)
+        self._packed = None  # (signature of the weights, fused stem pack)
+
+    def packed(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The weights as ``ops.wavlm_stem.wavlm_fused_stem`` reads them,
+        packed once and kept until a weight changes (a cast, a move, a load)."""
+        tensors = [t for layer in self.layers for t in (
+            layer.weight, layer.bias, layer.norm_scale, layer.norm_bias) if t is not None]
+        signature = tuple((t.data_ptr(), t._version, t.dtype, t.device) for t in tensors)
+        if self._packed is None or self._packed[0] != signature:
+            self._packed = (signature, pack_stem_weights(self.layers))
+        return self._packed[1]
 
     def forward(self, waveform: torch.Tensor, sample_lengths: torch.Tensor | None = None,
                 ) -> torch.Tensor:
@@ -295,13 +317,13 @@ class GatedRelPosAttention(nn.Module):
         def heads(t):  # [B, L, D] -> a [B, H, L, hd] view
             return t.view(B, L, H, hd).transpose(1, 2)
 
-        q = F.linear(x, self.q_w, self.q_b).to(x.dtype) * hd**-0.5
-        k = F.linear(x, self.k_w, self.k_b).to(x.dtype)
-        v = F.linear(x, self.v_w, self.v_b).to(x.dtype)
+        q = linear(x, self.q_w, self.q_b).to(x.dtype) * hd**-0.5
+        k = linear(x, self.k_w, self.k_b).to(x.dtype)
+        v = linear(x, self.v_w, self.v_b).to(x.dtype)
         out = attention_fn(heads(q), heads(k), heads(v), position_bias, gate,
                            key_mask_bias)
         out = out.transpose(1, 2).reshape(B, L, D)
-        return F.linear(out, self.o_w, self.o_b).to(x.dtype)
+        return linear(out, self.o_w, self.o_b).to(x.dtype)
 
 
 class FeedForward(nn.Module):
@@ -314,8 +336,8 @@ class FeedForward(nn.Module):
         self.b2 = param((D,), device, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = gelu(F.linear(x, self.w1, self.b1).to(x.dtype))
-        return F.linear(h, self.w2, self.b2).to(x.dtype)
+        h = gelu(linear(x, self.w1, self.b1).to(x.dtype))
+        return linear(h, self.w2, self.b2).to(x.dtype)
 
 
 class EncoderLayer(nn.Module):
@@ -387,10 +409,11 @@ class WavLMModel(nn.Module):
         return table[self._buckets[key]].permute(2, 0, 1).float().contiguous()
 
     def _run(self, waveform, sample_lengths, collect, attention_fn, params=None,
-             stop_stem_gradient=False, augment=None, remat=None):
+             stop_stem_gradient=False, augment=None, remat=None, use_fused_stem=False):
         """The forward. ``params`` ({state-dict name: tensor}) replaces the
-        module's parameters (the training step's cast weights); the other
-        options are ``pooled_states``'."""
+        module's parameters (the training step's cast weights);
+        ``use_fused_stem`` is ``encode``'s; the other options are
+        ``pooled_states``'."""
         cfg = self.cfg
         if remat not in REMAT_MODES:
             raise ValueError(f"remat must be one of {REMAT_MODES}, got {remat!r}")
@@ -405,8 +428,20 @@ class WavLMModel(nn.Module):
         def weight(name):
             return getattr(self, name) if params is None else params[name]
 
-        with torch.no_grad() if stop_stem_gradient else contextlib.nullcontext():
-            feats = call(self.feature_encoder, "feature_encoder.", waveform, sample_lengths)
+        stem = self.feature_encoder
+        if (use_fused_stem and stem.layers[0].weight.dtype == torch.bfloat16
+                and fused_stem_applicable(cfg, waveform.shape[1], stem.layers)
+                and fused_stem_supported(cfg, waveform.device)):
+            feats = wavlm_fused_stem(waveform, *stem.packed())
+            if sample_lengths is not None:
+                # the kernel's frames are unmasked; for the per-frame
+                # layer-norm stem, end-masking equals the per-layer masking
+                fl = wavlm_feature_lengths(cfg, sample_lengths)
+                feats = feats * (torch.arange(feats.shape[1], device=feats.device)[None, :]
+                                 < fl[:, None])[:, :, None].to(feats.dtype)
+        else:
+            with torch.no_grad() if stop_stem_gradient else contextlib.nullcontext():
+                feats = call(stem, "feature_encoder.", waveform, sample_lengths)
         hidden = call(self.feature_projection, "feature_projection.", feats)
         B, L, _ = hidden.shape
         if sample_lengths is not None:
@@ -449,25 +484,34 @@ class WavLMModel(nn.Module):
         return hidden, collected, frame_lengths
 
     @torch.inference_mode()
-    def forward(self, waveform, sample_lengths=None):
+    def forward(self, waveform, sample_lengths=None, use_fused_stem=False):
         """waveform [B, T] f32 (frontend-normalised); sample_lengths [B] true
         sample counts. Returns (last [B, L, D], hidden states [N+1, B, L, D],
-        frame lengths [B])."""
+        frame lengths [B]).
+
+        ``use_fused_stem`` runs the conv stem through
+        ``ops.wavlm_stem.wavlm_fused_stem`` where it applies exactly (bf16
+        parameters and ``fused_stem_applicable``), as ``wavlm_forward`` does
+        in the JAX package, and where it can run (``fused_stem_supported``:
+        on the card, a 512-wide stem); off by default there and here."""
         last, states, frame_lengths = self._run(
-            waveform, sample_lengths, lambda i, h, fl: h, None)
+            waveform, sample_lengths, lambda i, h, fl: h, None, use_fused_stem=use_fused_stem)
         return last, torch.stack(states), frame_lengths
 
     @torch.inference_mode()
-    def encode(self, waveform, layer_indices, sample_lengths=None, attention_fn=None):
+    def encode(self, waveform, layer_indices, sample_lengths=None, attention_fn=None,
+               use_fused_stem=False):
         """Masked mean-pooled hidden states at ``layer_indices``:
         [len(layer_indices), B, D] f32. ``attention_fn`` replaces the
-        attention core (the default is the kernel wrapper)."""
+        attention core (the default is the kernel wrapper);
+        ``use_fused_stem`` is ``forward``'s."""
         wanted = set(layer_indices)
 
         def collect(i, h, frame_lengths):
             return masked_mean_pool(h, frame_lengths) if i in wanted else None
 
-        _, pooled, _ = self._run(waveform, sample_lengths, collect, attention_fn)
+        _, pooled, _ = self._run(waveform, sample_lengths, collect, attention_fn,
+                                 use_fused_stem=use_fused_stem)
         return torch.stack([pooled[i] for i in layer_indices])
 
     def pooled_states(self, waveform, sample_lengths=None, params=None,

@@ -26,6 +26,9 @@ Numerics copied from the JAX package:
   state only.
 The activation dtype is the parameters' dtype: f32 for the fidelity preset,
 bf16 (the whole parameter set cast, embeddings included) for the fast preset.
+The projections go through ``ops.quant.linear``, which takes the turbo
+presets' int8 weights (the encoder's; the decoder stays in the activation
+dtype, as in JAX).
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from torch import nn
 
 from stutter_tpu_torch.models.common import gelu, layer_norm, param
 from stutter_tpu_torch.ops.flash_mha import mha_self
+from stutter_tpu_torch.ops.quant import linear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,22 +147,22 @@ class WhisperAttention(nn.Module):
         B, L, D = x.shape
         H = self.heads
         hd = D // H
-        q = (F.linear(x, self.q_w, self.q_b) * hd**-0.5).to(x.dtype)
-        k = F.linear(x, self.k_w).to(x.dtype)
-        v = F.linear(x, self.v_w, self.v_b).to(x.dtype)
+        q = (linear(x, self.q_w, self.q_b) * hd**-0.5).to(x.dtype)
+        k = linear(x, self.k_w).to(x.dtype)
+        v = linear(x, self.v_w, self.v_b).to(x.dtype)
 
         def heads(t):  # [B, L, D] -> a [B, H, L, hd] view
             return t.view(B, L, H, hd).transpose(1, 2)
 
         out = attention_fn(heads(q), heads(k), heads(v))
         out = out.transpose(1, 2).reshape(B, L, D)
-        return F.linear(out, self.o_w, self.o_b).to(x.dtype)
+        return linear(out, self.o_w, self.o_b).to(x.dtype)
 
     def single_token(self, x: torch.Tensor) -> torch.Tensor:
         """Causal self-attention of one token [B, 1, D]: the softmax over its
         only key is 1, so the context is its v exactly."""
-        v = F.linear(x, self.v_w, self.v_b).to(x.dtype)
-        return F.linear(v, self.o_w, self.o_b).to(x.dtype)
+        v = linear(x, self.v_w, self.v_b).to(x.dtype)
+        return linear(v, self.o_w, self.o_b).to(x.dtype)
 
     def cross_one_query(self, x: torch.Tensor, enc: torch.Tensor,
                         enc_f32: torch.Tensor) -> torch.Tensor:
@@ -183,7 +187,7 @@ class WhisperAttention(nn.Module):
         out = torch.einsum("bhD,hdD->bhd", ctx, self.v_w.float().view(H, hd, D))
         out = out + self.v_b.float().view(H, hd)[None]
         out = out.reshape(B, 1, D).to(x.dtype)
-        return F.linear(out, self.o_w, self.o_b).to(x.dtype)
+        return linear(out, self.o_w, self.o_b).to(x.dtype)
 
 
 class FeedForward(nn.Module):
@@ -194,8 +198,8 @@ class FeedForward(nn.Module):
         self.fc2_w, self.fc2_b = param((D, Fd), device, dtype), param((D,), device, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = gelu(F.linear(x, self.fc1_w, self.fc1_b).to(x.dtype))
-        return F.linear(h, self.fc2_w, self.fc2_b).to(x.dtype)
+        h = gelu(linear(x, self.fc1_w, self.fc1_b).to(x.dtype))
+        return linear(h, self.fc2_w, self.fc2_b).to(x.dtype)
 
 
 def _norms(module: nn.Module, names, D: int, device, dtype) -> None:

@@ -37,6 +37,7 @@ SIGNATURES = {
         [_p] * 14 + [_i, _i, _i, _ll, _ll, _ll, _i, _p], _i),
     "flash_mha": ([_p, _p, _p, _p, _p, _i, _i, _i, _ll, _ll, _ll, _i, _p], _i),
     "whisper_log_mel": ([_p, _p, _p, _p, _i, _i, _p], _i),
+    "wavlm_fused_stem": ([_p, _p, _p, _p, _p, _p, _i, _i, _p], _i),
 }
 
 

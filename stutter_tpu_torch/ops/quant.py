@@ -1,0 +1,115 @@
+"""Int8 dynamic quantization of the projection GEMMs: the turbo presets.
+
+Counterpart of ``stutter_tpu/ops/quant.py`` for the inference path (W8A8):
+- weights: static symmetric per-output-channel int8, scale = absmax / 127
+  over the contraction axis (at least 1e-12), made once when the preset casts
+  the model (``extract.pipeline``), from the bf16 weights;
+- activations: dynamic symmetric per-token int8, scale = absmax / 127 over
+  the features (at least 1e-8), rounded half to even and clipped to +-127;
+- int8 x int8 -> int32 products, dequantised by the outer product of the two
+  scale vectors: ``acc.float() * s_token * s_channel``.
+
+Weights keep PyTorch's [out, in] layout: ``quantize_weight`` quantizes over
+the last axis and a ``QuantizedWeight`` holds int8 [N, K] and its f32 [N]
+scale as buffers. ``quantize_layer_stack`` puts one in place of each named
+parameter, so that a turbo model holds no bf16 or f32 copy of those weights.
+``linear`` dispatches on what it is given, as ``dense`` does in JAX: the
+int8 path returns the input's dtype and adds the bias after that cast.
+
+The int8 product is ``torch._int_mm``, as the JAX package leaves its int8
+product to XLA outside any Pallas kernel. On CUDA it wants K and N multiples
+of 8 and, in some builds, more than 16 rows; fewer rows are padded with zero
+rows, which is exact, and sliced off. ``qdot.calls`` counts the int8
+products on every device.
+
+Not ported yet: ``qdot_asym``/``dense_asym`` (no production caller),
+``qdot_ste`` (the fine-tuning ``int8_forward``) and ``quantize_conv_weight``
+(the int8-stem experiment).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+_MIN_ROWS = 17  # torch._int_mm's row minimum on CUDA
+
+# The per-layer weights turbo quantizes, under the port's parameter names:
+# WavLM's q_w, k_w, v_w, o_w, ff_w1, ff_w2, and the Whisper encoder's
+# attn_q/k/v_w, fc1_w, fc2_w (the JAX package's key tuples as
+# ``cast_params_for_preset`` applies them: it leaves the encoder's attn_o_w
+# and the whole decoder in bf16). Everything else (biases, norms, gates,
+# rel-pos tables, conv stems, embeddings) keeps the activation dtype.
+WAVLM_QUANT_KEYS = ("attention.q_w", "attention.k_w", "attention.v_w", "attention.o_w",
+                    "feed_forward.w1", "feed_forward.w2")
+WHISPER_QUANT_KEYS = ("attn.q_w", "attn.k_w", "attn.v_w", "ffn.fc1_w", "ffn.fc2_w")
+
+
+class QuantizedWeight(nn.Module):
+    """An int8 [N, K] weight and its f32 [N] per-output-channel scale."""
+
+    def __init__(self, q: torch.Tensor, s: torch.Tensor):
+        super().__init__()
+        self.register_buffer("q", q)
+        self.register_buffer("s", s)
+
+
+def quantize_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """w [..., N, K] -> (int8 [..., N, K], f32 scale [..., N]): symmetric,
+    per output channel N, over the contraction axis K."""
+    wf = w.float()
+    s = (wf.abs().amax(dim=-1, keepdim=True) / 127.0).clamp_min(1e-12)
+    q = torch.clamp(torch.round(wf / s), -127, 127).to(torch.int8)
+    return q, s.squeeze(-1)
+
+
+def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """int8 a [M, K] @ int8 b [K, N] -> int32 [M, N]; fewer than 17 rows are
+    padded with zero rows and sliced off."""
+    M = a.shape[0]
+    if M < _MIN_ROWS:
+        a = F.pad(a, (0, 0, 0, _MIN_ROWS - M))
+    return torch._int_mm(a, b)[:M]
+
+
+def qdot(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """x [..., K] (bf16/f32) against an int8 weight q [N, K] with scales s
+    [N] -> f32 [..., N]."""
+    xf = x.float()
+    st = (xf.abs().amax(dim=-1, keepdim=True) / 127.0).clamp_min(1e-8)
+    xq = torch.clamp(torch.round(xf / st), -127, 127).to(torch.int8)
+    K, N = q.shape[1], q.shape[0]
+    acc = int_mm(xq.reshape(-1, K), q.t()).view(*x.shape[:-1], N)
+    qdot.calls += 1
+    return acc.float() * st * s
+
+
+qdot.calls = 0
+
+
+def linear(x: torch.Tensor, w, b: torch.Tensor | None = None) -> torch.Tensor:
+    """x @ w^T (+ b): the int8 path for a ``QuantizedWeight`` (cast to x's
+    dtype, then the bias added), else ``F.linear``."""
+    if isinstance(w, QuantizedWeight):
+        y = qdot(x, w.q, w.s).to(x.dtype)
+        return y if b is None else y + b
+    return F.linear(x, w, b)
+
+
+def quantize_layer_stack(layers, keys: tuple[str, ...]) -> None:
+    """Put a ``QuantizedWeight`` in place of each parameter named in ``keys``
+    (dotted names under each layer) of every layer, in place. Names a layer
+    does not have are skipped, as the JAX package skips absent keys."""
+    for layer in layers:
+        for key in keys:
+            *path, name = key.split(".")
+            owner = layer
+            for part in path:
+                owner = getattr(owner, part, None)
+                if owner is None:
+                    break
+            if owner is None or not isinstance(owner._parameters.get(name), torch.Tensor):
+                continue
+            w = owner._parameters.pop(name)
+            setattr(owner, name, QuantizedWeight(*quantize_weight(w.detach())))

@@ -276,6 +276,8 @@ def test_port_imports_neither_jax_nor_pandas():
         "import stutter_tpu_torch.train.data, stutter_tpu_torch.train.finetune\n"
         "import stutter_tpu_torch.train.heads, stutter_tpu_torch.train.metrics\n"
         "import stutter_tpu_torch.train.optim, stutter_tpu_torch.train.persistence\n"
+        "import stutter_tpu_torch.ops.quant, stutter_tpu_torch.ops.wavlm_stem\n"
+        "import stutter_tpu_torch.cli.stem_fused_ab\n"
         "forbidden = ('jax', 'pandas', 'optax', 'orbax', 'joblib', 'stutter_tpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in forbidden]\n"
         "assert not bad, bad\n"

@@ -346,7 +346,8 @@ def test_cli_random_init_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [[], ["--random_init", "--long_files", "chunk"],
-                                   ["--random_init", "--preset", "turbo"],
+                                   ["--random_init", "--preset", "turbo", "--long_files",
+                                    "chunk"],
                                    ["--random_init", "--devices", "2"],
                                    ["--random_init", "--tp", "2"],
                                    ["--random_init", "--verify_model"]])
