@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's WavLM-Large and Whisper-large extraction (fidelity,
-fast, turbo), the fused WavLM stem and WavLM-Large fine-tuning on one NVIDIA
-GPU and check them.
+fast, turbo), WavLM's long-bucket escape hatch, the two attention probes,
+the fused WavLM stem and WavLM-Large fine-tuning on one NVIDIA GPU and check
+them.
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
@@ -22,7 +23,16 @@ Phases, one line each on stdout ([time] lines give each phase's seconds):
 5. mha: the Whisper encoder's flash-attention kernel against its plain
    version at 16 x 20 x 1500 x 64 in bf16 and f32, with key padding and at a
    ragged length; scaled_dot_product_attention timed beside it;
-5b. stem: the fused WavLM stem kernels against their plain version and the
+5a. mha_bias: the materialised-bias flash kernel (WavLM's escape hatch)
+   against its plain version at 12 x 16 x 1504 x 64 and 19 x 16 x 1008 x 64
+   in bf16 with keys masked, and f32 at a ragged length;
+   scaled_dot_product_attention with the same bias timed beside it;
+5b. probe_kernels: the int8 probe's kernels (int8 k and v and their scales
+   bit-equal to the plain version's) and the four softmax variants against
+   their plain versions at 25 x 16 x 1504 x 64 and a ragged length;
+5c. probes: cli.attn_int8_probe and cli.attn_softmax_variants_probe at
+   their defaults, in-process: their JSON, fidelity against f32, launches;
+5d. stem: the fused WavLM stem kernels against their plain version and the
    plain ConvFeatureEncoder (cuDNN) at 128 x 3 s and 12 x 30 s, with ragged
    lengths, a silent clip and a clip of 4 frames;
 6. slice: a synthetic 16 kHz corpus through ExtractionPipeline.run with
@@ -31,6 +41,10 @@ Phases, one line each on stdout ([time] lines give each phase's seconds):
    that a resumed run skips finished rows;
 7. path: one 3 s bucket batch through WavLMModel.encode with the kernel and
    with the plain attention, in the fast and the fidelity preset;
+7a. long_slice: clips of the 3 s, 20 s and 30 s buckets through
+   ExtractionPipeline.run with long_attention "gated" and
+   "materialized_bias": exact launch counts of both kernels, the store, and
+   the pooled distance between the two runs;
 7b. turbo_slice: the slice again in turbo (6 int8 GEMMs per layer and
    batch), then turbo's pooled distance from the f32 path on one batch;
 8. throughput: WavLM extraction's audio-seconds per second over 1280 clips
@@ -57,7 +71,7 @@ Phases, one line each on stdout ([time] lines give each phase's seconds):
    run; losses, parameters, launch counts (per-layer remat: 2 forwards and
    1 backward per layer per microbatch, 1 forward per eval batch), resume,
    outputs, ms per update, training audio-s/s, peak memory.
-Each extraction, stem A/B and fine-tune path is driven with every kernel's
+Each extraction, probe, stem A/B and fine-tune path is driven with every kernel's
 launch count (and the int8 GEMM count) set to 0 just before it and read just
 after. Then one JSON line with the kernels' numbers (time, plain time,
 bound, library time, launches on their path) and, last, the device line.
@@ -119,8 +133,27 @@ FT_BF16_LOSS_REL, FT_BF16_GRAD_COSINE = 5e-3, 1e-3
 FT_F32_LOSS_REL, FT_F32_GRAD_COSINE = 1e-5, 1e-8
 
 
+# the int8 probe's kernels against their plain version: the int8 operands
+# are bit-equal, but the f32 softmax sums in another order, so a probability
+# on a round-half boundary of round(a * 127) can move one int8 step (one
+# step of a v column, |v| / 127 ~ 1e-2 here). Measured on the H100:
+# max-abs 1.1e-2, cosine 2.6e-5 at 25 x 16 x 1504 x 64.
+INT8_MAX_ABS, INT8_COSINE = 5e-2, 2e-4
+# the softmax variants against their plain version, max-abs a bf16 step of
+# an output under 4 and cosine distance: A and C take the plain version's
+# roundings with sums in another order (measured <= 3e-7); B and D take one
+# online pass and round e relative to the running max, not the final one
+# (measured <= 4.7e-6)
+VARIANT_MAX_ABS = 2e-2
+VARIANT_COSINE = {"A_incumbent": 1e-5, "B_postnorm": 5e-5, "C_bf16chain": 1e-5,
+                  "D_both": 5e-5}
+# the probes' outputs against f32 (their own fidelity), except int8's (its
+# fixed 127 scale rounds diffuse rows' probabilities to 0: ~0.1-0.4 by design)
+PROBE_F32_COSINE = 1e-3
+
 # the card's peaks for the bounds (H100 SXM, dense)
 BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
 F32_FLOPS = 67e12      # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 # the fused stem against its plain version, and the kernel path's end-masked
@@ -161,7 +194,8 @@ _CORPORA: dict[Path, float] = {}  # corpora written in this run: their audio sec
 
 def write_corpus(root: Path, n_per_split: dict, dur_range, seed: int,
                  long_per_split: dict | None = None, long_range=(8.2, 9.8)) -> float:
-    """KSF layout: wav/{split}_{i}.wav at 16 kHz plus lab/{split}.csv, with
+    """KSF layout: wav/{split}_{i}.wav at 16 kHz plus lab/{split}.csv, clips
+    of ``dur_range`` seconds (or ``dur_range[split]``, given a dict), with
     ``long_per_split[split]`` more clips of ``long_range`` seconds. Returns
     the total audio seconds; a corpus already written at ``root`` is reused."""
     import numpy as np
@@ -181,7 +215,8 @@ def write_corpus(root: Path, n_per_split: dict, dur_range, seed: int,
         n_long = (long_per_split or {}).get(split, 0)
         for i in range(n + n_long):
             name = f"{split}_{i:04d}.wav"
-            seconds = rng.uniform(*(dur_range if i < n else long_range))
+            short = dur_range[split] if isinstance(dur_range, dict) else dur_range
+            seconds = rng.uniform(*(short if i < n else long_range))
             t = np.arange(int(seconds * 16000)) / 16000
             f0 = rng.uniform(100, 600)
             x = 0.4 * np.sin(2 * np.pi * f0 * t) + 0.05 * rng.randn(len(t))
@@ -380,7 +415,8 @@ def count_submits(extractor):
 
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port, by kernel name."""
-    from stutter_tpu_torch.ops.flash_mha import flash_mha
+    from stutter_tpu_torch.ops.attn_probes import int8_attention_long, softmax_variant_attention
+    from stutter_tpu_torch.ops.flash_mha import flash_mha, flash_mha_bias
     from stutter_tpu_torch.ops.logmel import whisper_log_mel
     from stutter_tpu_torch.ops.wavlm_attention import (
         gated_relpos_attention,
@@ -391,7 +427,8 @@ def kernel_wrappers() -> dict:
     return {"gated_relpos_attention": gated_relpos_attention,
             "gated_relpos_attention_bwd": gated_relpos_attention_backward,
             "flash_mha": flash_mha, "whisper_log_mel": whisper_log_mel,
-            "wavlm_fused_stem": wavlm_fused_stem}
+            "wavlm_fused_stem": wavlm_fused_stem, "flash_mha_bias": flash_mha_bias,
+            "attn_int8": int8_attention_long, "attn_softmax_variants": softmax_variant_attention}
 
 
 def zero_counts() -> None:
@@ -465,6 +502,7 @@ def phase_slice(torch, extractor, work: Path, phase: str = "slice") -> dict:
           f"the WavLM path launched a Whisper kernel: {counts}")
     check(counts["gated_relpos_attention_bwd"] == 0, "extraction launched the backward")
     check(counts["wavlm_fused_stem"] == 0, "the pipeline took the fused stem (off by default)")
+    check(counts["flash_mha_bias"] == 0, "the pipeline took the long-bucket hatch (off by default)")
     int8 = 6 * cfg.num_hidden_layers * seen["batches"] if extractor.preset == "turbo" else 0
     check(counts["int8_gemm"] == int8,
           f"{counts['int8_gemm']} int8 GEMMs for {seen['batches']} batches, expected {int8}")
@@ -691,6 +729,222 @@ def phase_mha(torch, mha):
         worst = max(worst, max_abs)
         headline = headline or numbers
     return worst, headline
+
+
+def phase_mha_bias(torch, mha):
+    """The materialised-bias flash kernel against its plain version at the
+    hatch's 30 s and 20 s buckets (bf16, keys masked for short clips) and
+    at a ragged f32 length, with ``scaled_dot_product_attention`` given the
+    same ab as its mask (cast to q's dtype, as the call requires); returns
+    (worst max-abs error, the numbers at the 30 s bucket)."""
+    import torch.nn.functional as F
+
+    cases = [(12, 16, 1504, torch.bfloat16), (19, 16, 1008, torch.bfloat16),
+             (3, 16, 37, torch.float32)]
+    g = torch.Generator(device="cuda").manual_seed(9)
+    worst, headline = 0.0, None
+    for B, H, L, dtype in cases:
+        lengths = torch.randint(L // 4, L + 1, (B,), device="cuda", generator=g)
+        lengths[0] = L
+        q, k, v, bias, gate, mask = attention_inputs(torch, g, B, H, L, dtype, lengths)
+        ab = (gate[..., None] * bias[None]).add_(mask[:, None, None, :])
+        out = mha.flash_mha_bias(q, k, v, ab)
+        ref = mha.flash_mha_bias_reference(q, k, v, ab)
+        torch.cuda.synchronize()
+        check(out.shape == ref.shape and out.dtype == dtype and out.stride() == q.stride(),
+              f"flash_mha_bias output {out.dtype} {tuple(out.shape)} {out.stride()}")
+        check(bool(torch.isfinite(out).all()), "flash_mha_bias output has non-finite values")
+        max_abs = float((out.float() - ref.float()).abs().max())
+        cos = cosine_distance(out.float(), ref.float())
+        tol_abs, tol_cos = ((BF16_MAX_ABS, BF16_COSINE) if dtype == torch.bfloat16
+                            else (F32_MAX_ABS, F32_COSINE))
+        ab_q = ab.to(dtype)
+        ms, plain_ms, library_ms = time_turns(
+            torch, lambda: mha.flash_mha_bias(q, k, v, ab),
+            lambda: mha.flash_mha_bias_reference(q, k, v, ab),
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=ab_q, scale=1.0))
+        n = B * H * L * 64  # q k^T and p v; q, k, v, out and ab once each
+        numbers = timing(ms, plain_ms, *bound(4 * n * L, 4 * n * q.element_size() + 4 * ab.numel(),
+                                              peak_flops(torch, dtype)), library_ms)
+        say("mha_bias", shape=f"{B}x{H}x{L}x64", dtype=str(dtype).split(".")[-1],
+            max_abs_err=f"{max_abs:.3e}", max_abs_tol=tol_abs, cosine_dist=f"{cos:.3e}",
+            cosine_tol=tol_cos, ab_gb=f"{4 * ab.numel() / 1e9:.3f}", **shown(numbers))
+        check(max_abs <= tol_abs and cos <= tol_cos,
+              f"flash_mha_bias disagrees with its plain version at {B}x{H}x{L} {dtype}")
+        worst = max(worst, max_abs)
+        headline = headline or numbers
+        del q, k, v, bias, gate, mask, ab, ab_q, out, ref
+        torch.cuda.empty_cache()
+    return worst, headline
+
+
+def probe_case(torch, g, B, L):
+    """The probes' operands on the card: contiguous bf16 q, k, v (randn *
+    0.3), bias, gate and a key mask that cuts the last clip short."""
+    H = 16
+    q, k, v = ((torch.randn(B, H, L, 64, device="cuda", generator=g) * 0.3).to(torch.bfloat16)
+               for _ in range(3))
+    bias = torch.randn(H, L, L, device="cuda", generator=g)
+    gate = torch.rand(B, H, L, device="cuda", generator=g)
+    mask = torch.zeros(B, L, device="cuda")
+    mask[-1, L // 2:] = -1e9
+    return q, k, v, bias, gate, mask
+
+
+def check_int8_operands(torch, probes, k, v) -> None:
+    """The prologue's int8 k and v and their scales equal the plain
+    version's bit for bit; vq's padding past L is 0."""
+    kq, sk, vqt, sv = probes.quantize_kv(k, v)
+    rkq, rsk, rvq, rsv = probes.quantize_kv_reference(k, v)
+    L = k.shape[2]
+    torch.cuda.synchronize()
+    check(torch.equal(kq, rkq) and torch.equal(sk, rsk), "int8 k or its scales differ")
+    check(torch.equal(vqt[..., :L].transpose(-1, -2), rvq) and torch.equal(sv, rsv)
+          and not bool(vqt[..., L:].any()), "int8 v or its scales differ")
+
+
+def phase_probe_kernels(torch, probes, card: str):
+    """The int8 probe's kernels and the four softmax variants against their
+    plain versions at the probes' 30 s case (25 x 16 x 1504 x 64) and a
+    ragged length, the int8 operands bit-equal; returns {kernel: (worst
+    max-abs error, the numbers at the 30 s case)}."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    result = {"attn_int8": (0.0, None), "attn_softmax_variants": (0.0, None)}
+    for B, L in ((25, 1504), (3, 37)):
+        q, k, v, bias, gate, mask = args = probe_case(torch, g, B, L)
+        check_int8_operands(torch, probes, k, v)
+        n = B * 16 * L * 64  # q k^T and a v; q, k, v, out once, bias, gate, mask
+        nbytes = 4 * n * 2 + 4 * (16 * L * L + B * 16 * L + B * L)
+        runs = [("attn_int8", "int8", lambda: probes.int8_attention_long(*args),
+                 lambda: probes.int8_attention_long_reference(*args), INT8_OPS,
+                 INT8_MAX_ABS, INT8_COSINE)]
+        for name, (postnorm, chain) in probes.VARIANTS.items():
+            runs.append(("attn_softmax_variants", name,
+                         lambda pn=postnorm, c=chain: probes.softmax_variant_attention(*args, pn, c),
+                         lambda pn=postnorm, c=chain: probes.softmax_variant_attention_reference(
+                             *args, pn, c), BF16_FLOPS, VARIANT_MAX_ABS, VARIANT_COSINE[name]))
+        for kernel, name, fn, plain, peak, tol_abs, tol_cos in runs:
+            out, ref = fn(), plain()
+            torch.cuda.synchronize()
+            check(out.shape == ref.shape and out.dtype == torch.bfloat16,
+                  f"{name} output {out.dtype} {tuple(out.shape)}")
+            check(bool(torch.isfinite(out).all()), f"{name} output has non-finite values")
+            max_abs = float((out.float() - ref.float()).abs().max())
+            cos = cosine_distance(out.float(), ref.float())
+            del out, ref
+            ms, plain_ms = time_turns(torch, fn, plain, runs=10)
+            numbers = timing(ms, plain_ms, *bound(4 * n * L, nbytes, peak))
+            say("probe_kernel", kernel=name, shape=f"{B}x16x{L}x64",
+                max_abs_err=f"{max_abs:.3e}", max_abs_tol=tol_abs, cosine_dist=f"{cos:.3e}",
+                cosine_tol=tol_cos, **shown(numbers), card=f'"{card}"')
+            check(max_abs <= tol_abs and cos <= tol_cos,
+                  f"{name} disagrees with its plain version at {B}x16x{L}")
+            worst, headline = result[kernel]
+            result[kernel] = (max(worst, max_abs), headline or numbers)
+            torch.cuda.empty_cache()
+        del q, k, v, bias, gate, mask, args, runs
+    return result
+
+
+def phase_long_slice(torch, extractor, work: Path) -> dict:
+    """WavLM-Large fast through ExtractionPipeline.run on clips of the 3 s,
+    20 s and 30 s buckets (one split each, so one batch each), once with
+    long_attention="gated" and once with "materialized_bias" (the JAX
+    package's escape hatch from L = 1008 up): the launch counts, the store,
+    and the pooled cosine distance between the two runs. Returns the hatch
+    run's launch counts."""
+    import numpy as np
+
+    from stutter_tpu_torch.extract.batcher import BucketBatcher
+    from stutter_tpu_torch.extract.pipeline import ExtractionPipeline, WavLMExtractor
+    from stutter_tpu_torch.extract.scanner import create_metadata_from_files
+
+    corpus = work / "long_corpus"
+    sizes = {"train": 6, "test": 3, "devel": 3}  # 3 s, 20 s and 30 s buckets
+    audio_s = write_corpus(corpus, sizes, {"train": (2.5, 2.95), "test": (15.5, 19.5),
+                                           "devel": (25.0, 29.5)}, seed=8)
+    meta = create_metadata_from_files(str(corpus))
+    n_layers, layers = extractor.cfg.num_hidden_layers, extractor.layer_indices
+    runs = {}
+    for mode in ("gated", "materialized_bias"):
+        ex = WavLMExtractor(extractor.model, "cuda", preset="fast", long_attention=mode)
+        pipe = ExtractionPipeline(ex, batcher=BucketBatcher(frame_align=ex.frame_align),
+                                  checkpoint_interval=10_000)
+        lengths = []
+        real = ex.submit
+        ex.submit = lambda batch: lengths.append(
+            int(ex.frame_count(batch.waves.shape[1]))) or real(batch)
+        zero_counts()
+        t0 = time.perf_counter()
+        results = pipe.run(meta, str(work / f"long_store_{mode}"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        long_batches = sum(L >= 1008 for L in lengths)
+        hatch = n_layers * long_batches if mode == "materialized_bias" else 0
+        check(sorted(lengths) == [160, 1008, 1504], f"{mode}: batches of L = {lengths}")
+        check(counts["flash_mha_bias"] == hatch
+              and counts["gated_relpos_attention"] == n_layers * len(lengths) - hatch,
+              f"{mode}: launches {counts}, expected flash_mha_bias {hatch} and "
+              f"gated_relpos_attention {n_layers * len(lengths) - hatch}")
+        for split, n in sizes.items():
+            check(len(results[split]) == n, f"{mode} {split}: {len(results[split])} rows")
+            for layer in layers:
+                arr = np.load(work / f"long_store_{mode}" / split / f"layer_{layer}_embeddings.npy")
+                check(arr.shape == (n, extractor.embedding_dim) and bool(np.isfinite(arr).all()),
+                      f"{mode} {split} layer_{layer}: shape {arr.shape} or non-finite values")
+        runs[mode] = (results, counts)
+        say("long_slice", long_attention=mode, clips=len(meta), audio_s=f"{audio_s:.2f}",
+            frames=",".join(map(str, lengths)), flash_mha_bias=counts["flash_mha_bias"],
+            gated_relpos_attention=counts["gated_relpos_attention"],
+            expected=f"{hatch},{n_layers * len(lengths) - hatch}", wall_s=f"{wall:.2f}")
+    worst = max(cosine_distance(torch.from_numpy(a[f"layer_{layer}"]),
+                                torch.from_numpy(b[f"layer_{layer}"]))
+                for split in sizes
+                for a, b in zip(runs["gated"][0][split], runs["materialized_bias"][0][split])
+                for layer in layers)
+    say("long_slice", hatch_vs_gated_pooled_cosine_dist=f"{worst:.3e}", tol=FAST_POOLED_COSINE)
+    check(worst <= FAST_POOLED_COSINE,
+          f"the hatch's pooled embeddings are {worst:.3e} from the gated path's")
+    return runs["materialized_bias"][1]
+
+
+def phase_probes(torch, card: str) -> dict:
+    """Both probe CLIs in-process at their defaults: their JSON, their
+    fidelity against f32 and their launches. Returns the launch counts."""
+    import io
+
+    from stutter_tpu_torch.cli import _attn_probe, attn_int8_probe, attn_softmax_variants_probe
+    from stutter_tpu_torch.ops.attn_probes import VARIANTS
+
+    args = _attn_probe.parse_args("", [])
+    n_cases = len(_attn_probe.cases(args.cases))
+    calls = 2 + args.iters * args.loops  # fidelity, warm-up, timing rounds
+    zero_counts()
+    for cli, kernel, expected, names in (
+            (attn_int8_probe, "attn_int8", n_cases * calls, ["int8", "bf16"]),
+            (attn_softmax_variants_probe, "attn_softmax_variants",
+             n_cases * len(VARIANTS) * calls, list(VARIANTS) + ["src_incumbent"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main([])
+        check(rc == 0, f"{cli.__name__} returned {rc}")
+        r = json.loads(buf.getvalue().strip().splitlines()[-1])
+        launches = read_counts()[kernel]
+        for name, case in r["cases"].items():
+            cosines = {k: v for k, v in case.items() if k.endswith("cosine")}
+            check(all(v == v and 0 <= v < 1 for v in cosines.values()),
+                  f"{kernel} {name}: cosines {cosines}")
+            check(all(v <= PROBE_F32_COSINE for k, v in cosines.items() if "int8" not in k),
+                  f"{kernel} {name}: {cosines} from f32, bar {PROBE_F32_COSINE}")
+            say("probes", cli=cli.__name__.rsplit(".", 1)[-1], case=name, B=case["B"],
+                block_q=case["block_q"], **{k: f"{v:.3e}" for k, v in cosines.items()},
+                **{f"{n}_ms": ",".join(f"{t:.4f}" for t in case[f"{n}_ms"]) for n in names},
+                card=f'"{card}"')
+        check(launches == expected, f"{kernel}: {launches} launches, expected {expected}")
+        say("probes", kernel=kernel, launches=launches, expected=expected)
+        torch.cuda.empty_cache()
+    return read_counts()
 
 
 def phase_whisper_slice(torch, extractor, work: Path, phase: str = "whisper_slice") -> dict:
@@ -1285,6 +1539,7 @@ def main() -> int:
     from stutter_tpu_torch.models.wavlm import WavLMConfig, WavLMModel
     from stutter_tpu_torch.models.whisper import WhisperConfig, WhisperModel
     from stutter_tpu_torch.ops import _build
+    from stutter_tpu_torch.ops import attn_probes as probes
     from stutter_tpu_torch.ops import flash_mha as mha
     from stutter_tpu_torch.ops import logmel
     from stutter_tpu_torch.ops import wavlm_attention as attn
@@ -1311,6 +1566,12 @@ def main() -> int:
             logmel_err, logmel_times = phase_logmel(torch, logmel)
         with timed("mha"):
             mha_err, mha_times = phase_mha(torch, mha)
+        with timed("mha_bias"):
+            mha_bias_err, mha_bias_times = phase_mha_bias(torch, mha)
+        with timed("probe_kernels"):
+            probe_numbers = phase_probe_kernels(torch, probes, card)
+        with timed("probes"):
+            probe_counts = phase_probes(torch, card)
         with timed("stem"):
             stem_err, stem_times = phase_stem(torch, card)
 
@@ -1329,6 +1590,8 @@ def main() -> int:
             with timed("path"):
                 phase_kernel_path_vs_plain(torch, attn, extractor.layer_indices,
                                            extractor.model, fid_model)
+            with timed("long_slice"):
+                long_counts = phase_long_slice(torch, extractor, work)
             with timed("turbo_slice"):
                 phase_slice(torch, turbo, work, phase="turbo_slice")
                 wave, lengths = wavlm_test_batch(torch, extractor.cfg)
@@ -1388,27 +1651,35 @@ def main() -> int:
         return 1
 
     kernels = [  # name, source, replaces, launches on its path, max-abs error, numbers
-        ("gated_relpos_attention", "wavlm_attention.cu", "wavlm_attention_pallas.py:31",
+        ("gated_relpos_attention", "wavlm_attention.cu",
+         "stutter_tpu/ops/wavlm_attention_pallas.py:31",
          wavlm_counts["gated_relpos_attention"], wavlm_err, wavlm_times),
         ("gated_relpos_attention_bwd", "wavlm_attention_bwd.cu",
-         "wavlm_attention_vjp.py:145", ft_counts["gated_relpos_attention_bwd"], bwd_err,
-         bwd_times),
-        ("whisper_log_mel", "logmel.cu", "logmel_pallas.py:43",
+         "stutter_tpu/ops/wavlm_attention_vjp.py:145", ft_counts["gated_relpos_attention_bwd"],
+         bwd_err, bwd_times),
+        ("whisper_log_mel", "logmel.cu", "stutter_tpu/ops/logmel_pallas.py:43",
          whisper_counts["whisper_log_mel"], logmel_err, logmel_times),
-        ("flash_mha", "flash_mha.cu", "models/attention.py:54", whisper_counts["flash_mha"],
-         mha_err, mha_times),
-        ("wavlm_fused_stem", "wavlm_stem.cu", "wavlm_stem_pallas.py:113", stem_launches,
-         stem_err, stem_times),
+        ("flash_mha", "flash_mha.cu", "stutter_tpu/models/attention.py:54",
+         whisper_counts["flash_mha"], mha_err, mha_times),
+        ("wavlm_fused_stem", "wavlm_stem.cu", "stutter_tpu/ops/wavlm_stem_pallas.py:113",
+         stem_launches, stem_err, stem_times),
+        ("flash_mha_bias", "flash_mha.cu", "stutter_tpu/models/attention.py:102",
+         long_counts["flash_mha_bias"], mha_bias_err, mha_bias_times),
+        ("attn_int8", "attn_probes.cu", "scripts/attn_int8_probe.py:66",
+         probe_counts["attn_int8"], *probe_numbers["attn_int8"]),
+        ("attn_softmax_variants", "attn_probes.cu", "scripts/attn_softmax_variants_probe.py:54",
+         probe_counts["attn_softmax_variants"], *probe_numbers["attn_softmax_variants"]),
     ]
     line = [{"name": name, "route": "cuda", "source": f"stutter_tpu_torch/csrc/{source}",
-             "replaces": "stutter_tpu/" + (replaces if "/" in replaces else f"ops/{replaces}"),
-             "launches": launches, "max_abs_err": err, **times}
+             "replaces": replaces, "launches": launches, "max_abs_err": err, **times}
             for name, source, replaces, launches, err, times in kernels]
     line[0]["also_replaces"] = "stutter_tpu/ops/wavlm_attention_pallas.py:93"
     line[0]["finetune_launches"] = ft_counts["gated_relpos_attention"]
     line[1]["also_replaces"] = ["stutter_tpu/ops/wavlm_attention_vjp.py:68",
                                 "stutter_tpu/ops/wavlm_attention_vjp.py:115"]
     line[1]["max_rel_err"] = bwd_rel
+    line[6]["also_replaces"] = "scripts/attn_int8_probe.py:100"  # its pallas_call
+    line[7]["also_replaces"] = "scripts/attn_softmax_variants_probe.py:98"
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

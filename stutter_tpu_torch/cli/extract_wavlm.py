@@ -8,13 +8,18 @@ fails rather than running on the CPU. ``--random_init`` (seed 0) is the only
 model source for now: HF checkpoint loading, ``--long_files chunk``,
 ``--verify_model`` and the multi-device flags raise. ``--preset`` takes the
 JAX CLI's three: fast (bf16), fidelity (f32, no TF32) and turbo (fast with
-int8 projections).
+int8 projections). The JAX package's environment switch for WavLM's long
+buckets is read here, once: a non-empty ``STUTTER_TPU_LONG_ATTENTION_FLASH``
+sends bf16 attention from ``STUTTER_TPU_LONG_ATTENTION_MIN_L`` frames
+(default 1008) up through the materialised-bias flash kernel
+(``WavLMExtractor(long_attention="materialized_bias")``).
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import sys
 
 WAVLM_CONFIGS = {
@@ -23,6 +28,18 @@ WAVLM_CONFIGS = {
     "microsoft/wavlm-large": "large",
     "microsoft/wavlm-large-v2": "large",
 }
+
+
+def long_attention_from_env(environ=None) -> dict:
+    """``WavLMExtractor``'s ``long_attention`` (and ``long_min_l``, where it is
+    set) from the JAX package's switch, read as that package reads it
+    (``stutter_tpu/models/wavlm.py:409-463``)."""
+    env = os.environ if environ is None else environ
+    out = {"long_attention": ("materialized_bias" if env.get("STUTTER_TPU_LONG_ATTENTION_FLASH")
+                              else "gated")}
+    if env.get("STUTTER_TPU_LONG_ATTENTION_MIN_L"):
+        out["long_min_l"] = int(env["STUTTER_TPU_LONG_ATTENTION_MIN_L"])
+    return out
 
 
 def parse_args(argv=None):
@@ -113,7 +130,7 @@ def main(argv=None) -> int:
     if not metadata:
         logger.error("no files found under %s", args.data_dir)
         return 1
-    extractor = WavLMExtractor(model, device, preset=args.preset)
+    extractor = WavLMExtractor(model, device, preset=args.preset, **long_attention_from_env())
     batcher = BucketBatcher(
         target_sr=args.sample_rate,
         audio_budget_s=args.audio_budget,

@@ -17,7 +17,9 @@ model (``.npz`` + ``_info.json``) go to ``--results_dir``.
 ``--device`` names the torch device (default ``cuda``; with no card it fails
 rather than running on the CPU). ``--random_init`` (seed 0) is the only
 model source for now; ``--int8_forward``, the remat policies ``layer_dots``,
-``layer_probs`` and ``dots``, and ``--devices``/``--tp`` above 1 raise.
+``layer_probs`` and ``dots``, ``--devices``/``--tp`` above 1, and the JAX
+package's ``STUTTER_TPU_LONG_ATTENTION_FLASH`` switch (its backward is not
+ported) raise.
 ``--preset`` is accepted and ignored, as in the JAX CLI: fine-tuning always
 runs bf16 activations.
 """
@@ -30,7 +32,7 @@ import sys
 
 import numpy as np
 
-from stutter_tpu_torch.cli.extract_wavlm import WAVLM_CONFIGS
+from stutter_tpu_torch.cli.extract_wavlm import WAVLM_CONFIGS, long_attention_from_env
 
 
 def parse_args(argv=None):
@@ -94,6 +96,10 @@ def _check_supported(args) -> None:
     if (args.devices or 1) != 1 or args.tp != 1:
         raise NotImplementedError(
             "multi-device runs are not ported yet (ROADMAP Queue 1, multi-GPU)")
+    if long_attention_from_env()["long_attention"] != "gated":
+        raise NotImplementedError(
+            "STUTTER_TPU_LONG_ATTENTION_FLASH is set: the backward of the materialised-bias "
+            "attention is not ported yet (ROADMAP Queue 1, fine-tuning); unset it to train")
 
 
 def main(argv=None) -> int:

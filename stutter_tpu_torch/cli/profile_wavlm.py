@@ -5,7 +5,9 @@
 One full batch of the ``--seconds`` bucket, shaped as the extraction path
 shapes it (default batcher: 128 clips at 3 s, 12 at 30 s; frame-aligned), of
 noise at full length goes through WavLM-Large's ``WavLMModel.encode`` with
-random weights (seed 0) on the first CUDA card. Printed, one line each:
+random weights (seed 0) on the first CUDA card, with the attention that
+``STUTTER_TPU_LONG_ATTENTION_FLASH`` and ``_MIN_L`` select, as in
+``cli.extract_wavlm``. Printed, one line each:
 
 - ``[card]``: the card's name and power limit, as nvidia-smi gives them;
 
@@ -47,6 +49,7 @@ def main(argv=None) -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from stutter_tpu_torch.cli.extract_wavlm import long_attention_from_env
     from stutter_tpu_torch.extract.batcher import BucketBatcher
     from stutter_tpu_torch.extract.pipeline import WavLMExtractor, resolve_device
     from stutter_tpu_torch.ops.precision import no_tf32
@@ -61,9 +64,11 @@ def main(argv=None) -> int:
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
     print(f"[card] {card}", flush=True)
     cfg = WavLMConfig.large()
+    long_attention = long_attention_from_env()
     ex = WavLMExtractor(init_wavlm(cfg, torch.Generator().manual_seed(0)), device,
-                        preset=args.preset)
+                        preset=args.preset, **long_attention)
     model, layers = ex.model, ex.layer_indices
+    attention_fn = ex.attention_fn or gated_relpos_attention
     batcher = BucketBatcher(frame_align=ex.frame_align)
     B, T = batcher.batch_size_for(args.seconds), batcher.bucket_samples(args.seconds)
     g = torch.Generator(device=device).manual_seed(0)
@@ -98,7 +103,7 @@ def main(argv=None) -> int:
         def stack():
             h = hidden
             for layer in model.layers:
-                h = layer(h, bias, key_mask_bias, gated_relpos_attention).to(h.dtype)
+                h = layer(h, bias, key_mask_bias, attention_fn).to(h.dtype)
             return h
 
         parts = {
@@ -106,7 +111,7 @@ def main(argv=None) -> int:
             "feature_projection": lambda: model.feature_projection(feats),
             "pos_conv": lambda: model.pos_conv(hidden),
             "layers": stack,
-            "encode": lambda: model.encode(wave, layers, lengths),
+            "encode": lambda: model.encode(wave, layers, lengths, attention_fn=ex.attention_fn),
         }
         for name, fn in parts.items():
             ms = median_ms(fn)
@@ -118,17 +123,18 @@ def main(argv=None) -> int:
         for _ in range(RUNS):
             torch.cuda.synchronize(device)
             t0 = time.perf_counter()
-            model.encode(wave, layers, lengths)
+            model.encode(wave, layers, lengths, attention_fn=ex.attention_fn)
             enqueue.append((time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize(device)
         print(f"[host] encode enqueue_ms={statistics.median(enqueue):.3f}", flush=True)
 
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            model.encode(wave, layers, lengths)
+            model.encode(wave, layers, lengths, attention_fn=ex.attention_fn)
             torch.cuda.synchronize(device)
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     total_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     print(f"[kernels] preset={args.preset} batch={B}x{args.seconds}s L={L} "
+          f"long_attention={long_attention['long_attention']} "
           f"distinct={len(kernels)} device_ms_total={total_ms:.3f}", flush=True)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:TOP]:
         print(f"[kernel] ms={e.self_device_time_total / 1e3:.3f} count={e.count} "

@@ -7,8 +7,9 @@
 //
 // with q pre-scaled, head_dim 64, and `score` a compile-time policy that adds
 // whatever the caller's logits carry beyond q . k: WavLM's gate * bias + mask
-// (GatedBias in wavlm_attention.cu), or Whisper's key padding (KeyPadding in
-// flash_mha.cu), whose kernel then loads no bias and no gate. A policy is a
+// (GatedBias below), Whisper's key padding (KeyPadding in flash_mha.cu),
+// whose kernel then loads no bias and no gate, or a materialised bias
+// (FullBias in flash_mha.cu). A policy is a
 // struct with a `Params` struct passed by value to the kernel, a constructor
 // (params, b, h, rows[2], H, L) for the two query rows a thread owns, and
 // `float operator()(int a, int kj, float s)` for row a and key kj < L.
@@ -383,6 +384,33 @@ __global__ void __launch_bounds__(kBf16Threads) attention_bf16_kernel(
     }
   }
 }
+
+// WavLM's score policy: gate * bias + mask, with bias [H, L, L] shared by the
+// batch, gate [B, H, L] and mask [B, L] (0 or -1e9), all f32. Its members are
+// public: the probe kernels (attn_probes.cu) round the three terms apart.
+struct GatedBias {
+  struct Params {
+    const float* bias;  // [H, L, L]
+    const float* gate;  // [B, H, L]
+    const float* mask;  // [B, L]
+  };
+  const float* bias_row[2];
+  float g[2];
+  const float* mask_row;
+
+  __device__ GatedBias(const Params& p, int b, int h, const int (&rows)[2], int H, int L) {
+    for (int a = 0; a < 2; ++a) {
+      const bool ok = rows[a] < L;  // padded query rows read row 0 and are not stored
+      g[a] = ok ? p.gate[((long long)b * H + h) * L + rows[a]] : 0.f;
+      bias_row[a] = p.bias + ((long long)h * L + (ok ? rows[a] : 0)) * L;
+    }
+    mask_row = p.mask + (long long)b * L;
+  }
+
+  __device__ __forceinline__ float operator()(int a, int kj, float s) const {
+    return s + g[a] * bias_row[a][kj] + mask_row[kj];
+  }
+};
 
 // dtype: 0 = float32, 1 = bfloat16. q, k, v and out share the strides
 // (stride_b, stride_h, stride_l) in elements, with a unit head-dim stride

@@ -11,8 +11,8 @@
 //
 // with q pre-scaled by head_dim^-0.5, bias [H, L, L] f32 shared by the batch,
 // gate [B, H, L] f32 and mask [B, L] f32 (0 for a valid key, -1e9 for a
-// padded one). The tiles are those of attention_tiles.cuh, with the
-// GatedBias score policy below. The training forward also has the kernel
+// padded one). The tiles are those of attention_tiles.cuh, with its
+// GatedBias score policy. The training forward also has the kernel
 // write each row's softmax statistics for wavlm_attention_bwd.cu.
 //
 // What bounds it on this card. At the 3 s bucket (L = 160, d = 64) one
@@ -30,34 +30,6 @@
 // clip; gate * bias + mask is formed in registers as the scores are.
 
 #include "attention_tiles.cuh"
-
-namespace {
-
-struct GatedBias {
-  struct Params {
-    const float* bias;  // [H, L, L]
-    const float* gate;  // [B, H, L]
-    const float* mask;  // [B, L]
-  };
-  const float* bias_row[2];
-  float g[2];
-  const float* mask_row;
-
-  __device__ GatedBias(const Params& p, int b, int h, const int (&rows)[2], int H, int L) {
-    for (int a = 0; a < 2; ++a) {
-      const bool ok = rows[a] < L;  // padded query rows read row 0 and are not stored
-      g[a] = ok ? p.gate[((long long)b * H + h) * L + rows[a]] : 0.f;
-      bias_row[a] = p.bias + ((long long)h * L + (ok ? rows[a] : 0)) * L;
-    }
-    mask_row = p.mask + (long long)b * L;
-  }
-
-  __device__ __forceinline__ float operator()(int a, int kj, float s) const {
-    return s + g[a] * bias_row[a][kj] + mask_row[kj];
-  }
-};
-
-}  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. q, k, v and out share the strides
 // (stride_b, stride_h, stride_l) in elements, with a unit head-dim stride (for

@@ -28,7 +28,12 @@ from stutter_tpu_torch.extract.checkpoint import (
 from stutter_tpu_torch.extract.store import save_embeddings
 from stutter_tpu_torch.frontend.wavlm_frontend import wavlm_prepare_batch
 from stutter_tpu_torch.frontend.whisper_frontend import whisper_features
-from stutter_tpu_torch.models.wavlm import WavLMModel, wavlm_feature_lengths
+from stutter_tpu_torch.models.wavlm import (
+    LONG_ATTENTION_MIN_L,
+    WavLMModel,
+    materialized_bias_attention,
+    wavlm_feature_lengths,
+)
 from stutter_tpu_torch.models.whisper import WhisperModel
 from stutter_tpu_torch.ops.logmel import WHISPER_HOP
 from stutter_tpu_torch.ops.precision import no_tf32
@@ -177,11 +182,25 @@ class WavLMExtractor(_Extractor):
     """Layer-selected mean-pooled WavLM embeddings.
 
     ``model`` is a float32 ``WavLMModel``; the extractor moves it to
-    ``device`` and casts it for ``preset``."""
+    ``device`` and casts it for ``preset``. ``long_attention`` picks the
+    attention of the long buckets: "gated" (the default, as in the JAX
+    package) sends every call to ``gated_relpos_attention``;
+    "materialized_bias" takes the JAX package's escape hatch
+    (``models.wavlm.materialized_bias_attention``) from ``long_min_l``
+    frames up, in bf16."""
+
+    LONG_ATTENTION = ("gated", "materialized_bias")
 
     def __init__(self, model: WavLMModel, device: torch.device | str,
-                 layer_indices: Sequence[int] | None = None, preset: str = "fidelity"):
+                 layer_indices: Sequence[int] | None = None, preset: str = "fidelity",
+                 long_attention: str = "gated", long_min_l: int = LONG_ATTENTION_MIN_L):
+        if long_attention not in self.LONG_ATTENTION:
+            raise ValueError(f"long_attention must be one of {self.LONG_ATTENTION}, "
+                             f"got {long_attention!r}")
         super().__init__(model, device, preset)
+        # None: encode's default, the gated kernel wrapper
+        self.attention_fn = (materialized_bias_attention(long_min_l)
+                             if long_attention == "materialized_bias" else None)
         cfg = self.cfg
         n_states = cfg.num_hidden_layers + 1
         # reference default: [N-1, N-2, N-3, N//2] of the N+1 states
@@ -199,7 +218,8 @@ class WavLMExtractor(_Extractor):
         lens = self._to_device(lengths.astype(np.int64))
         w = wavlm_prepare_batch(self._waves(waves, scale), lens, self.cfg.do_normalize)
         with self._precision():
-            return self.model.encode(w, self.layer_indices, sample_lengths=lens)
+            return self.model.encode(w, self.layer_indices, sample_lengths=lens,
+                                     attention_fn=self.attention_fn)
 
 
 class WhisperExtractor(_Extractor):

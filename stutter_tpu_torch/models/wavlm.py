@@ -10,7 +10,10 @@ packages compare like with like; inside, the stem runs PyTorch's [B, C, T].
 ``forward``/``encode(use_fused_stem=True)`` run the stem through the fused
 kernel of ``ops.wavlm_stem`` instead, where it applies (off by default, as
 in the JAX package). The projections go through ``ops.quant.linear``, which
-takes the turbo presets' int8 weights.
+takes the turbo presets' int8 weights. ``materialized_bias_attention`` is the
+JAX package's escape hatch for the long buckets (``wavlm.py:462-469`` there,
+set by ``STUTTER_TPU_LONG_ATTENTION_FLASH``): an ``attention_fn`` for
+``encode`` that builds the [B, H, L, L] bias and runs ``flash_mha_bias``.
 
 Numerics copied from the JAX package:
 - layer norms take f32 statistics and cast back to the activation dtype;
@@ -43,6 +46,7 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from stutter_tpu_torch.models.common import gelu, layer_norm, param
+from stutter_tpu_torch.ops.flash_mha import flash_mha_bias, flash_mha_bias_reference
 from stutter_tpu_torch.ops.pooling import masked_mean_pool
 from stutter_tpu_torch.ops.quant import linear
 from stutter_tpu_torch.ops.wavlm_attention import (
@@ -57,6 +61,27 @@ from stutter_tpu_torch.ops.wavlm_stem import (
 )
 
 REMAT_MODES = (None, "layer", "nothing")
+LONG_ATTENTION_MIN_L = 1008  # the JAX package's STUTTER_TPU_LONG_ATTENTION_MIN_L default
+
+
+def materialized_bias_attention(long_min_l: int = LONG_ATTENTION_MIN_L):
+    """The escape hatch as an attention function with the signature of
+    ``gated_relpos_attention``. Where the JAX gate passes (bf16 activations,
+    L >= ``long_min_l``, head_dim >= 64) it builds
+    ab = gate * bias + key mask in f32, [B, H, L, L], and runs
+    ``flash_mha_bias`` on the card or its plain version on the CPU; every
+    other call goes to ``gated_relpos_attention``."""
+
+    def attention(q, k, v, position_bias, gate, key_mask_bias):
+        B, H, L, hd = q.shape
+        if q.dtype != torch.bfloat16 or L < long_min_l or hd < 64:
+            return gated_relpos_attention(q, k, v, position_bias, gate, key_mask_bias)
+        ab = (gate[..., None] * position_bias[None]).add_(key_mask_bias[:, None, None, :])
+        if q.device.type == "cpu":
+            return flash_mha_bias_reference(q, k, v, ab)
+        return flash_mha_bias(q, k, v, ab)
+
+    return attention
 
 
 @dataclasses.dataclass(frozen=True)

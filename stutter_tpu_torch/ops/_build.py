@@ -36,8 +36,12 @@ SIGNATURES = {
     "wavlm_gated_relpos_attention_bwd": (
         [_p] * 14 + [_i, _i, _i, _ll, _ll, _ll, _i, _p], _i),
     "flash_mha": ([_p, _p, _p, _p, _p, _i, _i, _i, _ll, _ll, _ll, _i, _p], _i),
+    "flash_mha_bias": ([_p, _p, _p, _p, _p, _i, _i, _i, _ll, _ll, _ll, _i, _p], _i),
     "whisper_log_mel": ([_p, _p, _p, _p, _i, _i, _p], _i),
     "wavlm_fused_stem": ([_p, _p, _p, _p, _p, _p, _i, _i, _p], _i),
+    "attn_int8_quantize_kv": ([_p] * 6 + [_i, _i, _i, _p], _i),
+    "attn_int8": ([_p] * 9 + [_i, _i, _i, _i, _p], _i),
+    "attn_softmax_variant": ([_p] * 7 + [_i] * 5 + [_p], _i),
 }
 
 

@@ -1,10 +1,16 @@
-"""Flash attention with optional key padding: the Whisper encoder's attention core.
+"""Flash attention with optional key padding (the Whisper encoder's attention
+core) or with a materialised additive bias (WavLM's long-bucket escape hatch).
 
 Counterpart of ``stutter_tpu/models/attention.py``'s ``flash_mha`` (the
-Pallas TPU flash attention) and ``mha_self`` (its dispatch). For q
-pre-scaled (sm_scale 1) and no bias::
+Pallas TPU flash attention), ``mha_self`` (its dispatch) and
+``flash_mha_bias``. For q pre-scaled (sm_scale 1)::
 
     out = softmax_rows(q @ k^T [+ -1e9 where key j >= kv_valid[b]]) @ v
+    out = softmax_rows(q @ k^T + ab) @ v                  (flash_mha_bias)
+
+``flash_mha_bias`` launches the same kernel's ``FullBias`` policy and counts
+its launches in ``flash_mha_bias.launches``; ``flash_mha_bias_reference`` is
+its plain version.
 
 ``flash_mha`` launches the hand-written CUDA kernel (``csrc/flash_mha.cu``)
 and counts each launch in ``flash_mha.launches``; ``flash_mha_reference`` is
@@ -74,6 +80,44 @@ def flash_mha(q, k, v, kv_valid=None):
 
 
 flash_mha.launches = 0
+
+
+def flash_mha_bias_reference(q, k, v, ab):
+    """Plain version of ``flash_mha_bias``: scores, softmax and both products
+    in f32 (the [B, H, L, L] scores materialised), rounded once to q's dtype."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) + ab.float()
+    return torch.matmul(torch.softmax(s, dim=-1), v.float()).to(q.dtype)
+
+
+def flash_mha_bias(q, k, v, ab):
+    """Kernel path. q, k, v [B, H, L, 64] as ``flash_mha`` takes them; ab
+    [B, H, L, L] contiguous f32 additive bias (mask folded in). Returns
+    [B, H, L, 64] in q's dtype, laid out like q."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_mha_bias launches a CUDA kernel; got a tensor on {q.device}")
+    check_qkv(q, k, v)
+    B, H, L, _ = q.shape
+    if (tuple(ab.shape) != (B, H, L, L) or ab.dtype != torch.float32
+            or not ab.is_contiguous() or ab.device != q.device):
+        raise ValueError(f"ab must be a contiguous float32 {(B, H, L, L)} on {q.device}, got "
+                         f"{ab.dtype} {tuple(ab.shape)} on {ab.device}, "
+                         f"contiguous={ab.is_contiguous()}")
+    from stutter_tpu_torch.ops._build import kernel_library
+
+    lib = kernel_library()
+    out = empty_like_q(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_mha_bias(q.data_ptr(), k.data_ptr(), v.data_ptr(), ab.data_ptr(),
+                                out.data_ptr(), B, H, L, q.stride(0), q.stride(1),
+                                q.stride(2), DTYPE_CODES[q.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_mha_bias launch failed: CUDA error {rc}")
+    flash_mha_bias.launches += 1
+    return out
+
+
+flash_mha_bias.launches = 0
 
 
 def mha_self(q, k, v, kv_valid=None):

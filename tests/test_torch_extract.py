@@ -277,7 +277,9 @@ def test_port_imports_neither_jax_nor_pandas():
         "import stutter_tpu_torch.train.heads, stutter_tpu_torch.train.metrics\n"
         "import stutter_tpu_torch.train.optim, stutter_tpu_torch.train.persistence\n"
         "import stutter_tpu_torch.ops.quant, stutter_tpu_torch.ops.wavlm_stem\n"
-        "import stutter_tpu_torch.cli.stem_fused_ab\n"
+        "import stutter_tpu_torch.cli.stem_fused_ab, stutter_tpu_torch.ops.attn_probes\n"
+        "import stutter_tpu_torch.cli.attn_int8_probe, stutter_tpu_torch.cli._attn_probe\n"
+        "import stutter_tpu_torch.cli.attn_softmax_variants_probe\n"
         "forbidden = ('jax', 'pandas', 'optax', 'orbax', 'joblib', 'stutter_tpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in forbidden]\n"
         "assert not bad, bad\n"
