@@ -22,11 +22,17 @@ Phases, one line each on stdout ([time] lines give each phase's seconds):
    (80 and 128 mels; silent, quiet and zero-padded clips among them);
 5. mha: the Whisper encoder's flash-attention kernel against its plain
    version at 16 x 20 x 1500 x 64 in bf16 and f32, with key padding and at a
-   ragged length; scaled_dot_product_attention timed beside it;
+   ragged length; scaled_dot_product_attention timed beside it; and what
+   ptxas said of the bf16 wgmma kernels (registers, spills, serialised
+   wgmma);
 5a. mha_bias: the materialised-bias flash kernel (WavLM's escape hatch)
    against its plain version at 12 x 16 x 1504 x 64 and 19 x 16 x 1008 x 64
    in bf16 with keys masked, and f32 at a ragged length;
    scaled_dot_product_attention with the same bias timed beside it;
+5a2. mha_edges: both kernels' bf16 wgmma tiles at their edges, checked and
+   not timed: L of 37, 64, 65, 127, 128, 129, 1008, 1500 and 1504 with key
+   counts of 0, 1, 63, 64, 65 and L, ab through its 16-byte and its
+   element-wise copies, a contiguous [B, H, L, 64] input, 70,000 blocks;
 5b. probe_kernels: the int8 probe's kernels (int8 k and v and their scales
    bit-equal to the plain version's) and the four softmax variants against
    their plain versions at 25 x 16 x 1504 x 64 and a ragged length;
@@ -374,8 +380,11 @@ def phase_attn_bwd(torch, attn, card: str):
     return worst_abs, worst, headline
 
 
-def time_turns(torch, *fns, runs: int = 20):
-    """Median ms of each function, timed per launch with CUDA events, in turns."""
+def time_turns(torch, *fns, runs: int = 20, reps: int = 1):
+    """Median ms per launch of each function, timed with CUDA events, in
+    turns. With ``reps`` 1 the events enclose one launch and the host's time
+    to enqueue it; with more, that many launches enqueued back to back, which
+    hides the host behind the device as a model's layers do."""
     for _ in range(3):
         for fn in fns:
             fn()
@@ -384,10 +393,11 @@ def time_turns(torch, *fns, runs: int = 20):
         for fn, acc in zip(fns, times):
             e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             e0.record()
-            fn()
+            for _ in range(reps):
+                fn()
             e1.record()
             e1.synchronize()
-            acc.append(e0.elapsed_time(e1))
+            acc.append(e0.elapsed_time(e1) / reps)
     return tuple(sorted(t)[len(t) // 2] for t in times)
 
 
@@ -676,6 +686,40 @@ def phase_logmel(torch, logmel):
     return worst, headline
 
 
+def phase_tile_edges(torch, mha) -> dict:
+    """The bf16 wgmma tiles where they are most likely to be wrong
+    (``cli.flash_tiles_ab.check_cases``: both kernels at ragged lengths and
+    key counts, ab through 16-byte and element-wise copies, a contiguous
+    input, 70,000 blocks); returns each kernel's worst max-abs error."""
+    from stutter_tpu_torch.cli import flash_tiles_ab
+
+    check((flash_tiles_ab.BF16_MAX_ABS, flash_tiles_ab.BF16_COSINE)
+          == (BF16_MAX_ABS, BF16_COSINE), "flash_tiles_ab's bars differ from this script's")
+    cases, failures, worst = flash_tiles_ab.check_cases(torch, mha, verbose=False)
+    say("mha_edges", cases=cases, disagree=failures,
+        **{f"{name}_worst_max_abs": f"{err:.3e}" for name, err in worst.items()},
+        max_abs_tol=BF16_MAX_ABS, cosine_tol=BF16_COSINE)
+    check(failures == 0, f"{failures} of {cases} bf16 tile edge cases disagree")
+    return worst
+
+
+def phase_tile_resources(build) -> None:
+    """What ptxas said of the bf16 wgmma kernels at the build: no spill, no
+    stack, no serialised wgmma."""
+    rows = build.resource_report("4sm9021attention_bf16_kernel")
+    check(len(rows) == 2, f"expected the KeyPadding and FullBias kernels, found {len(rows)}")
+    for row in rows:
+        policy = "FullBias" if "FullBias" in row["kernel"] else "KeyPadding"
+        say("ptxas", kernel=f"attention_bf16_kernel<{policy}>", registers=row["registers"],
+            stack_bytes=row["stack_bytes"], spill_store_bytes=row["spill_store_bytes"],
+            spill_load_bytes=row["spill_load_bytes"])
+        check(row["stack_bytes"] == 0 and row["spill_store_bytes"] == 0
+              and row["spill_load_bytes"] == 0, f"{policy}: the bf16 tiles spill")
+    warnings = build.serialized_wgmma_warnings()
+    say("ptxas", serialized_wgmma_warnings=len(warnings))
+    check(not warnings, "ptxas serialised a wgmma:\n" + "\n".join(warnings))
+
+
 def phase_mha(torch, mha):
     """Flash-attention kernel against its plain version, and the time of
     ``scaled_dot_product_attention`` on the same inputs; returns (worst
@@ -713,17 +757,31 @@ def phase_mha(torch, mha):
             (B,), L, dtype=torch.int32, device="cuda")
         key_mask = torch.where(torch.arange(L, device="cuda")[None, :] < valid[:, None],
                                0.0, -1e9).to(dtype)[:, None, None, :]
-        ms, plain_ms, library_ms = time_turns(
+        ms, plain_ms, masked_ms, maskless_ms = time_turns(
             torch, lambda: mha.flash_mha(q, k, v, kv_valid),
             lambda: mha.flash_mha_reference(q, k, v, kv_valid),
-            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=key_mask, scale=1.0))
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=key_mask, scale=1.0),
+            lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0))
+        # with every key valid the call without a mask is the same function, and
+        # the library then picks a faster kernel: the yardstick is the faster one
+        library_ms = masked_ms if kv is not None else min(masked_ms, maskless_ms)
+        # the same with 8 launches enqueued back to back: the device's time alone
+        queued_ms, queued_masked_ms, queued_maskless_ms = time_turns(
+            torch, lambda: mha.flash_mha(q, k, v, kv_valid),
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=key_mask, scale=1.0),
+            lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0), reps=8)
+        queued_library_ms = (queued_masked_ms if kv is not None
+                             else min(queued_masked_ms, queued_maskless_ms))
         n = B * H * L * 64  # q k^T and p v; q, k, v and out once each
         numbers = timing(ms, plain_ms, *bound(4 * n * L, 4 * n * q.element_size(),
                                               peak_flops(torch, dtype)), library_ms)
         say("mha", shape=f"{B}x{H}x{L}x64", dtype=str(dtype).split(".")[-1],
             kv_valid=",".join(map(str, kv)) if kv else "all", max_abs_err=f"{max_abs:.3e}",
             max_abs_tol=tol_abs, cosine_dist=f"{cos:.3e}", cosine_tol=tol_cos,
-            **shown(numbers))
+            **shown(numbers), library_masked_ms=f"{masked_ms:.4f}",
+            library_maskless_ms=f"{maskless_ms:.4f}" if kv is None else None,
+            queued_ms=f"{queued_ms:.4f}", queued_library_ms=f"{queued_library_ms:.4f}",
+            queued_tflops=f"{4 * n * L / queued_ms / 1e9:.1f}")
         check(max_abs <= tol_abs and cos <= tol_cos,
               f"flash_mha disagrees with its plain version at {B}x{H}x{L} {dtype} kv={kv}")
         worst = max(worst, max_abs)
@@ -763,12 +821,18 @@ def phase_mha_bias(torch, mha):
             torch, lambda: mha.flash_mha_bias(q, k, v, ab),
             lambda: mha.flash_mha_bias_reference(q, k, v, ab),
             lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=ab_q, scale=1.0))
+        queued_ms, queued_library_ms = time_turns(
+            torch, lambda: mha.flash_mha_bias(q, k, v, ab),
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=ab_q, scale=1.0), reps=8)
         n = B * H * L * 64  # q k^T and p v; q, k, v, out and ab once each
         numbers = timing(ms, plain_ms, *bound(4 * n * L, 4 * n * q.element_size() + 4 * ab.numel(),
                                               peak_flops(torch, dtype)), library_ms)
         say("mha_bias", shape=f"{B}x{H}x{L}x64", dtype=str(dtype).split(".")[-1],
             max_abs_err=f"{max_abs:.3e}", max_abs_tol=tol_abs, cosine_dist=f"{cos:.3e}",
-            cosine_tol=tol_cos, ab_gb=f"{4 * ab.numel() / 1e9:.3f}", **shown(numbers))
+            cosine_tol=tol_cos, ab_gb=f"{4 * ab.numel() / 1e9:.3f}", **shown(numbers),
+            queued_ms=f"{queued_ms:.4f}", queued_library_ms=f"{queued_library_ms:.4f}",
+            queued_tflops=f"{4 * n * L / queued_ms / 1e9:.1f}",
+            queued_ab_tb_per_s=f"{4 * ab.numel() / queued_ms / 1e9:.3f}")
         check(max_abs <= tol_abs and cos <= tol_cos,
               f"flash_mha_bias disagrees with its plain version at {B}x{H}x{L} {dtype}")
         worst = max(worst, max_abs)
@@ -1565,9 +1629,14 @@ def main() -> int:
         with timed("logmel"):
             logmel_err, logmel_times = phase_logmel(torch, logmel)
         with timed("mha"):
+            phase_tile_resources(_build)
             mha_err, mha_times = phase_mha(torch, mha)
         with timed("mha_bias"):
             mha_bias_err, mha_bias_times = phase_mha_bias(torch, mha)
+        with timed("mha_edges"):
+            edge_errs = phase_tile_edges(torch, mha)
+            mha_err = max(mha_err, edge_errs["flash_mha"])
+            mha_bias_err = max(mha_bias_err, edge_errs["flash_mha_bias"])
         with timed("probe_kernels"):
             probe_numbers = phase_probe_kernels(torch, probes, card)
         with timed("probes"):

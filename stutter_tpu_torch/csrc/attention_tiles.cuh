@@ -1,15 +1,17 @@
 // Flash-attention forward tiles for Hopper (sm_90a), shared by the WavLM
-// attention (wavlm_attention.cu) and the Whisper encoder's attention
-// (flash_mha.cu). For one (clip b, head h, query row i):
+// attention (wavlm_attention.cu, and its backward and probes) in f32 and
+// bf16, and by the f32 path of the Whisper encoder's attention and the
+// materialised-bias attention (flash_mha.cu, whose bf16 path has its own
+// tiles, attention_tiles_sm90.cuh). For one (clip b, head h, query row i):
 //
 //     p[j]   = score(i, j, q[i] . k[j])
 //     out[i] = sum_j softmax_j(p)[j] * v[j]
 //
 // with q pre-scaled, head_dim 64, and `score` a compile-time policy that adds
 // whatever the caller's logits carry beyond q . k: WavLM's gate * bias + mask
-// (GatedBias below), Whisper's key padding (KeyPadding in flash_mha.cu),
-// whose kernel then loads no bias and no gate, or a materialised bias
-// (FullBias in flash_mha.cu). A policy is a
+// (GatedBias below), Whisper's key padding (KeyPadding in flash_mha.cu, f32
+// here), whose kernel then loads no bias and no gate, or a materialised bias
+// (FullBias in flash_mha.cu, f32 here). A policy is a
 // struct with a `Params` struct passed by value to the kernel, a constructor
 // (params, b, h, rows[2], H, L) for the two query rows a thread owns, and
 // `float operator()(int a, int kj, float s)` for row a and key kj < L.
@@ -41,8 +43,10 @@
 // so the wrappers require 16-byte aligned rows.
 // f32: scalar f32 FMAs (the tensor cores would round to TF32), each thread
 // two query rows.
-// Not yet: wgmma, TMA or cp.async staging, and overlap of a tile's loads with
-// the previous tile's products.
+// Not here: wgmma, cp.async staging, and overlap of a tile's loads with the
+// previous tile's products; attention_tiles_sm90.cuh has them for the bf16
+// path of flash_mha.cu, and its policies are written so that the gated
+// kernel can move there.
 //
 // Each .cu that includes this header includes it once; everything here has
 // internal linkage.

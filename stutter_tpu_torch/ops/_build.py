@@ -16,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -24,7 +25,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "stutter_tpu_torch"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _p = ctypes.c_void_p
 _i = ctypes.c_int
@@ -36,7 +37,7 @@ SIGNATURES = {
     "wavlm_gated_relpos_attention_bwd": (
         [_p] * 14 + [_i, _i, _i, _ll, _ll, _ll, _i, _p], _i),
     "flash_mha": ([_p, _p, _p, _p, _p, _i, _i, _i, _ll, _ll, _ll, _i, _p], _i),
-    "flash_mha_bias": ([_p, _p, _p, _p, _p, _i, _i, _i, _ll, _ll, _ll, _i, _p], _i),
+    "flash_mha_bias": ([_p, _p, _p, _p, _p, _i, _i, _i, _i, _ll, _ll, _ll, _i, _p], _i),
     "whisper_log_mel": ([_p, _p, _p, _p, _i, _i, _p], _i),
     "wavlm_fused_stem": ([_p, _p, _p, _p, _p, _p, _i, _i, _p], _i),
     "attn_int8_quantize_kv": ([_p] * 6 + [_i, _i, _i, _p], _i),
@@ -67,6 +68,37 @@ def library_path() -> Path:
     return BUILD_DIR / f"libstutter_kernels_{h.hexdigest()[:16]}.so"
 
 
+def resource_report_path(lib: Path) -> Path:
+    """Where ``build`` keeps what ``ptxas -v`` said of the library's kernels."""
+    return lib.with_suffix(".ptxas.txt")
+
+
+def resource_report(pattern: str) -> list[dict]:
+    """Registers, spills, stack and static shared memory of every kernel of
+    the built library whose mangled name contains ``pattern``, as ``ptxas
+    -v`` printed them at the build."""
+    text = resource_report_path(library_path()).read_text()
+    found = []
+    entry = re.compile(
+        r"Compiling entry function '(\S*%s\S*)' for 'sm_90a'.*?"
+        r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads.*?"
+        r"Used (\d+) registers(?:, used \d+ barriers)?(?:, (\d+) bytes smem)?" % re.escape(pattern),
+        re.S)
+    for m in entry.finditer(text):
+        name, stack, stores, loads, regs, smem = m.groups()
+        found.append({"kernel": name, "registers": int(regs), "stack_bytes": int(stack),
+                      "spill_store_bytes": int(stores), "spill_load_bytes": int(loads),
+                      "static_smem_bytes": int(smem or 0)})
+    return found
+
+
+def serialized_wgmma_warnings() -> list[str]:
+    """The lines of the build's ``ptxas`` output that report a serialised
+    ``wgmma`` (the compiler then waits between the asynchronous products)."""
+    text = resource_report_path(library_path()).read_text()
+    return [line for line in text.splitlines() if "wgmma" in line and "serializ" in line]
+
+
 def build() -> tuple[Path, float]:
     """Compile the kernels unless this source set is already built.
 
@@ -86,10 +118,13 @@ def build() -> tuple[Path, float]:
             procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                 stderr=subprocess.STDOUT, text=True)))
             objs.append(obj)
+        report = []
         for cmd, proc in procs:
             out, _ = proc.communicate()
             if proc.returncode != 0:
                 raise RuntimeError(f"kernel build failed ({' '.join(cmd)}):\n{out}")
+            report.append(out)
+        resource_report_path(lib).write_text("".join(report))
         cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:

@@ -8,17 +8,21 @@ Pallas TPU flash attention), ``mha_self`` (its dispatch) and
     out = softmax_rows(q @ k^T [+ -1e9 where key j >= kv_valid[b]]) @ v
     out = softmax_rows(q @ k^T + ab) @ v                  (flash_mha_bias)
 
-``flash_mha_bias`` launches the same kernel's ``FullBias`` policy and counts
-its launches in ``flash_mha_bias.launches``; ``flash_mha_bias_reference`` is
-its plain version.
-
 ``flash_mha`` launches the hand-written CUDA kernel (``csrc/flash_mha.cu``)
 and counts each launch in ``flash_mha.launches``; ``flash_mha_reference`` is
 the plain PyTorch version (f32 throughout, rounded once to q's dtype), which
-the tests and the on-card comparison use. ``mha_self`` sends CUDA tensors to
-the kernel and CPU tensors to the plain version. Unlike the JAX package,
-which takes its Pallas path for bf16 only, both presets go through the
-kernel: bf16 on the tensor cores, f32 on scalar FMAs.
+the tests and the on-card comparison use. ``flash_mha_bias`` launches the same
+source's ``FullBias`` policy and counts its launches in
+``flash_mha_bias.launches``; ``flash_mha_bias_reference`` is its plain
+version. ``mha_self`` sends CUDA tensors to the kernel and CPU tensors to the
+plain version. Unlike the JAX package, which takes its Pallas path for bf16
+only, both presets go through a kernel, and ``device_path`` says which:
+bf16 runs on the Hopper tiles of ``csrc/attention_tiles_sm90.cuh`` (both
+products as ``wgmma`` on 64-row tiles, K, V and ab staged through an
+asynchronous shared-memory ring), f32 on the scalar-FMA tiles of
+``csrc/attention_tiles.cuh``. The bf16 tiles take any L: ragged last tiles
+are masked in the kernel, and ab's rows are copied as 16-byte vectors where
+L and ab's address allow it (``ab_vector_bytes``), else element by element.
 """
 
 from __future__ import annotations
@@ -44,8 +48,28 @@ def flash_mha_reference(q, k, v, kv_valid=None):
     return torch.matmul(torch.softmax(s, dim=-1), v.float()).to(q.dtype)
 
 
+BF16_TILES, F32_TILES = "bf16_wgmma_ring", "f32_scalar"
+
+
+def device_path(q, k, v) -> str:
+    """Which tiles of ``csrc/flash_mha.cu`` these inputs launch: bf16 the
+    wgmma tiles, f32 the scalar ones. Raises what ``check_qkv`` raises for
+    inputs that neither takes (another dtype or head_dim, strides that
+    differ, a head dimension that is not contiguous and, for bf16, rows
+    that are not 16-byte aligned)."""
+    check_qkv(q, k, v)
+    return BF16_TILES if q.dtype == torch.bfloat16 else F32_TILES
+
+
+def ab_vector_bytes(ab) -> int:
+    """How the bf16 tiles copy ab's rows into shared memory: as 16-byte
+    vectors when every row starts 16-byte aligned (L % 4 == 0 and an aligned
+    base: the hatch's L = 1008 and 1504), else as 4-byte elements."""
+    return 16 if ab.shape[-1] % 4 == 0 and ab.data_ptr() % 16 == 0 else 4
+
+
 def _check(q, k, v, kv_valid) -> None:
-    check_qkv(q, k, v)  # k and v of q's shape: the kernel takes Lq == Lk
+    device_path(q, k, v)  # k and v of q's shape: the kernels take Lq == Lk
     B = q.shape[0]
     if kv_valid is not None and (
             tuple(kv_valid.shape) != (B,) or kv_valid.dtype != torch.int32
@@ -95,7 +119,7 @@ def flash_mha_bias(q, k, v, ab):
     [B, H, L, 64] in q's dtype, laid out like q."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_mha_bias launches a CUDA kernel; got a tensor on {q.device}")
-    check_qkv(q, k, v)
+    device_path(q, k, v)
     B, H, L, _ = q.shape
     if (tuple(ab.shape) != (B, H, L, L) or ab.dtype != torch.float32
             or not ab.is_contiguous() or ab.device != q.device):
@@ -109,8 +133,8 @@ def flash_mha_bias(q, k, v, ab):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_mha_bias(q.data_ptr(), k.data_ptr(), v.data_ptr(), ab.data_ptr(),
-                                out.data_ptr(), B, H, L, q.stride(0), q.stride(1),
-                                q.stride(2), DTYPE_CODES[q.dtype], stream)
+                                out.data_ptr(), B, H, L, ab_vector_bytes(ab), q.stride(0),
+                                q.stride(1), q.stride(2), DTYPE_CODES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"flash_mha_bias launch failed: CUDA error {rc}")
     flash_mha_bias.launches += 1
