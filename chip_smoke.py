@@ -11,8 +11,11 @@ Phases, one line each on stdout ([time] lines give each phase's seconds):
 2. build: compile the CUDA kernels from stutter_tpu_torch/csrc (nvcc, sm_90a,
    one process per source);
 3. kernel: the WavLM attention kernel against its plain PyTorch version on
-   the card, at the extraction path's shapes and a ragged length, with masks
-   that cut clips short: errors against stated tolerances, median times;
+   the card, at the extraction path's shapes (3 s, 20 s and 30 s buckets),
+   at lengths around the bf16 tiles' 64- and 128-row edges and a ragged
+   length, with masks that cut clips short and a fully padded clip: errors
+   against stated tolerances, median times per launch and, in bf16, with 8
+   launches queued;
 3b. attn_bwd: the WavLM attention backward kernels (and the forward's row
    statistics) against the plain backward, bf16 and f32, at the fine-tune
    CLI's 3 s and 10 s batches and a ragged L = 1008, with a fully padded
@@ -23,8 +26,8 @@ Phases, one line each on stdout ([time] lines give each phase's seconds):
 5. mha: the Whisper encoder's flash-attention kernel against its plain
    version at 16 x 20 x 1500 x 64 in bf16 and f32, with key padding and at a
    ragged length; scaled_dot_product_attention timed beside it; and what
-   ptxas said of the bf16 wgmma kernels (registers, spills, serialised
-   wgmma);
+   ptxas said of the bf16 wgmma kernels, every instantiation (registers,
+   spills, serialised wgmma);
 5a. mha_bias: the materialised-bias flash kernel (WavLM's escape hatch)
    against its plain version at 12 x 16 x 1504 x 64 and 19 x 16 x 1008 x 64
    in bf16 with keys masked, and f32 at a ragged length;
@@ -33,6 +36,11 @@ Phases, one line each on stdout ([time] lines give each phase's seconds):
    not timed: L of 37, 64, 65, 127, 128, 129, 1008, 1500 and 1504 with key
    counts of 0, 1, 63, 64, 65 and L, ab through its 16-byte and its
    element-wise copies, a contiguous [B, H, L, 64] input, 70,000 blocks;
+5a3. gated_edges: the WavLM attention's bf16 wgmma tiles in both grid
+   orders, output and row statistics, checked and not timed: L of 37, 63,
+   64, 65, 127, 128, 129, 160 and 1008 with a full, a half, a fully padded
+   and a zero-gate clip, the bias through its 16-byte and its element-wise
+   copies, a contiguous input;
 5b. probe_kernels: the int8 probe's kernels (int8 k and v and their scales
    bit-equal to the plain version's) and the four softmax variants against
    their plain versions at 25 x 16 x 1504 x 64 and a ragged length;
@@ -245,12 +253,14 @@ def phase_kernel(torch, attn):
     cases = [  # (B, H, L, dtype, layout): the main path passes [B, L, H, d] views
         (128, 16, 160, torch.bfloat16, "blhd"),   # 3 s bucket, fast preset
         (12, 16, 1504, torch.bfloat16, "blhd"),   # 30 s bucket, fast preset
+        (19, 16, 1008, torch.bfloat16, "blhd"),   # 20 s bucket, fast preset
         (128, 16, 160, torch.float32, "blhd"),    # 3 s bucket, fidelity preset
         (12, 16, 1504, torch.float32, "blhd"),    # 30 s bucket, fidelity preset
         (4, 16, 160, torch.float32, "blhd"),
         (5, 16, 37, torch.bfloat16, "bhld"),      # ragged L, contiguous
         (5, 16, 37, torch.float32, "bhld"),
-    ]
+    ] + [(6, 16, L, torch.bfloat16, "blhd")       # the bf16 tiles' 64- and 128-row edges
+         for L in (63, 64, 65, 127, 128, 129)]
     g = torch.Generator(device="cuda").manual_seed(0)
     worst_abs, headline = 0.0, None
     for B, H, L, dtype, layout in cases:
@@ -282,6 +292,9 @@ def phase_kernel(torch, attn):
         n = B * H * L * 64
         nbytes = 4 * n * q.element_size() + 4 * (H * L * L + B * H * L + B * L)
         numbers = timing(ms, plain_ms, *bound(4 * n * L, nbytes, peak_flops(torch, dtype)))
+        if dtype == torch.bfloat16:  # 8 launches enqueued back to back: the device's time
+            numbers["queued_ms"], = time_turns(
+                torch, lambda: attn.gated_relpos_attention(*args), reps=8)
         say("kernel", shape=f"{B}x{H}x{L}x64", dtype=str(dtype).split(".")[-1],
             layout=layout, max_abs_err=f"{max_abs:.3e}", max_abs_tol=tol_abs,
             cosine_dist=f"{cos:.3e}", cosine_tol=tol_cos, **shown(numbers))
@@ -289,6 +302,8 @@ def phase_kernel(torch, attn):
               f"kernel disagrees with its plain version at {B}x{H}x{L} {dtype}")
         worst_abs = max(worst_abs, max_abs)
         headline = headline or numbers
+        del q, k, v, bias, gate, mask, args, out, ref
+        torch.cuda.empty_cache()
     return worst_abs, headline
 
 
@@ -703,18 +718,48 @@ def phase_tile_edges(torch, mha) -> dict:
     return worst
 
 
+# the bf16 wgmma tiles' instantiations: policy<warpgroups, stages, blocks an SM,
+# grid order (0 query tile fastest, 1 clip fastest)>
+TILE_KERNELS = {"KeyPadding<2, 4, 2, 0>", "FullBias<2, 4, 1, 0>", "GatedBiasRing<1, 3, 2, 0>",
+                "GatedBiasRing<1, 3, 2, 1>"}
+
+
+def phase_gated_edges(torch, attn) -> float:
+    """The gated attention's bf16 wgmma tiles where they are most likely to
+    be wrong (``cli.flash_tiles_ab.check_gated_cases``: both grid orders at
+    ragged lengths, output and row statistics, a fully padded and a
+    zero-gate clip, the bias through 16-byte and element-wise copies, a
+    contiguous input); returns the worst max-abs error."""
+    from stutter_tpu_torch.cli import flash_tiles_ab
+
+    check((flash_tiles_ab.BF16_MAX_ABS, flash_tiles_ab.BF16_COSINE,
+           flash_tiles_ab.STATS_MAX_ABS) == (BF16_MAX_ABS, BF16_COSINE, BWD_STATS_MAX_ABS),
+          "flash_tiles_ab's bars differ from this script's")
+    cases, failures, worst, worst_stats = flash_tiles_ab.check_gated_cases(
+        torch, attn, verbose=False)
+    say("gated_edges", cases=cases, disagree=failures, worst_max_abs=f"{worst:.3e}",
+        worst_stats_max_abs=f"{worst_stats:.3e}", max_abs_tol=BF16_MAX_ABS,
+        cosine_tol=BF16_COSINE, stats_tol=BWD_STATS_MAX_ABS)
+    check(failures == 0, f"{failures} of {cases} gated tile edge cases disagree")
+    return worst
+
+
 def phase_tile_resources(build) -> None:
-    """What ptxas said of the bf16 wgmma kernels at the build: no spill, no
-    stack, no serialised wgmma."""
-    rows = build.resource_report("4sm9021attention_bf16_kernel")
-    check(len(rows) == 2, f"expected the KeyPadding and FullBias kernels, found {len(rows)}")
+    """What ptxas said of the bf16 wgmma kernels at the build, every
+    instantiation: no spill, no stack, no serialised wgmma."""
+    from stutter_tpu_torch.cli.flash_tiles_ab import tile_kernels
+
+    rows = tile_kernels(build)
+    found = {row["tiles"] for row in rows}
+    check(len(rows) == len(TILE_KERNELS) and found == TILE_KERNELS,
+          f"expected the bf16 tiles {sorted(TILE_KERNELS)}, found {sorted(found)}")
     for row in rows:
-        policy = "FullBias" if "FullBias" in row["kernel"] else "KeyPadding"
-        say("ptxas", kernel=f"attention_bf16_kernel<{policy}>", registers=row["registers"],
-            stack_bytes=row["stack_bytes"], spill_store_bytes=row["spill_store_bytes"],
+        say("ptxas", kernel=f"attention_bf16_kernel<{row['tiles']}>",
+            registers=row["registers"], stack_bytes=row["stack_bytes"],
+            spill_store_bytes=row["spill_store_bytes"],
             spill_load_bytes=row["spill_load_bytes"])
         check(row["stack_bytes"] == 0 and row["spill_store_bytes"] == 0
-              and row["spill_load_bytes"] == 0, f"{policy}: the bf16 tiles spill")
+              and row["spill_load_bytes"] == 0, f"{row['tiles']}: the bf16 tiles spill")
     warnings = build.serialized_wgmma_warnings()
     say("ptxas", serialized_wgmma_warnings=len(warnings))
     check(not warnings, "ptxas serialised a wgmma:\n" + "\n".join(warnings))
@@ -1637,6 +1682,8 @@ def main() -> int:
             edge_errs = phase_tile_edges(torch, mha)
             mha_err = max(mha_err, edge_errs["flash_mha"])
             mha_bias_err = max(mha_bias_err, edge_errs["flash_mha_bias"])
+        with timed("gated_edges"):
+            wavlm_err = max(wavlm_err, phase_gated_edges(torch, attn))
         with timed("probe_kernels"):
             probe_numbers = phase_probe_kernels(torch, probes, card)
         with timed("probes"):

@@ -1,23 +1,31 @@
-"""Check and time the bf16 flash-attention tiles on a CUDA card, beside an
-earlier checkout's kernel and ``scaled_dot_product_attention``.
+"""Check and time the bf16 wgmma attention tiles on a CUDA card (flash_mha,
+flash_mha_bias and the WavLM gated attention), beside an earlier checkout's
+kernels and, where there is one, ``scaled_dot_product_attention``.
 
     python -m stutter_tpu_torch.cli.flash_tiles_ab [--prev_root DIR] [--runs 20] \\
-        [--skip_timing]
+        [--kernels all|flash|gated] [--skip_timing]
 
-1. Prints what ``ptxas -v`` said of the bf16 kernels at the build
-   (registers, spills, stack) and any "wgmma serialized" warning.
+1. Prints what ``ptxas -v`` said of the bf16 tiles' kernels at the build
+   (registers, spills, stack, per instantiation) and any "wgmma
+   serialized" warning.
 2. Holds ``flash_mha`` and ``flash_mha_bias`` (bf16) against their plain
-   versions over ragged lengths and key counts; a case that disagrees prints
-   a map of its errors by 16-row and 8-column block and the run fails.
-3. Times, with CUDA events and in turns, the kernel, the kernel of the
-   checkout at ``--prev_root`` (the same C entry points, built from that
-   checkout's sources into its own build directory) and the library call,
-   at the Whisper encoder's shape and the two long WavLM buckets: per
-   launch (``ms``, as ``chip_smoke.py`` times every kernel; the host's time
-   to enqueue the launch lies inside the events) and per launch of 8
-   enqueued back to back (``queued_ms``: the device's time alone).
-   ``--prev_root`` is a directory holding an earlier commit of this
-   repository, e.g. ``git archive <commit> | tar -x -C <dir>``.
+   versions over ragged lengths and key counts, and the gated attention
+   (bf16, output and row statistics) over ragged lengths in both grid
+   orders, with a fully padded clip and a clip whose gate is 0; a case that
+   disagrees prints a map of its errors by 16-row and 8-column block and the
+   run fails.
+3. Times, with CUDA events and in turns, each kernel through its wrapper
+   (``ms``) and through its bare C entry point (``bare_ms``), the kernel of
+   the checkout at ``--prev_root`` through the same entry point (built from
+   that checkout's sources into its own build directory) and the library
+   call: flash_mha at the Whisper encoder's shape and flash_mha_bias at the
+   two long WavLM buckets; the gated attention at the 3 s, 20 s and 30 s
+   buckets, also in the grid order it does not take. Per launch (as
+   ``chip_smoke.py`` times every kernel; the host's time to enqueue the
+   launch lies inside the events) and per launch of 8 enqueued back to back
+   (``queued_ms``: the device's time alone). ``--prev_root`` is a directory
+   holding an earlier commit of this repository, e.g. ``git archive
+   <commit> | tar -x -C <dir>``.
 
 The last line is one JSON object with the times; the card's name and power
 limit are in it.
@@ -36,12 +44,16 @@ BF16_MAX_ABS, BF16_COSINE = 2e-2, 1e-5  # chip_smoke.py's bars for these kernels
 QUEUED_LAUNCHES = 8  # launches between two events in the second timing
 TIMED = [("flash_mha", 16, 20, 1500), ("flash_mha_bias", 12, 16, 1504),
          ("flash_mha_bias", 19, 16, 1008)]
+# the gated attention's buckets (B, H, L): 3 s, 20 s and 30 s
+GATED_TIMED = [(128, 16, 160), (19, 16, 1008), (12, 16, 1504)]
+STATS_MAX_ABS = 1e-3  # chip_smoke.py's bar for the row statistics
 
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--prev_root", default=None)
     parser.add_argument("--runs", type=int, default=20)
+    parser.add_argument("--kernels", choices=("all", "flash", "gated"), default="all")
     parser.add_argument("--skip_timing", action="store_true")
     return parser.parse_args(argv)
 
@@ -56,16 +68,42 @@ def load_prev_library(root: Path):
     return module.kernel_library()
 
 
-def prev_call(torch, lib, name, q, k, v, extra):
-    """Launch the earlier checkout's entry point (its signature: no ab_vec)."""
+def c_call(torch, lib, name, q, k, v, extra):
+    """Launch a kernel library's flash_mha or flash_mha_bias (bf16) through
+    its bare C entry point (with ab_vec where its signature has it)."""
     out = torch.empty_like(q)
     B, H, L, _ = q.shape
-    rc = getattr(lib, name)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            None if extra is None else extra.data_ptr(), out.data_ptr(),
-                            B, H, L, q.stride(0), q.stride(1), q.stride(2), 1,
-                            torch.cuda.current_stream().cuda_stream)
+    fn = getattr(lib, name)
+    shape = [B, H, L]
+    if name == "flash_mha_bias" and len(fn.argtypes) == 14:
+        shape.append(16 if L % 4 == 0 and extra.data_ptr() % 16 == 0 else 4)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if extra is None else extra.data_ptr(), out.data_ptr(),
+            *shape, q.stride(0), q.stride(1), q.stride(2), 1,
+            torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"earlier {name} failed: CUDA error {rc}")
+        raise RuntimeError(f"{name} failed: CUDA error {rc}")
+    return out
+
+
+def c_gated_call(torch, lib, q, k, v, bias, gate, mask):
+    """Launch a kernel library's gated attention (bf16, no statistics)
+    through its bare C entry point: without (an earlier checkout's), or
+    with, the bf16 tiles' vector width and grid order."""
+    out = torch.empty_like(q)
+    B, H, L, _ = q.shape
+    fn = lib.wavlm_gated_relpos_attention
+    tiles = []
+    if len(fn.argtypes) == 18:
+        from stutter_tpu_torch.ops import wavlm_attention as attn
+        from stutter_tpu_torch.ops._attention import vector_bytes
+
+        tiles = [vector_bytes(bias, mask), attn.grid_order_for(H, L)]
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), gate.data_ptr(),
+            mask.data_ptr(), out.data_ptr(), None, B, H, L, *tiles, q.stride(0), q.stride(1),
+            q.stride(2), 1, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"wavlm_gated_relpos_attention failed: CUDA error {rc}")
     return out
 
 
@@ -159,6 +197,117 @@ def check_cases(torch, mha, verbose: bool = True) -> tuple[int, int, dict]:
     return cases, failures, worst
 
 
+def gated_inputs(torch, g, B, H, L, lengths, transposed=True):
+    """The gated attention's operands: q, k, v as ``make_qkv`` gives them,
+    bias [H, L, L], gate [B, H, L] in [0, 2) and the key mask of
+    ``lengths``."""
+    q, k, v = make_qkv(torch, g, B, H, L, transposed)
+    bias = torch.randn(H, L, L, device="cuda", generator=g)
+    gate = torch.rand(B, H, L, device="cuda", generator=g) * 2
+    mask = torch.where(torch.arange(L, device="cuda")[None] < lengths[:, None], 0.0, -1e9) \
+        .float().contiguous()
+    return q, k, v, bias, gate, mask
+
+
+def check_gated_cases(torch, attn, verbose: bool = True) -> tuple[int, int, float, float]:
+    """Hold the gated attention's bf16 tiles, in both grid orders, to the
+    plain version, output and row statistics, at ragged lengths around the
+    64- and 128-row edges and at the 20 s bucket: clip 0 has every key,
+    clip 1 half of them, clip 2 none, clip 3 every key and a gate of 0; the
+    bias through its 16-byte copies and, off 16-byte alignment, its
+    element-wise ones; a contiguous input. Returns (cases, cases that
+    disagree, worst max-abs error of the output, of the statistics)."""
+    from stutter_tpu_torch.ops._attention import vector_bytes
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    cases, failures, worst, worst_stats = 0, 0, 0.0, 0.0
+
+    def run(L, args, what, order):
+        nonlocal cases, failures, worst, worst_stats
+        B, H = args[0].shape[:2]
+        stats = torch.empty(2, B, H, L, device="cuda")
+        out = attn.launch_tiles(*args, stats, order)
+        ref = attn.gated_relpos_attention_reference(*args)
+        ref_stats = attn.attention_row_stats_reference(*args[:2], *args[3:])
+        torch.cuda.synchronize()
+        finite = bool(torch.isfinite(out).all())
+        max_abs = float((out.float() - ref.float()).abs().max())
+        cos = cosine_distance(out.float(), ref.float())
+        stats_err = float((stats - ref_stats).abs().max())
+        ok = (finite and out.stride() == args[0].stride() and max_abs <= BF16_MAX_ABS
+              and cos <= BF16_COSINE and stats_err <= STATS_MAX_ABS)
+        cases += 1
+        worst, worst_stats = max(worst, max_abs), max(worst_stats, stats_err)
+        if verbose or not ok:
+            print(f"[check] gated {B}x{H}x{L} {what} order={order} "
+                  f"vec={vector_bytes(args[3], args[5])} finite={finite} "
+                  f"max_abs={max_abs:.3e} cosine={cos:.3e} stats_max_abs={stats_err:.3e} "
+                  f"{'ok' if ok else 'DISAGREES'}", flush=True)
+        if not ok:
+            failures += 1
+            print(error_map(torch, out, ref), flush=True)
+
+    for L in (37, 63, 64, 65, 127, 128, 129, 160, 1008):
+        B, H = 4, (3 if L > 200 else 5)
+        lengths = torch.tensor([L, max(L // 2, 1), 0, L], device="cuda")
+        args = gated_inputs(torch, g, B, H, L, lengths)
+        args[4][3] = 0.0
+        for order in (attn.QUERY_TILE_FASTEST, attn.CLIP_FASTEST):
+            run(L, args, "", order)
+        if L % 4 == 0:  # the bias off 16-byte alignment: element-wise copies
+            bias = args[3]
+            shifted = torch.empty(bias.numel() + 1, device="cuda")[1:].view_as(bias).copy_(bias)
+            run(L, (*args[:3], shifted, *args[4:]), "bias+4B", attn.CLIP_FASTEST)
+    lengths = torch.tensor([129, 100, 0], device="cuda")
+    args = gated_inputs(torch, g, 3, 4, 129, lengths, transposed=False)
+    run(129, args, "contiguous", attn.QUERY_TILE_FASTEST)
+    return cases, failures, worst, worst_stats
+
+
+def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
+    """chip_smoke.py's bound at the bf16 peak (989 TFLOP/s) and 3.35 TB/s."""
+    ops_ms, bytes_ms = flops / 989e12 * 1e3, nbytes / 3.35e12 * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def time_gated(torch, attn, prev, runs: int) -> list[dict]:
+    """The gated attention at its buckets, in turns: through its wrapper
+    and its bare C entry point, in the other grid order, and the earlier
+    checkout's kernel."""
+    from stutter_tpu_torch.ops import _build
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    results = []
+    for B, H, L in GATED_TIMED:
+        # a bucket's clips run from the last bucket's length to its own
+        lengths = torch.randint(L * 2 // 3, L + 1, (B,), device="cuda", generator=g)
+        lengths[0] = L
+        args = gated_inputs(torch, g, B, H, L, lengths)
+        order = attn.grid_order_for(H, L)
+        names = {attn.QUERY_TILE_FASTEST: "query_tile_fastest", attn.CLIP_FASTEST: "clip_fastest"}
+        other = 1 - order
+        fns = {"kernel": lambda: attn.gated_relpos_attention(*args),
+               "bare": lambda: c_gated_call(torch, _build.kernel_library(), *args),
+               names[other]: lambda: attn.launch_tiles(*args, None, other)}
+        if prev is not None:
+            fns["prev"] = lambda: c_gated_call(torch, prev, *args)
+        ms = time_turns(torch, list(fns.values()), runs)
+        queued = time_turns(torch, list(fns.values()), runs, reps=QUEUED_LAUNCHES)
+        n = B * H * L * 64
+        bound, bound_by = bound_ms(4 * n * L, 4 * n * 2 + 4 * (H * L * L + B * H * L + B * L))
+        row = {"kernel": "gated_relpos_attention", "shape": f"{B}x{H}x{L}x64",
+               "order": names[order], "bound_ms": bound, "bound_by": bound_by}
+        for (name, _), t, tq in zip(fns.items(), ms, queued):
+            key = "" if name == "kernel" else f"{name}_"
+            row[f"{key}ms"], row[f"{key}queued_ms"] = t, tq
+        row["queued_tflops"] = 4 * n * L / row["queued_ms"] / 1e9
+        print(f"[time] {row}", flush=True)
+        results.append(row)
+        del args
+        torch.cuda.empty_cache()
+    return results
+
+
 def time_turns(torch, fns, runs, reps=1):
     """Median ms per launch of each function, in turns: CUDA events around
     ``reps`` launches enqueued back to back (one launch leaves the host's
@@ -180,6 +329,23 @@ def time_turns(torch, fns, runs, reps=1):
     return [sorted(t)[len(t) // 2] for t in times]
 
 
+def tile_kernels(build) -> list[dict]:
+    """ptxas's rows for the bf16 tiles' kernels, each named by its policy and
+    its <warpgroups, stages, blocks an SM, grid order>."""
+    import re
+
+    rows = build.resource_report("4sm9021attention_bf16_kernel")
+    for row in rows:
+        m = re.search(r"(\w+?)((?:ELi\d+){4})E", row["kernel"])
+        scope, ints = m.group(1), re.findall(r"[0-9]+", m.group(2))
+        # the policy is the last <length><name> of its mangled scope
+        policy = next(n.group(2) for i in range(len(scope) - 1, -1, -1)
+                      if (n := re.fullmatch(r"([0-9]+)([A-Za-z_]\w*)", scope[i:]))
+                      and int(n.group(1)) == len(n.group(2)))
+        row["tiles"] = f"{policy}<{', '.join(ints)}>"
+    return rows
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
 
@@ -189,6 +355,7 @@ def main(argv=None) -> int:
     from stutter_tpu_torch.extract.pipeline import resolve_device
     from stutter_tpu_torch.ops import _build
     from stutter_tpu_torch.ops import flash_mha as mha
+    from stutter_tpu_torch.ops import wavlm_attention as attn
 
     resolve_device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -197,16 +364,25 @@ def main(argv=None) -> int:
     print(f"[device] {card}", flush=True)
 
     _build.kernel_library()
-    for row in _build.resource_report("4sm9021attention_bf16_kernel"):
-        print(f"[ptxas] {row}", flush=True)
+    for row in tile_kernels(_build):
+        print(f"[ptxas] {row['tiles']} registers={row['registers']} "
+              f"stack={row['stack_bytes']} spill_stores={row['spill_store_bytes']} "
+              f"spill_loads={row['spill_load_bytes']}", flush=True)
     warnings = _build.serialized_wgmma_warnings()
     print(f"[ptxas] serialized_wgmma_warnings={len(warnings)}", flush=True)
     for line in warnings[:8]:
         print(f"    {line}", flush=True)
 
-    cases, failures, _ = check_cases(torch, mha)
+    failures = 0
+    if args.kernels in ("all", "flash"):
+        cases, bad, _ = check_cases(torch, mha)
+        print(f"[check] flash: {bad} of {cases} cases disagree", flush=True)
+        failures += bad
+    if args.kernels in ("all", "gated"):
+        cases, bad, _, _ = check_gated_cases(torch, attn)
+        print(f"[check] gated: {bad} of {cases} cases disagree", flush=True)
+        failures += bad
     if failures:
-        print(f"[check] {failures} of {cases} cases disagree", flush=True)
         return 1
     if args.skip_timing:
         return 0
@@ -214,7 +390,7 @@ def main(argv=None) -> int:
     prev = load_prev_library(Path(args.prev_root)) if args.prev_root else None
     g = torch.Generator(device="cuda").manual_seed(5)
     results = []
-    for name, B, H, L in TIMED:
+    for name, B, H, L in TIMED if args.kernels in ("all", "flash") else []:
         q, k, v = make_qkv(torch, g, B, H, L)
         if name == "flash_mha":
             extra, mask = None, None
@@ -223,22 +399,26 @@ def main(argv=None) -> int:
             extra = torch.randn(B, H, L, L, device="cuda", generator=g)
             mask = extra.bfloat16()  # the library call takes the mask in q's type
             new = lambda: mha.flash_mha_bias(q, k, v, extra)  # noqa: E731
-        fns = [new, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0)]
+        fns = [new, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0),
+               lambda: c_call(torch, _build.kernel_library(), name, q, k, v, extra)]
         if prev is not None:
-            fns.append(lambda: prev_call(torch, prev, name, q, k, v, extra))
+            fns.append(lambda: c_call(torch, prev, name, q, k, v, extra))
         ms = time_turns(torch, fns, args.runs)
         queued = time_turns(torch, fns, args.runs, reps=QUEUED_LAUNCHES)
         row = {"kernel": name, "shape": f"{B}x{H}x{L}x64", "ms": ms[0], "library_ms": ms[1],
                "queued_ms": queued[0], "library_queued_ms": queued[1],
+               "bare_ms": ms[2], "bare_queued_ms": queued[2],
                "queued_tflops": 4 * B * H * L * L * 64 / queued[0] / 1e9}
         if prev is not None:
-            row["prev_ms"], row["prev_queued_ms"] = ms[2], queued[2]
+            row["prev_ms"], row["prev_queued_ms"] = ms[3], queued[3]
         if extra is not None:
             row["queued_ab_tb_per_s"] = 4 * extra.numel() / queued[0] / 1e9
         print(f"[time] {row}", flush=True)
         results.append(row)
         del q, k, v, extra, mask
         torch.cuda.empty_cache()
+    if args.kernels in ("all", "gated"):
+        results += time_gated(torch, attn, prev, args.runs)
     print(json.dumps({"card": card, "times": results}))
     return 0
 

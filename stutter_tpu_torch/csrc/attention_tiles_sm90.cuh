@@ -1,10 +1,13 @@
 // bf16 flash-attention forward tiles designed for Hopper (sm_90a): 64-row
-// wgmma tiles fed by an asynchronous shared-memory ring. Used by flash_mha.cu
-// for the bf16 path of flash_mha and flash_mha_bias, which replace
-// stutter_tpu/models/attention.py:flash_mha and :flash_mha_bias (the Pallas
-// TPU flash attention, without and with an additive bias). The f32 paths and
-// the WavLM kernels keep the tiles of attention_tiles.cuh. For one (clip b,
-// head h, query row i), with q pre-scaled and head_dim 64:
+// wgmma tiles fed by an asynchronous shared-memory ring. Every bf16 attention
+// forward of the port runs on them: flash_mha.cu's flash_mha and
+// flash_mha_bias (policies KeyPadding and FullBias; they replace
+// stutter_tpu/models/attention.py:flash_mha and :flash_mha_bias) and
+// wavlm_attention.cu's gated relative-position-bias attention (policy
+// GatedBiasRing; it replaces stutter_tpu/ops/wavlm_attention_pallas.py's two
+// forward kernels). The f32 paths, the WavLM backward and the probes keep the
+// tiles of attention_tiles.cuh. For one (clip b, head h, query row i), with q
+// pre-scaled and head_dim 64:
 //
 //     p[j]   = score(i, j, q[i] . k[j])
 //     out[i] = sum_j softmax_j(p)[j] * v[j]
@@ -62,30 +65,43 @@
 //   needs); the output accumulator is rescaled only when a row's max moved
 //   in the warp, which after the first tiles is rare; keys are masked only
 //   in the tiles that reach a policy's edge or L.
-// - With a streamed bias (flash_mha_bias: ab [B, H, L, L] f32, 1.74 GB at
-//   12 x 16 x 1504 x 64) the bound is reading ab once. Its 64 x 64 f32 tile
-//   per warpgroup rides the same ring, copied with an evict-first L2 policy
-//   (it is read once and should not push K and V out), so 36-72 KB a block
-//   are in flight, above the ~15 KB an SM needs at 3.35 TB/s; the tile is
-//   added to the scores from shared memory (rows padded to 72 floats: the
-//   8-byte reads of a quarter-warp then fall in distinct banks). The kernel
-//   then runs at the rate of its ab copies alone: the products and the
-//   softmax hide under the stream entirely (PERF.md has the numbers).
-// - The grid is one-dimensional with the query tile fastest, so that the
-//   blocks of one (clip, head) run together and share K and V in L2, and no
-//   dimension is limited to 65,535.
+// - With a streamed bias the policy's [L, L] f32 plane rides the same ring:
+//   a 64 x 64 tile per warpgroup, added to the scores from shared memory
+//   (rows padded to 72 floats: the 8-byte reads of a quarter-warp then fall
+//   in distinct banks). Its copies take the policy's L2 hint: evict-first
+//   for flash_mha_bias's ab ([B, H, L, L], 1.74 GB at 12 x 16 x 1504 x 64,
+//   each element read once, so it should not push K and V out), which then
+//   runs at the rate of its ab copies alone; the gated kernel's plane is per
+//   head and read by every clip, so it keeps the normal policy (evict-last
+//   measured within 1 % of it) and the grid order (below) makes the clips'
+//   reads of a slab meet in L2. A policy may
+//   also stream a [L] row per clip (the gated kernel's key mask): its 64
+//   floats a stage lie in the padding columns of the bias tile's first 8
+//   rows, so they cost no shared memory and are read as broadcasts.
+// - The grid is one-dimensional, so no dimension is limited to 65,535, in
+//   one of two orders (the launcher's kOrder): the query tile fastest, so that
+//   the blocks of one (clip, head) run together and share K and V in L2
+//   (flash_mha, flash_mha_bias, and the gated kernel while its bias plane
+//   fits in L2), or the clip fastest under (head, query tile), so that the
+//   B blocks that read one slab of a larger shared bias plane run together
+//   (the gated kernel's long buckets; PERF.md has both orders' times).
 //
 // Statistics (running max and sum per row) and both accumulators are f32;
 // keys past L score -inf, a policy's padded keys -1e9 (the head of
-// attention_tiles.cuh states the rules; these tiles keep them). The ragged
-// edge is masked here: nothing is padded by the caller. q, k, v and out may
-// be any [B, H, L, 64] view with a contiguous head dimension and 16-byte
-// aligned rows.
+// attention_tiles.cuh states the rules; these tiles keep them). Given a
+// [2, B, H, L] f32 buffer, the epilogue of a policy with kRowStats also
+// writes each query row's score max and the log of its sum of
+// exp(score - max), as attention_tiles.cuh states them, for the WavLM
+// backward. The ragged edge is masked here: nothing is padded by the caller.
+// q, k, v and out may be any [B, H, L, 64] view with a contiguous head
+// dimension and 16-byte aligned rows.
 //
 // Policies. A policy is a struct with
 //   struct Params                      passed by value to the kernel;
 //   static constexpr bool kStreamsBias whether a [L, L] f32 plane per
 //                                      (b, h) rides the ring;
+//   static constexpr bool kRowStats    whether the kernel writes the row
+//                                      statistics when given a buffer;
 //   Policy(params, b, h, rows, H, L)   for the two query rows a thread owns
 //                                      (rows[1] = rows[0] + 8);
 //   int edge_from() const              keys below it (and below L) need no
@@ -93,8 +109,14 @@
 //   float edge(a, kj, s) const         the score of row a and key kj < L in
 //                                      a tile that reaches edge_from();
 // and, if kStreamsBias,
+//   static constexpr L2Hint kBiasL2    the L2 policy of the plane's copies;
+//   static constexpr bool kStreamsKeyRow
+//                                      whether a [L] f32 row per b rides too;
 //   const float* bias_plane() const    row i of the plane at + i * L;
-//   float biased(a, kj, s, bias) const applied to every score.
+//   const float* key_row() const       (if kStreamsKeyRow) that row;
+//   float biased(a, kj, s, bias, key) const
+//                                      applied to every score; key is the
+//                                      key row at kj, or 0 without one.
 
 #pragma once
 
@@ -110,6 +132,15 @@ constexpr int kTileK = 64;                      // keys a ring stage (wgmma N of
 constexpr int kKvTileBytes = kTileK * kD * 2;   // one K or V tile
 constexpr int kBiasPitch = kTileK + 8;          // floats per staged bias row
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// L2 policy of a streamed bias's copies
+enum class L2Hint { kEvictFirst, kEvictNormal };
+
+// Grid orders, a template parameter of the kernel (a run-time one cost
+// flash_mha 1-2 %): blockIdx.x = (b * H + h) * n_q_tiles + tile, or
+// (h * n_q_tiles + tile) * B + b.
+enum GridOrder : int { kQueryTileFastest = 0, kClipFastest = 1 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -122,7 +153,7 @@ __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, bool 
                : "memory");
 }
 
-// The same with an L2 cache policy (evict-first for data read once).
+// The same with an L2 cache policy.
 __device__ __forceinline__ void cp_async_16_hint(uint32_t dst, const void* src, bool ok,
                                                  uint64_t policy) {
   asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2, %3;\n" ::"r"(dst),
@@ -137,9 +168,19 @@ __device__ __forceinline__ void cp_async_4_hint(uint32_t dst, const void* src, b
                : "memory");
 }
 
-__device__ __forceinline__ uint64_t evict_first_policy() {
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+template <L2Hint kHint>
+__device__ __forceinline__ uint64_t l2_policy() {
   uint64_t policy;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  if constexpr (kHint == L2Hint::kEvictFirst)
+    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  else
+    asm volatile("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;\n" : "=l"(policy));
   return policy;
 }
 
@@ -234,20 +275,21 @@ __host__ __device__ constexpr int smem_bytes() {
   return kStages * stage_bytes<Score, kWgs>() + 1024;
 }
 
-// One block per (clip, head, tile of 64 * kWgs query rows); blockIdx.x =
-// (b * H + h) * n_q_tiles + tile. In a warpgroup, warp w owns rows
+// One block per (clip, head, tile of 64 * kWgs query rows), in kOrder
+// (GridOrder above). In a warpgroup, warp w owns rows
 // 16 w .. 16 w + 15 of its 64; lane 4 * grp + tig holds rows grp and grp + 8
 // of them at columns 2 * tig, 2 * tig + 1 of each 8-wide n-tile (element
 // 4 * nt + 2 * a + j of an accumulator is row grp + 8 a, column
 // 8 nt + 2 tig + j), so a row's four lanes reduce with xor 1, 2.
-// bias_vec: 16 when the policy's bias rows can be copied as 16-byte vectors
-// (L % 4 == 0 and a 16-byte aligned plane), else 4.
-template <class Score, int kWgs, int kStages, int kMinBlocks>
+// bias_vec: 16 when the policy's bias rows (and key row) can be copied as
+// 16-byte vectors (L % 4 == 0 and 16-byte aligned bases), else 4.
+// row_stats: [2, B, H, L] f32 to fill, or null.
+template <class Score, int kWgs, int kStages, int kMinBlocks, int kOrder>
 __global__ void __launch_bounds__(128 * kWgs, kMinBlocks) attention_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const typename Score::Params params,
-    __nv_bfloat16* __restrict__ out, int H, int L, int n_q_tiles, int bias_vec,
-    long long stride_b, long long stride_h, long long stride_l) {
+    __nv_bfloat16* __restrict__ out, float* __restrict__ row_stats, int B, int H, int L,
+    int n_q_tiles, int bias_vec, long long stride_b, long long stride_h, long long stride_l) {
   static_assert(kStages >= 3, "a tile must be in flight while two are in use");
   constexpr int kThreads = 128 * kWgs;
   constexpr int kRows = 64 * kWgs;
@@ -262,10 +304,19 @@ __global__ void __launch_bounds__(128 * kWgs, kMinBlocks) attention_bf16_kernel(
   const int warp = (tid >> 5) & 3;
   const int grp = (tid & 31) >> 2;
   const int tig = tid & 3;
-  const int bh = blockIdx.x / n_q_tiles;
-  const int q0 = (blockIdx.x - bh * n_q_tiles) * kRows;
-  const int b = bh / H;
-  const int h = bh - b * H;
+  int b, h, q_tile;
+  if constexpr (kOrder == kClipFastest) {
+    const int ht = blockIdx.x / B;
+    b = blockIdx.x - ht * B;
+    h = ht / n_q_tiles;
+    q_tile = ht - h * n_q_tiles;
+  } else {
+    const int bh = blockIdx.x / n_q_tiles;
+    q_tile = blockIdx.x - bh * n_q_tiles;
+    b = bh / H;
+    h = bh - b * H;
+  }
+  const int q0 = q_tile * kRows;
   const long long base = b * stride_b + h * stride_h;
   const int n_tiles = (L + kTileK - 1) / kTileK;
 
@@ -288,13 +339,22 @@ __global__ void __launch_bounds__(128 * kWgs, kMinBlocks) attention_bf16_kernel(
   constexpr int kBiasRowStep = kThreads / 16;
   constexpr int kBiasCopies = kRows / kBiasRowStep;
   const int bias_r = tid >> 4, bias_c = tid & 15;
+  // and, of a policy's key row, chunk tid (tid < 16) into the padding
+  // columns of bias row tid / 2: key c of a tile lies at row c / 8, column
+  // kTileK + c % 8
   uint64_t policy = 0;
   const float* plane = nullptr;
   const float* bias_next = nullptr;
+  const float* key_row = nullptr;
+  const float* key_next = nullptr;
   if constexpr (Score::kStreamsBias) {
-    policy = evict_first_policy();
+    policy = l2_policy<Score::kBiasL2>();
     plane = score.bias_plane();
     bias_next = plane + (long long)(q0 + bias_r) * L + 4 * bias_c;
+    if constexpr (Score::kStreamsKeyRow) {
+      key_row = score.key_row();
+      key_next = key_row + 4 * tid;
+    }
   }
   int load_t = 0, load_stage = 0;  // the next tile to copy, and its stage
 
@@ -326,12 +386,27 @@ __global__ void __launch_bounds__(128 * kWgs, kMinBlocks) attention_bf16_kernel(
                              policy);
           }
           bias_next += kTileK;
+          if constexpr (Score::kStreamsKeyRow) {
+            if (tid < kTileK / 4) {
+              const bool ok = k0 + 4 * tid < L;
+              cp_async_16(bias_stage + ((tid >> 1) * kBiasPitch + kTileK + 4 * (tid & 1)) * 4,
+                          ok ? key_next : key_row, ok);
+            }
+            key_next += kTileK;
+          }
         } else {
           for (int e = tid; e < kRows * kTileK; e += kThreads) {
             const int r = e / kTileK, c = e % kTileK;
             const bool ok = q0 + r < L && k0 + c < L;
             const float* src = plane + (ok ? (long long)(q0 + r) * L + k0 + c : 0);
             cp_async_4_hint(bias_stage + (r * kBiasPitch + c) * 4, src, ok, policy);
+          }
+          if constexpr (Score::kStreamsKeyRow) {
+            if (tid < kTileK) {
+              const bool ok = k0 + tid < L;
+              cp_async_4(bias_stage + ((tid >> 3) * kBiasPitch + kTileK + (tid & 7)) * 4,
+                         key_row + (ok ? k0 + tid : 0), ok);
+            }
           }
         }
       }
@@ -393,19 +468,24 @@ __global__ void __launch_bounds__(128 * kWgs, kMinBlocks) attention_bf16_kernel(
   auto softmax_tile = [&](int t, int stage, float (&rescale)[2]) {
     const int k0 = t * kTileK;
     if constexpr (Score::kStreamsBias) {
-      const float* tile =
-          reinterpret_cast<const float*>(ring_ptr + stage * kStageBytes + 2 * kKvTileBytes) +
-          r_lo * kBiasPitch + 2 * tig;
+      const float* bias_tile =
+          reinterpret_cast<const float*>(ring_ptr + stage * kStageBytes + 2 * kKvTileBytes);
+      const float* tile = bias_tile + r_lo * kBiasPitch + 2 * tig;
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
+      for (int nt = 0; nt < 8; ++nt) {
+        float2 key = make_float2(0.f, 0.f);
+        if constexpr (Score::kStreamsKeyRow)
+          key = *reinterpret_cast<const float2*>(bias_tile + nt * kBiasPitch + kTileK + 2 * tig);
 #pragma unroll
         for (int a = 0; a < 2; ++a) {
           const float2 bias =
               *reinterpret_cast<const float2*>(tile + 8 * a * kBiasPitch + 8 * nt);
           const int kj = k0 + 8 * nt + 2 * tig;
-          s[4 * nt + 2 * a] = score.biased(a, kj, s[4 * nt + 2 * a], bias.x);
-          s[4 * nt + 2 * a + 1] = score.biased(a, kj + 1, s[4 * nt + 2 * a + 1], bias.y);
+          s[4 * nt + 2 * a] = score.biased(a, kj, s[4 * nt + 2 * a], bias.x, key.x);
+          s[4 * nt + 2 * a + 1] =
+              score.biased(a, kj + 1, s[4 * nt + 2 * a + 1], bias.y, key.y);
         }
+      }
     }
     if (k0 + kTileK > edge_from) {
 #pragma unroll
@@ -513,31 +593,43 @@ __global__ void __launch_bounds__(128 * kWgs, kMinBlocks) attention_bf16_kernel(
     for (int nt = 0; nt < 8; ++nt)
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * nt) =
           __floats2bfloat162_rn(o[4 * nt + 2 * a] * inv, o[4 * nt + 2 * a + 1] * inv);
+    if constexpr (Score::kRowStats) {
+      if (row_stats != nullptr && tig == 0) {
+        const long long r = ((long long)b * H + h) * L + qi;
+        row_stats[r] = row_max[a];
+        // The probabilities were taken against row_max2, row_max * log2 e
+        // rounded, so the sum carries a factor 2^(row_max * log2 e -
+        // row_max2), whose exponent fmaf gives exactly (up to 64 in a -1e9
+        // row); it is taken out of the log here.
+        row_stats[(long long)B * H * L + r] =
+            (log2f(row_sum[a]) - fmaf(row_max[a], kLog2e, -row_max2[a])) * kLn2;
+      }
+    }
   }
 }
 
 // Launches the bf16 tiles on `stream`: q, k, v and out share the strides
-// (in elements; unit head-dim stride, 16-byte aligned rows). Returns the
-// first CUDA error (0 on success): a refused attribute or launch is
-// reported, never worked around.
-template <class Score, int kWgs, int kStages, int kMinBlocks>
+// (in elements; unit head-dim stride, 16-byte aligned rows); row_stats is a
+// [2, B, H, L] f32 buffer or null. Returns the first CUDA error (0 on
+// success): a refused attribute or launch is reported, never worked around.
+template <class Score, int kWgs, int kStages, int kMinBlocks, int kOrder>
 int launch_attention_bf16(const void* q, const void* k, const void* v,
-                          const typename Score::Params& params, void* out, int B, int H, int L,
-                          int bias_vec, long long stride_b, long long stride_h,
-                          long long stride_l, cudaStream_t stream) {
+                          const typename Score::Params& params, void* out, float* row_stats,
+                          int B, int H, int L, int bias_vec, long long stride_b,
+                          long long stride_h, long long stride_l, cudaStream_t stream) {
   if (B <= 0 || H <= 0 || L <= 0) return (int)cudaErrorInvalidValue;
   const long long n_q_tiles = (L + 64 * kWgs - 1) / (64 * kWgs);
   const long long blocks = n_q_tiles * B * H;
   if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-  auto kernel = attention_bf16_kernel<Score, kWgs, kStages, kMinBlocks>;
+  auto kernel = attention_bf16_kernel<Score, kWgs, kStages, kMinBlocks, kOrder>;
   constexpr int kSmem = smem_bytes<Score, kWgs, kStages>();
   const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (attr != cudaSuccess) return (int)attr;
   kernel<<<(unsigned)blocks, 128 * kWgs, kSmem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), params, static_cast<__nv_bfloat16*>(out), H, L,
-      (int)n_q_tiles, bias_vec, stride_b, stride_h, stride_l);
+      static_cast<const __nv_bfloat16*>(v), params, static_cast<__nv_bfloat16*>(out), row_stats,
+      B, H, L, (int)n_q_tiles, bias_vec, stride_b, stride_h, stride_l);
   return (int)cudaGetLastError();
 }
 

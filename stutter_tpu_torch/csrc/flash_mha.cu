@@ -64,6 +64,7 @@ struct KeyPadding {
     const int* kv_valid;  // [B] true key counts, or null: every key is valid
   };
   static constexpr bool kStreamsBias = false;
+  static constexpr bool kRowStats = false;
   int valid;
 
   __device__ KeyPadding(const Params& p, int b, int h, const int (&rows)[2], int H, int L)
@@ -83,6 +84,9 @@ struct FullBias {
     const float* ab;  // [B, H, L, L]
   };
   static constexpr bool kStreamsBias = true;
+  static constexpr bool kRowStats = false;
+  static constexpr sm90::L2Hint kBiasL2 = sm90::L2Hint::kEvictFirst;  // each element read once
+  static constexpr bool kStreamsKeyRow = false;
   const float* plane;  // ab[b, h]
   int L;
 
@@ -94,7 +98,7 @@ struct FullBias {
     return s + plane[(long long)(rows_[a] < L ? rows_[a] : 0) * L + kj];
   }
   __device__ __forceinline__ const float* bias_plane() const { return plane; }
-  __device__ __forceinline__ float biased(int a, int kj, float s, float bias) const {
+  __device__ __forceinline__ float biased(int a, int kj, float s, float bias, float) const {
     return s + bias;
   }
   __device__ __forceinline__ int edge_from() const { return L; }
@@ -103,21 +107,6 @@ struct FullBias {
  private:
   int rows_[2];
 };
-
-// f32: one block per (clip, 32-row query tile, head) on the scalar tiles.
-template <class Score>
-int launch_f32(const void* q, const void* k, const void* v,
-               const typename Score::Params& params, void* out, int B, int H, int L,
-               long long stride_b, long long stride_h, long long stride_l,
-               cudaStream_t stream) {
-  const long long q_tiles = (L + kBlockQ - 1) / kBlockQ;
-  if (B <= 0 || H <= 0 || L <= 0 || H > 65535 || q_tiles > 65535)
-    return (int)cudaErrorInvalidValue;
-  attention_f32_kernel<Score><<<dim3(B, (unsigned)q_tiles, H), kF32Threads, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      params, static_cast<float*>(out), nullptr, B, H, L, stride_b, stride_h, stride_l);
-  return (int)cudaGetLastError();
-}
 
 // The bf16 tiles' shapes, settled on the card (PERF.md has the numbers). Without a
 // bias: two warpgroups a block, a ring of four 16 KB stages, two blocks an SM
@@ -142,11 +131,12 @@ extern "C" int flash_mha(const void* q, const void* k, const void* v, const void
   const KeyPadding::Params params{static_cast<const int*>(kv_valid)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_f32<KeyPadding>(q, k, v, params, out, B, H, L, stride_b, stride_h, stride_l,
-                                  s);
+    return launch_attention_f32<KeyPadding>(q, k, v, params, out, B, H, L, stride_b, stride_h,
+                                            stride_l, s);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  return sm90::launch_attention_bf16<KeyPadding, kWarpgroups, kStages, kBlocksPerSmPlain>(
-      q, k, v, params, out, B, H, L, 0, stride_b, stride_h, stride_l, s);
+  return sm90::launch_attention_bf16<KeyPadding, kWarpgroups, kStages, kBlocksPerSmPlain,
+                                     sm90::kQueryTileFastest>(
+      q, k, v, params, out, nullptr, B, H, L, 0, stride_b, stride_h, stride_l, s);
 }
 
 // flash_mha's layout and dtypes, with ab a contiguous [B, H, L, L] f32
@@ -160,10 +150,12 @@ extern "C" int flash_mha_bias(const void* q, const void* k, const void* v, const
   const FullBias::Params params{static_cast<const float*>(ab)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_f32<FullBias>(q, k, v, params, out, B, H, L, stride_b, stride_h, stride_l, s);
+    return launch_attention_f32<FullBias>(q, k, v, params, out, B, H, L, stride_b, stride_h,
+                                          stride_l, s);
   if (dtype != 1 || (ab_vec != 16 && ab_vec != 4)) return (int)cudaErrorInvalidValue;
   if (ab_vec == 16 && (L % 4 != 0 || reinterpret_cast<uintptr_t>(ab) % 16 != 0))
     return (int)cudaErrorMisalignedAddress;
-  return sm90::launch_attention_bf16<FullBias, kWarpgroups, kStages, kBlocksPerSmBias>(
-      q, k, v, params, out, B, H, L, ab_vec, stride_b, stride_h, stride_l, s);
+  return sm90::launch_attention_bf16<FullBias, kWarpgroups, kStages, kBlocksPerSmBias,
+                                     sm90::kQueryTileFastest>(
+      q, k, v, params, out, nullptr, B, H, L, ab_vec, stride_b, stride_h, stride_l, s);
 }

@@ -11,6 +11,10 @@ import torch
 
 HEAD_DIM = 64
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the tiles a call runs on (``device_path`` of either wrapper): bf16 on the
+# wgmma tiles of ``csrc/attention_tiles_sm90.cuh``, f32 on the scalar ones of
+# ``csrc/attention_tiles.cuh``
+BF16_TILES, F32_TILES = "bf16_wgmma_ring", "f32_scalar"
 
 
 def check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -36,6 +40,24 @@ def check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             or any(t.data_ptr() % 16 for t in (q, k, v))):
         raise ValueError("the bf16 kernel loads 16-byte rows: strides must be "
                          f"multiples of 8 and data 16-byte aligned, got {q.stride()}")
+
+
+def device_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """Which tiles these inputs launch: bf16 the wgmma tiles, f32 the scalar
+    ones. Raises what ``check_qkv`` raises for inputs that neither takes
+    (another dtype or head_dim, strides that differ, a head dimension that
+    is not contiguous and, for bf16, rows that are not 16-byte aligned)."""
+    check_qkv(q, k, v)
+    return BF16_TILES if q.dtype == torch.bfloat16 else F32_TILES
+
+
+def vector_bytes(*planes: torch.Tensor) -> int:
+    """How the bf16 tiles copy rows of f32 planes (a bias, a key mask) into
+    shared memory: as 16-byte vectors when every row starts 16-byte aligned
+    (rows of a multiple of 4 floats and aligned bases), else as 4-byte
+    elements."""
+    aligned = all(t.shape[-1] % 4 == 0 and t.data_ptr() % 16 == 0 for t in planes)
+    return 16 if aligned else 4
 
 
 def empty_like_q(q: torch.Tensor) -> torch.Tensor:

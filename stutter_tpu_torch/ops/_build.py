@@ -33,7 +33,7 @@ _ll = ctypes.c_longlong
 # C signatures: every pointer and the stream are c_void_p.
 SIGNATURES = {
     "wavlm_gated_relpos_attention": (
-        [_p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _ll, _ll, _ll, _i, _p], _i),
+        [_p] * 8 + [_i] * 5 + [_ll, _ll, _ll, _i, _p], _i),
     "wavlm_gated_relpos_attention_bwd": (
         [_p] * 14 + [_i, _i, _i, _ll, _ll, _ll, _i, _p], _i),
     "flash_mha": ([_p, _p, _p, _p, _p, _i, _i, _i, _ll, _ll, _ll, _i, _p], _i),

@@ -29,7 +29,14 @@ from __future__ import annotations
 
 import torch
 
-from stutter_tpu_torch.ops._attention import DTYPE_CODES, check_qkv, empty_like_q
+from stutter_tpu_torch.ops._attention import (
+    BF16_TILES,  # noqa: F401  (what device_path returns)
+    DTYPE_CODES,
+    F32_TILES,  # noqa: F401
+    device_path,
+    empty_like_q,
+    vector_bytes,
+)
 
 
 def _key_padding_bias(kv_valid: torch.Tensor, Lk: int) -> torch.Tensor:
@@ -48,24 +55,11 @@ def flash_mha_reference(q, k, v, kv_valid=None):
     return torch.matmul(torch.softmax(s, dim=-1), v.float()).to(q.dtype)
 
 
-BF16_TILES, F32_TILES = "bf16_wgmma_ring", "f32_scalar"
-
-
-def device_path(q, k, v) -> str:
-    """Which tiles of ``csrc/flash_mha.cu`` these inputs launch: bf16 the
-    wgmma tiles, f32 the scalar ones. Raises what ``check_qkv`` raises for
-    inputs that neither takes (another dtype or head_dim, strides that
-    differ, a head dimension that is not contiguous and, for bf16, rows
-    that are not 16-byte aligned)."""
-    check_qkv(q, k, v)
-    return BF16_TILES if q.dtype == torch.bfloat16 else F32_TILES
-
-
 def ab_vector_bytes(ab) -> int:
     """How the bf16 tiles copy ab's rows into shared memory: as 16-byte
     vectors when every row starts 16-byte aligned (L % 4 == 0 and an aligned
     base: the hatch's L = 1008 and 1504), else as 4-byte elements."""
-    return 16 if ab.shape[-1] % 4 == 0 and ab.data_ptr() % 16 == 0 else 4
+    return vector_bytes(ab)
 
 
 def _check(q, k, v, kv_valid) -> None:

@@ -16,9 +16,16 @@ and, given d(out) = do, with D = sum_d do * out::
 
 ``gated_relpos_attention`` launches the hand-written CUDA forward kernel
 (``csrc/wavlm_attention.cu``) for CUDA tensors and counts each launch in
-``gated_relpos_attention.launches``; ``gated_relpos_attention_backward``
-launches the backward kernels (``csrc/wavlm_attention_bwd.cu``) and counts
-each backward in ``gated_relpos_attention_backward.launches``. For CPU
+``gated_relpos_attention.launches``. ``device_path`` says which tiles a call
+takes: bf16 the Hopper tiles of ``csrc/attention_tiles_sm90.cuh`` (``wgmma``
+on 64-row query tiles; K, V, the bias plane and the key mask staged through
+an asynchronous shared-memory ring, the rows of the last two as 16-byte
+vectors where L and their addresses allow it, ``_attention.vector_bytes``;
+the grid order by the bias plane's size, ``grid_order_for``), f32 the
+scalar-FMA tiles of ``csrc/attention_tiles.cuh``.
+``gated_relpos_attention_backward`` launches the backward kernels
+(``csrc/wavlm_attention_bwd.cu``) and counts each backward in
+``gated_relpos_attention_backward.launches``. For CPU
 tensors both run their plain PyTorch versions (``*_reference``), which the
 tests and the on-card comparison also use; any other device raises.
 
@@ -32,7 +39,27 @@ from __future__ import annotations
 
 import torch
 
-from stutter_tpu_torch.ops._attention import DTYPE_CODES, check_qkv, empty_like_q
+from stutter_tpu_torch.ops._attention import (
+    BF16_TILES,  # noqa: F401  (what device_path returns)
+    DTYPE_CODES,
+    F32_TILES,  # noqa: F401
+    check_qkv,
+    device_path,
+    empty_like_q,
+    vector_bytes,
+)
+
+# The bf16 tiles' grid orders (csrc/attention_tiles_sm90.cuh, GridOrder).
+QUERY_TILE_FASTEST, CLIP_FASTEST = 0, 1
+# While the whole [H, L, L] bias plane stays in the 50 MB L2, the query tile
+# goes fastest (the blocks in flight then read every head of a few clips,
+# whole rows of the [B, L, H, 64] projections); above this size the clip
+# goes fastest, so that the B blocks that read one slab of the plane run
+# together and the slab comes from device memory once. PERF.md §6 has the
+# sweep behind the size (planes of 1.6-10 MB, the 3-8 s buckets: query tile
+# fastest 1-3 % faster; 24 MB at 12 s: level; 65 and 145 MB at 20 and 30 s:
+# clip fastest 25 % faster).
+CLIP_FASTEST_ABOVE_BYTES = 16 << 20
 
 
 def _compute_dtype(q) -> torch.dtype:
@@ -86,7 +113,7 @@ def gated_relpos_attention_backward_reference(q, k, v, position_bias, gate,
 
 
 def _check(q, k, v, position_bias, gate, key_mask_bias) -> None:
-    check_qkv(q, k, v)
+    device_path(q, k, v)
     B, H, L, _ = q.shape
     expect = {"position_bias": (position_bias, (H, L, L)),
               "gate": (gate, (B, H, L)), "key_mask_bias": (key_mask_bias, (B, L))}
@@ -113,6 +140,36 @@ def _device_kind(q) -> str:
     return q.device.type
 
 
+def grid_order_for(H: int, L: int) -> int:
+    """The bf16 tiles' grid order for H heads of length L."""
+    return CLIP_FASTEST if 4 * H * L * L > CLIP_FASTEST_ABOVE_BYTES else QUERY_TILE_FASTEST
+
+
+def launch_tiles(q, k, v, position_bias, gate, key_mask_bias, row_stats, grid_order: int):
+    """Launch the CUDA kernel on checked CUDA inputs with the given bf16
+    grid order (read by the bf16 path only), uncounted.
+    ``gated_relpos_attention`` calls it with ``grid_order_for``'s order;
+    ``cli/flash_tiles_ab.py`` times the other one through it."""
+    if q.device.type != "cuda":
+        raise ValueError(f"launch_tiles launches a CUDA kernel; got a tensor on {q.device}")
+    from stutter_tpu_torch.ops._build import kernel_library
+
+    lib = kernel_library()
+    out = empty_like_q(q)
+    B, H, L, _ = q.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.wavlm_gated_relpos_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), position_bias.data_ptr(),
+            gate.data_ptr(), key_mask_bias.data_ptr(), out.data_ptr(),
+            None if row_stats is None else row_stats.data_ptr(),
+            B, H, L, vector_bytes(position_bias, key_mask_bias), grid_order,
+            q.stride(0), q.stride(1), q.stride(2), DTYPE_CODES[q.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"wavlm_gated_relpos_attention launch failed: CUDA error {rc}")
+    return out
+
+
 def gated_relpos_attention(q, k, v, position_bias, gate, key_mask_bias, row_stats=None):
     """q, k, v [B, H, L, d] (q pre-scaled; k and v with q's strides, the head
     dimension contiguous); position_bias [H, L, L] f32; gate [B, H, L] f32;
@@ -129,21 +186,8 @@ def gated_relpos_attention(q, k, v, position_bias, gate, key_mask_bias, row_stat
     _check(q, k, v, position_bias, gate, key_mask_bias)
     if row_stats is not None:
         _check_stats(q, row_stats)
-    from stutter_tpu_torch.ops._build import kernel_library
-
-    lib = kernel_library()
-    out = empty_like_q(q)
-    B, H, L, _ = q.shape
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.wavlm_gated_relpos_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), position_bias.data_ptr(),
-            gate.data_ptr(), key_mask_bias.data_ptr(), out.data_ptr(),
-            None if row_stats is None else row_stats.data_ptr(),
-            B, H, L, q.stride(0), q.stride(1), q.stride(2),
-            DTYPE_CODES[q.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"wavlm_gated_relpos_attention launch failed: CUDA error {rc}")
+    out = launch_tiles(q, k, v, position_bias, gate, key_mask_bias, row_stats,
+                       grid_order_for(*q.shape[1:3]))
     gated_relpos_attention.launches += 1
     return out
 
