@@ -20,14 +20,16 @@ Phases, one line each on stdout ([time] lines give each phase's seconds):
    statistics) against the plain backward, bf16 and f32, at the fine-tune
    CLI's 3 s and 10 s batches and a ragged L = 1008, with a fully padded
    clip: per gradient the max-abs error over the plain result's max and the
-   cosine distance, median times;
+   cosine distance, two calls bit-equal, median times per launch and, in
+   bf16, with 8 launches queued; beside them, as a yardstick for dq, dk and
+   dv alone, the maskless bf16 backward of scaled_dot_product_attention;
 4. logmel: the Whisper log-mel kernel against its plain version at 16 x 30 s
    (80 and 128 mels; silent, quiet and zero-padded clips among them);
 5. mha: the Whisper encoder's flash-attention kernel against its plain
    version at 16 x 20 x 1500 x 64 in bf16 and f32, with key padding and at a
    ragged length; scaled_dot_product_attention timed beside it; and what
-   ptxas said of the bf16 wgmma kernels, every instantiation (registers,
-   spills, serialised wgmma);
+   ptxas said of the bf16 wgmma kernels, every instantiation of the
+   forward tiles and of the backward (registers, spills, serialised wgmma);
 5a. mha_bias: the materialised-bias flash kernel (WavLM's escape hatch)
    against its plain version at 12 x 16 x 1504 x 64 and 19 x 16 x 1008 x 64
    in bf16 with keys masked, and f32 at a ragged length;
@@ -41,6 +43,11 @@ Phases, one line each on stdout ([time] lines give each phase's seconds):
    64, 65, 127, 128, 129, 160 and 1008 with a full, a half, a fully padded
    and a zero-gate clip, the bias through its 16-byte and its element-wise
    copies, a contiguous input;
+5a4. bwd_edges: the bf16 backward's wgmma kernels against the plain
+   backward, checked and not timed: L of 37, 63, 64, 65, 127, 128, 129, 160,
+   512 and 1008 with a full, a half, a fully padded and a zero-gate clip,
+   both grid orders, one and two clip groups in the dbias kernel, the f32
+   planes through 16-byte and element-wise copies, a contiguous input;
 5b. probe_kernels: the int8 probe's kernels (int8 k and v and their scales
    bit-equal to the plain version's) and the four softmax variants against
    their plain versions at 25 x 16 x 1504 x 64 and a ragged length;
@@ -340,9 +347,11 @@ def attention_inputs(torch, g, B, H, L, dtype, lengths):
 
 
 def phase_attn_bwd(torch, attn, card: str):
-    """Backward kernels against the plain backward; returns (worst max-abs
-    error, the worst of it relative to the plain result's max, the numbers
-    at the CLI's 3 s batch in bf16)."""
+    """Backward kernels against the plain backward, and two calls bit-equal;
+    returns (worst max-abs error, the worst of it relative to the plain
+    result's max, the numbers at the CLI's 3 s batch in bf16)."""
+    from stutter_tpu_torch.cli.flash_tiles_ab import sdpa_backward
+
     cases = [  # (B, H, L): the CLI's batch 32 at 3 s, its 10 s bucket, a ragged long length
         (32, 16, 160), (9, 16, 512), (4, 16, 1008)]
     g = torch.Generator(device="cuda").manual_seed(7)
@@ -377,6 +386,10 @@ def phase_attn_bwd(torch, attn, card: str):
                       f"rel max-abs {rel:.3e}, cosine {cos:.3e}")
                 worst, worst_abs = max(worst, rel), max(worst_abs, max_abs)
             check(stats_err <= BWD_STATS_MAX_ABS, f"row statistics differ by {stats_err:.3e}")
+            again = attn.gated_relpos_attention_backward(*args, out, do, stats)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"two backward calls differ at {B}x{H}x{L} {dtype}")
             ms, plain_ms = time_turns(
                 torch, lambda: attn.gated_relpos_attention_backward(*args, out, do, stats),
                 lambda: attn.gated_relpos_attention_backward_reference(*args, out, do))
@@ -387,10 +400,23 @@ def phase_attn_bwd(torch, attn, card: str):
             nbytes = 8 * n * out.element_size() + 4 * (2 * H * L * L + 4 * B * H * L + B * L)
             numbers = timing(ms, plain_ms,
                              *bound(10 * n * L, nbytes, peak_flops(torch, dtype)))
+            if dtype == torch.bfloat16:  # 8 launches enqueued back to back: the device's time
+                numbers["queued_ms"], = time_turns(
+                    torch, lambda: attn.gated_relpos_attention_backward(*args, out, do, stats),
+                    reps=8)
             say("attn_bwd", shape=f"{B}x{H}x{L}x64", dtype=str(dtype).split(".")[-1],
                 **{f"{k}_rel_cos": v for k, v in fields.items()},
                 rel_tol=tol_rel, cosine_tol=tol_cos, stats_max_abs=f"{stats_err:.2e}",
-                **shown(numbers), card=f'"{card}"')
+                bit_equal_calls=True, **shown(numbers), card=f'"{card}"')
+            if dtype == torch.bfloat16:
+                # a yardstick for dq, dk and dv alone, not the library column:
+                # the maskless bf16 backward of scaled_dot_product_attention
+                # computes neither dgate nor dbias
+                yard, = time_turns(torch, sdpa_backward(torch, *args[:3], do))
+                yard_q, = time_turns(torch, sdpa_backward(torch, *args[:3], do), reps=8)
+                say("attn_bwd", shape=f"{B}x{H}x{L}x64", dtype="bfloat16",
+                    yardstick="sdpa_maskless_backward", ms=f"{yard:.4f}",
+                    queued_ms=f"{yard_q:.4f}", card=f'"{card}"')
             headline = headline or numbers
     return worst_abs, worst, headline
 
@@ -722,6 +748,8 @@ def phase_tile_edges(torch, mha) -> dict:
 # grid order (0 query tile fastest, 1 clip fastest)>
 TILE_KERNELS = {"KeyPadding<2, 4, 2, 0>", "FullBias<2, 4, 1, 0>", "GatedBiasRing<1, 3, 2, 0>",
                 "GatedBiasRing<1, 3, 2, 1>"}
+# the bf16 backward's wgmma kernels: dq and dk+dv in either grid order, dbias
+BWD_TILE_KERNELS = {"dq<0>", "dq<1>", "dkv<0>", "dkv<1>", "dbias"}
 
 
 def phase_gated_edges(torch, attn) -> float:
@@ -744,22 +772,47 @@ def phase_gated_edges(torch, attn) -> float:
     return worst
 
 
+def phase_bwd_edges(torch, attn) -> float:
+    """The bf16 backward where its tiles are most likely to be wrong
+    (``cli.flash_tiles_ab.check_bwd_cases``: ragged lengths to 1008, both
+    grid orders, one and two clip groups, a fully padded and a zero-gate
+    clip, the f32 planes through 16-byte and element-wise copies, a
+    contiguous input); returns the worst max-abs error over the plain
+    result's max."""
+    from stutter_tpu_torch.cli import flash_tiles_ab
+
+    check((flash_tiles_ab.BWD_BF16_REL, flash_tiles_ab.BWD_BF16_COSINE)
+          == (BWD_BF16_REL, BWD_BF16_COSINE), "flash_tiles_ab's bars differ from this script's")
+    cases, failures, worst = flash_tiles_ab.check_bwd_cases(torch, attn, verbose=False)
+    say("bwd_edges", cases=cases, disagree=failures, worst_rel=f"{worst:.3e}",
+        rel_tol=BWD_BF16_REL, cosine_tol=BWD_BF16_COSINE)
+    check(failures == 0, f"{failures} of {cases} backward edge cases disagree")
+    return worst
+
+
 def phase_tile_resources(build) -> None:
     """What ptxas said of the bf16 wgmma kernels at the build, every
-    instantiation: no spill, no stack, no serialised wgmma."""
-    from stutter_tpu_torch.cli.flash_tiles_ab import tile_kernels
+    instantiation of the forward tiles and of the backward: no spill, no
+    stack, no serialised wgmma."""
+    from stutter_tpu_torch.cli.flash_tiles_ab import bwd_tile_kernels, tile_kernels
 
     rows = tile_kernels(build)
     found = {row["tiles"] for row in rows}
     check(len(rows) == len(TILE_KERNELS) and found == TILE_KERNELS,
           f"expected the bf16 tiles {sorted(TILE_KERNELS)}, found {sorted(found)}")
-    for row in rows:
-        say("ptxas", kernel=f"attention_bf16_kernel<{row['tiles']}>",
+    bwd_rows = bwd_tile_kernels(build)
+    found = {row["tiles"] for row in bwd_rows}
+    check(len(bwd_rows) == len(BWD_TILE_KERNELS) and found == BWD_TILE_KERNELS,
+          f"expected the backward's kernels {sorted(BWD_TILE_KERNELS)}, found {sorted(found)}")
+    named = ([(f"attention_bf16_kernel<{row['tiles']}>", row) for row in rows]
+             + [(f"bwd_{row['tiles']}", row) for row in bwd_rows])
+    for name, row in named:
+        say("ptxas", kernel=name,
             registers=row["registers"], stack_bytes=row["stack_bytes"],
             spill_store_bytes=row["spill_store_bytes"],
             spill_load_bytes=row["spill_load_bytes"])
         check(row["stack_bytes"] == 0 and row["spill_store_bytes"] == 0
-              and row["spill_load_bytes"] == 0, f"{row['tiles']}: the bf16 tiles spill")
+              and row["spill_load_bytes"] == 0, f"{name}: the bf16 tiles spill")
     warnings = build.serialized_wgmma_warnings()
     say("ptxas", serialized_wgmma_warnings=len(warnings))
     check(not warnings, "ptxas serialised a wgmma:\n" + "\n".join(warnings))
@@ -1684,6 +1737,8 @@ def main() -> int:
             mha_bias_err = max(mha_bias_err, edge_errs["flash_mha_bias"])
         with timed("gated_edges"):
             wavlm_err = max(wavlm_err, phase_gated_edges(torch, attn))
+        with timed("bwd_edges"):
+            bwd_rel = max(bwd_rel, phase_bwd_edges(torch, attn))
         with timed("probe_kernels"):
             probe_numbers = phase_probe_kernels(torch, probes, card)
         with timed("probes"):

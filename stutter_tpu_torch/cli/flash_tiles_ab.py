@@ -1,9 +1,10 @@
 """Check and time the bf16 wgmma attention tiles on a CUDA card (flash_mha,
-flash_mha_bias and the WavLM gated attention), beside an earlier checkout's
-kernels and, where there is one, ``scaled_dot_product_attention``.
+flash_mha_bias, the WavLM gated attention and its backward), beside an
+earlier checkout's kernels and, where there is one,
+``scaled_dot_product_attention``.
 
     python -m stutter_tpu_torch.cli.flash_tiles_ab [--prev_root DIR] [--runs 20] \\
-        [--kernels all|flash|gated] [--skip_timing]
+        [--kernels all|flash|gated|bwd] [--skip_timing]
 
 1. Prints what ``ptxas -v`` said of the bf16 tiles' kernels at the build
    (registers, spills, stack, per instantiation) and any "wgmma
@@ -11,9 +12,12 @@ kernels and, where there is one, ``scaled_dot_product_attention``.
 2. Holds ``flash_mha`` and ``flash_mha_bias`` (bf16) against their plain
    versions over ragged lengths and key counts, and the gated attention
    (bf16, output and row statistics) over ragged lengths in both grid
-   orders, with a fully padded clip and a clip whose gate is 0; a case that
-   disagrees prints a map of its errors by 16-row and 8-column block and the
-   run fails.
+   orders, with a fully padded clip and a clip whose gate is 0, and the
+   gated attention's backward (bf16: dq, dk, dv, dbias, dgate) over the same
+   lengths and 512 and 1008, in both grid orders, with one and two groups of
+   clips in the dbias kernel and the bias through both copy widths; a case
+   that disagrees prints a map of its errors by 16-row and 8-column block (or
+   the gradient that disagrees) and the run fails.
 3. Times, with CUDA events and in turns, each kernel through its wrapper
    (``ms``) and through its bare C entry point (``bare_ms``), the kernel of
    the checkout at ``--prev_root`` through the same entry point (built from
@@ -26,6 +30,17 @@ kernels and, where there is one, ``scaled_dot_product_attention``.
    (``queued_ms``: the device's time alone). ``--prev_root`` is a directory
    holding an earlier commit of this repository, e.g. ``git archive
    <commit> | tar -x -C <dir>``.
+
+4. Times the backward at the fine-tune CLI's 32 x 16 x 160, 9 x 16 x 512 and
+   4 x 16 x 1008 the same way: through its wrapper, its bare C entry, the
+   other grid order, one clip group and twice the groups, the earlier
+   checkout's bare C entry (whose ABI, told apart by its argument count,
+   takes D: computed once, outside the timed window) and, as a yardstick
+   for dq, dk and dv alone, the maskless bf16 backward of
+   ``scaled_dot_product_attention`` (it computes neither dgate nor dbias);
+   then prints the profiler's per-kernel device times of one call (given
+   ``--prev_root``, also of the earlier kernel with its D reduction in
+   PyTorch, with ``--skip_timing`` too).
 
 The last line is one JSON object with the times; the card's name and power
 limit are in it.
@@ -47,13 +62,20 @@ TIMED = [("flash_mha", 16, 20, 1500), ("flash_mha_bias", 12, 16, 1504),
 # the gated attention's buckets (B, H, L): 3 s, 20 s and 30 s
 GATED_TIMED = [(128, 16, 160), (19, 16, 1008), (12, 16, 1504)]
 STATS_MAX_ABS = 1e-3  # chip_smoke.py's bar for the row statistics
+# chip_smoke.py's bars for the bf16 backward, per gradient: max-abs error over
+# the plain result's max, and cosine distance
+BWD_BF16_REL, BWD_BF16_COSINE = 2e-2, 1e-4
+BWD_EDGE_LENGTHS = (37, 63, 64, 65, 127, 128, 129, 160, 512, 1008)
+# the backward's shapes (B, H, L): the fine-tune CLI's 3 s batch, its 10 s
+# bucket, a ragged long length
+BWD_TIMED = [(32, 16, 160), (9, 16, 512), (4, 16, 1008)]
 
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--prev_root", default=None)
     parser.add_argument("--runs", type=int, default=20)
-    parser.add_argument("--kernels", choices=("all", "flash", "gated"), default="all")
+    parser.add_argument("--kernels", choices=("all", "flash", "gated", "bwd"), default="all")
     parser.add_argument("--skip_timing", action="store_true")
     return parser.parse_args(argv)
 
@@ -264,6 +286,221 @@ def check_gated_cases(torch, attn, verbose: bool = True) -> tuple[int, int, floa
     return cases, failures, worst, worst_stats
 
 
+def bwd_inputs(torch, g, B, H, L, lengths, transposed=True, zero_gate_clip=None):
+    """The backward's operands: the gated inputs (clip ``zero_gate_clip``'s
+    gate 0), the forward's output and row statistics, and a do laid out
+    like q."""
+    from stutter_tpu_torch.ops import wavlm_attention as attn
+
+    args = gated_inputs(torch, g, B, H, L, lengths, transposed)
+    if zero_gate_clip is not None:
+        args[4][zero_gate_clip] = 0.0
+
+    stats = torch.empty(2, B, H, L, device="cuda")
+    out = attn.gated_relpos_attention(*args, stats)
+    do = make_qkv(torch, g, B, H, L, transposed)[0]
+    return args, out, do, stats
+
+
+def compare_grads(torch, got, ref) -> tuple[bool, dict]:
+    """Each gradient against the plain backward's: finite, shaped and typed
+    alike, max-abs error over the plain result's max and cosine distance
+    within the bf16 bars. Returns (all agree, {name: (rel, cosine)})."""
+    ok, errs = True, {}
+    for name, a, b in zip(("dq", "dk", "dv", "dbias", "dgate"), got, ref):
+        same = a.shape == b.shape and a.dtype == b.dtype and bool(torch.isfinite(a).all())
+        rel = float((a.float() - b.float()).abs().max()) / float(b.float().abs().max())
+        cos = cosine_distance(a.float(), b.float())
+        errs[name] = (rel, cos)
+        ok = ok and same and rel <= BWD_BF16_REL and cos <= BWD_BF16_COSINE
+    return ok, errs
+
+
+def check_bwd_cases(torch, attn, verbose: bool = True) -> tuple[int, int, float]:
+    """Hold the bf16 backward to the plain backward at ragged lengths around
+    the tiles' 64-row edges and at 512 and 1008: clip 0 has every key, clip
+    1 half of them, clip 2 none, clip 3 every key and a gate of 0; the dq
+    and dk+dv kernels in both grid orders; the dbias kernel with one group
+    of clips and with two (partial planes added by a second kernel); the
+    f32 planes through their 16-byte and, with the bias off 16-byte
+    alignment, their element-wise copies; a contiguous input. Returns
+    (cases, cases that disagree, the worst max-abs error over the plain
+    result's max)."""
+    from stutter_tpu_torch.ops._attention import vector_bytes
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    cases, failures, worst = 0, 0, 0.0
+
+    def run(L, args, out, do, stats, what, order, groups):
+        nonlocal cases, failures, worst
+        got = attn.launch_backward(*args, out, do, stats, order, groups)
+        ref = attn.gated_relpos_attention_backward_reference(*args, out, do)
+        torch.cuda.synchronize()
+        ok, errs = compare_grads(torch, got, ref)
+        ok = ok and all(t.stride() == args[0].stride() for t in got[:3])
+        cases += 1
+        worst = max([worst] + [rel for rel, _ in errs.values()])
+        if verbose or not ok:
+            B, H = args[0].shape[:2]
+            print(f"[check] bwd {B}x{H}x{L} {what} order={order} groups={groups} "
+                  f"vec={vector_bytes(args[3], args[5])} "
+                  + " ".join(f"{n}={r:.2e}/{c:.2e}" for n, (r, c) in errs.items())
+                  + f" {'ok' if ok else 'DISAGREES'}", flush=True)
+        if not ok:
+            failures += 1
+
+    for L in BWD_EDGE_LENGTHS:
+        B, H = 4, (2 if L > 200 else 3)
+        lengths = torch.tensor([L, max(L // 2, 1), 0, L], device="cuda")
+        args, out, do, stats = bwd_inputs(torch, g, B, H, L, lengths, zero_gate_clip=3)
+        for order in (attn.QUERY_TILE_FASTEST, attn.CLIP_FASTEST):
+            run(L, args, out, do, stats, "", order, 1)
+        run(L, args, out, do, stats, "", attn.grid_order_for(H, L), 2)
+        if L % 4 == 0:  # the bias off 16-byte alignment: element-wise copies
+            bias = args[3]
+            shifted = torch.empty(bias.numel() + 1, device="cuda")[1:].view_as(bias).copy_(bias)
+            run(L, (*args[:3], shifted, *args[4:]), out, do, stats, "bias+4B",
+                attn.CLIP_FASTEST, 2)
+    lengths = torch.tensor([129, 100, 0], device="cuda")
+    args, out, do, stats = bwd_inputs(torch, g, 3, 4, 129, lengths, transposed=False)
+    run(129, args, out, do, stats, "contiguous", attn.QUERY_TILE_FASTEST, 3)
+    return cases, failures, worst
+
+
+def c_bwd_call(torch, lib, args, out, do, stats, dsum=None):
+    """Launch a kernel library's bf16 backward through its bare C entry
+    point: an earlier checkout's takes D (``dsum``, computed by the caller),
+    the current one computes it and takes ``out``, the clip groups, the
+    copy width and the grid order."""
+    from stutter_tpu_torch.ops import wavlm_attention as attn
+    from stutter_tpu_torch.ops._attention import vector_bytes
+
+    q, k, v, bias, gate, mask = args
+    B, H, L, _ = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    dgate = torch.empty(B, H, L, device="cuda")
+    dbias = torch.empty(H, L, L, device="cuda")
+    fn = lib.wavlm_gated_relpos_attention_bwd
+    head = [q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), gate.data_ptr(),
+            mask.data_ptr(), do.data_ptr(), stats.data_ptr()]
+    grads = [dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dgate.data_ptr(), dbias.data_ptr()]
+    strides = [q.stride(0), q.stride(1), q.stride(2), 1, torch.cuda.current_stream().cuda_stream]
+    if len(fn.argtypes) == 22:
+        rc = fn(*head, dsum.data_ptr(), *grads, B, H, L, *strides)
+    else:
+        groups = attn.clip_groups_for(B, H, L)
+        shape = attn.dbias_scratch_shape(H, L, groups)
+        parts = None if shape is None else torch.empty(shape, device="cuda")
+        d = torch.empty(B, H, L, device="cuda")
+        rc = fn(*head, out.data_ptr(), d.data_ptr(), *grads,
+                None if parts is None else parts.data_ptr(), B, H, L, groups,
+                vector_bytes(bias, mask, gate, stats, d), attn.grid_order_for(H, L),
+                *strides)
+    if rc != 0:
+        raise RuntimeError(f"wavlm_gated_relpos_attention_bwd failed: CUDA error {rc}")
+    return dq, dk, dv, dbias, dgate
+
+
+def sdpa_backward(torch, q, k, v, do):
+    """One backward of the maskless bf16 ``scaled_dot_product_attention`` on
+    these inputs, its forward run once beforehand: the yardstick for dq, dk
+    and dv alone."""
+    import torch.nn.functional as F
+
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, scale=1.0)
+    return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+
+def profile_split(torch, fn) -> list[tuple[str, float]]:
+    """The device time of each kernel of one call of ``fn`` (after a warm
+    call), by the profiler: [(kernel name, ms)], longest first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):  # a process's first trace may come back empty: keep the second
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    split = []
+    for evt in prof.key_averages():  # kernels only: not the host ops that launched them
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0)
+        if (us > 0 and evt.device_type == DeviceType.CUDA
+                and evt.key != "Activity Buffer Request"):
+            split.append((evt.key, us / 1e3))
+    return sorted(split, key=lambda kv: -kv[1])
+
+
+def print_split(what: str, split) -> None:
+    total = sum(ms for _, ms in split)
+    print(f"[split] {what}: {len(split)} kernels, {total:.4f} ms of device time", flush=True)
+    for name, ms in split:
+        print(f"    {ms:9.4f}  {name[:110]}", flush=True)
+
+
+def time_bwd(torch, attn, prev, runs: int) -> list[dict]:
+    """The bf16 backward at its shapes, in turns: through its wrapper and its
+    bare C entry, in the other grid order, with one clip group and with
+    twice the groups, the earlier checkout's kernel and the library's
+    maskless backward; then the kernels' profiler split."""
+    from stutter_tpu_torch.ops import _build
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    results = []
+    for B, H, L in BWD_TIMED:
+        lengths = torch.randint(1, L + 1, (B,), device="cuda", generator=g)
+        lengths[0], lengths[-1] = L, 0  # one full clip, one fully padded clip
+        args, out, do, stats = bwd_inputs(torch, g, B, H, L, lengths)
+        order, groups = attn.grid_order_for(H, L), attn.clip_groups_for(B, H, L)
+        fns = {"kernel": lambda: attn.gated_relpos_attention_backward(*args, out, do, stats),
+               "bare": lambda: c_bwd_call(torch, _build.kernel_library(), args, out, do, stats),
+               "other_order": lambda: attn.launch_backward(*args, out, do, stats, 1 - order,
+                                                           groups),
+               "groups_1": lambda: attn.launch_backward(*args, out, do, stats, order, 1),
+               "groups_x2": lambda: attn.launch_backward(*args, out, do, stats, order,
+                                                         min(B, 2 * groups)),
+               "library": sdpa_backward(torch, *args[:3], do)}
+        if prev is not None:  # its D, computed here once, outside the timed window
+            dsum = (do.float() * out.float()).sum(dim=-1).contiguous()
+            fns["prev"] = lambda: c_bwd_call(torch, prev, args, out, do, stats, dsum)
+        ms = time_turns(torch, list(fns.values()), runs)
+        queued = time_turns(torch, list(fns.values()), runs, reps=QUEUED_LAUNCHES)
+        n = B * H * L * 64
+        # chip_smoke.py's [attn_bwd] bound: five products; q, k, v, do, out, dq,
+        # dk, dv in bf16, bias and dbias, gate, the statistics, dgate, mask in f32
+        nbytes = 16 * n + 4 * (2 * H * L * L + 4 * B * H * L + B * L)
+        bound, bound_by = bound_ms(10 * n * L, nbytes)
+        row = {"kernel": "gated_relpos_attention_bwd", "shape": f"{B}x{H}x{L}x64",
+               "order": order, "clip_groups": groups, "bound_ms": bound, "bound_by": bound_by}
+        for (name, _), t, tq in zip(fns.items(), ms, queued):
+            key = "" if name == "kernel" else f"{name}_"
+            row[f"{key}ms"], row[f"{key}queued_ms"] = t, tq
+        row["queued_share_of_bound"] = bound / row["queued_ms"]
+        print(f"[time] {row}", flush=True)
+        print_split(f"bwd {B}x{H}x{L}", profile_split(torch, fns["kernel"]))
+        results.append(row)
+        del args, out, do, stats, fns
+        torch.cuda.empty_cache()
+    return results
+
+
+def prev_bwd_splits(torch, prev) -> None:
+    """The earlier checkout's backward, one call at each timed shape, by the
+    profiler: its kernels and its D reduction in PyTorch."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    for B, H, L in BWD_TIMED:
+        lengths = torch.randint(1, L + 1, (B,), device="cuda", generator=g)
+        lengths[0], lengths[-1] = L, 0
+        args, out, do, stats = bwd_inputs(torch, g, B, H, L, lengths)
+        print_split(f"prev bwd {B}x{H}x{L} (D in PyTorch)", profile_split(
+            torch, lambda: c_bwd_call(torch, prev, args, out, do, stats,
+                                      (do.float() * out.float()).sum(dim=-1).contiguous())))
+
+
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     """chip_smoke.py's bound at the bf16 peak (989 TFLOP/s) and 3.35 TB/s."""
     ops_ms, bytes_ms = flops / 989e12 * 1e3, nbytes / 3.35e12 * 1e3
@@ -346,6 +583,21 @@ def tile_kernels(build) -> list[dict]:
     return rows
 
 
+def bwd_tile_kernels(build) -> list[dict]:
+    """ptxas's rows for the bf16 backward's wgmma kernels, each named by its
+    part and, for dq and dk+dv, its grid order (``dq<0>``, ``dbias``)."""
+    import re
+
+    rows = build.resource_report("_bf16_kernel")
+    found = []
+    for row in rows:
+        m = re.search(r"bwd_(dq|dkv|dbias)_bf16_kernel(?:ILi(\d+)EE)?", row["kernel"])
+        if m:
+            row["tiles"] = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            found.append(row)
+    return found
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
 
@@ -368,6 +620,10 @@ def main(argv=None) -> int:
         print(f"[ptxas] {row['tiles']} registers={row['registers']} "
               f"stack={row['stack_bytes']} spill_stores={row['spill_store_bytes']} "
               f"spill_loads={row['spill_load_bytes']}", flush=True)
+    for row in bwd_tile_kernels(_build):
+        print(f"[ptxas] bwd {row['tiles']} registers={row['registers']} "
+              f"stack={row['stack_bytes']} spill_stores={row['spill_store_bytes']} "
+              f"spill_loads={row['spill_load_bytes']}", flush=True)
     warnings = _build.serialized_wgmma_warnings()
     print(f"[ptxas] serialized_wgmma_warnings={len(warnings)}", flush=True)
     for line in warnings[:8]:
@@ -382,12 +638,21 @@ def main(argv=None) -> int:
         cases, bad, _, _ = check_gated_cases(torch, attn)
         print(f"[check] gated: {bad} of {cases} cases disagree", flush=True)
         failures += bad
+    if args.kernels in ("all", "bwd"):
+        cases, bad, _ = check_bwd_cases(torch, attn)
+        print(f"[check] bwd: {bad} of {cases} cases disagree", flush=True)
+        failures += bad
     if failures:
         return 1
+    bwd = args.kernels in ("all", "bwd")
+    prev = None
+    if args.prev_root and (bwd or not args.skip_timing):
+        prev = load_prev_library(Path(args.prev_root))
+    if prev is not None and bwd:
+        prev_bwd_splits(torch, prev)
     if args.skip_timing:
         return 0
 
-    prev = load_prev_library(Path(args.prev_root)) if args.prev_root else None
     g = torch.Generator(device="cuda").manual_seed(5)
     results = []
     for name, B, H, L in TIMED if args.kernels in ("all", "flash") else []:
@@ -419,6 +684,8 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if args.kernels in ("all", "gated"):
         results += time_gated(torch, attn, prev, args.runs)
+    if bwd:
+        results += time_bwd(torch, attn, prev, args.runs)
     print(json.dumps({"card": card, "times": results}))
     return 0
 

@@ -5,8 +5,10 @@
 // stutter_tpu/models/attention.py:flash_mha and :flash_mha_bias) and
 // wavlm_attention.cu's gated relative-position-bias attention (policy
 // GatedBiasRing; it replaces stutter_tpu/ops/wavlm_attention_pallas.py's two
-// forward kernels). The f32 paths, the WavLM backward and the probes keep the
-// tiles of attention_tiles.cuh. For one (clip b, head h, query row i), with q
+// forward kernels). wavlm_attention_bwd.cu builds the bf16 backward of the
+// gated attention from its primitives (copies, descriptors, wgmma, the ring's
+// discipline). The f32 paths and the probes keep the tiles of
+// attention_tiles.cuh. For one (clip b, head h, query row i), with q
 // pre-scaled and head_dim 64:
 //
 //     p[j]   = score(i, j, q[i] . k[j])
@@ -250,6 +252,29 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const uint32_t (
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(accumulate),
         "n"(kTransB)
+      : "memory");
+}
+
+// d (+)= a . b with both operands in shared memory: a 64 x 16 K-major A
+// ([m][k] rows) and a B as above.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a_desc,
+                                                   uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, %35;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a_desc), "l"(b_desc), "r"(accumulate), "n"(kTransB)
       : "memory");
 }
 

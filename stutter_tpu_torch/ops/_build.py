@@ -35,7 +35,7 @@ SIGNATURES = {
     "wavlm_gated_relpos_attention": (
         [_p] * 8 + [_i] * 5 + [_ll, _ll, _ll, _i, _p], _i),
     "wavlm_gated_relpos_attention_bwd": (
-        [_p] * 14 + [_i, _i, _i, _ll, _ll, _ll, _i, _p], _i),
+        [_p] * 16 + [_i] * 6 + [_ll, _ll, _ll, _i, _p], _i),
     "flash_mha": ([_p, _p, _p, _p, _p, _i, _i, _i, _ll, _ll, _ll, _i, _p], _i),
     "flash_mha_bias": ([_p, _p, _p, _p, _p, _i, _i, _i, _i, _ll, _ll, _ll, _i, _p], _i),
     "whisper_log_mel": ([_p, _p, _p, _p, _i, _i, _p], _i),

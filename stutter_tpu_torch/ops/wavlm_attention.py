@@ -24,8 +24,10 @@ vectors where L and their addresses allow it, ``_attention.vector_bytes``;
 the grid order by the bias plane's size, ``grid_order_for``), f32 the
 scalar-FMA tiles of ``csrc/attention_tiles.cuh``.
 ``gated_relpos_attention_backward`` launches the backward kernels
-(``csrc/wavlm_attention_bwd.cu``) and counts each backward in
-``gated_relpos_attention_backward.launches``. For CPU
+(``csrc/wavlm_attention_bwd.cu``; bf16 on the same Hopper tiles: dq with
+dgate and D, dk with dv, and dbias over groups of clips, ``clip_groups_for``,
+the dq and dk+dv kernels in ``grid_order_for``'s order) and counts each
+backward in ``gated_relpos_attention_backward.launches``. For CPU
 tensors both run their plain PyTorch versions (``*_reference``), which the
 tests and the on-card comparison also use; any other device raises.
 
@@ -60,6 +62,11 @@ QUERY_TILE_FASTEST, CLIP_FASTEST = 0, 1
 # fastest 1-3 % faster; 24 MB at 12 s: level; 65 and 145 MB at 20 and 30 s:
 # clip fastest 25 % faster).
 CLIP_FASTEST_ABOVE_BYTES = 16 << 20
+# The bf16 dbias kernel runs one block per (head, 64 x 64 tile, group of
+# clips): at least this many blocks (two waves of two blocks an SM on the
+# H100's 132 SMs), with at least DBIAS_MIN_CLIPS clips a group.
+DBIAS_TARGET_BLOCKS = 4 * 132
+DBIAS_MIN_CLIPS = 4
 
 
 def _compute_dtype(q) -> torch.dtype:
@@ -195,12 +202,66 @@ def gated_relpos_attention(q, k, v, position_bias, gate, key_mask_bias, row_stat
 gated_relpos_attention.launches = 0
 
 
+def clip_groups_for(B: int, H: int, L: int) -> int:
+    """How many groups of clips the bf16 dbias kernel sums apart (each group
+    ``ceil(B / groups)`` clips in order, none empty): enough for
+    ``DBIAS_TARGET_BLOCKS`` blocks of one (head, 64 x 64 tile, group), with at
+    least ``DBIAS_MIN_CLIPS`` clips a group so that the ring runs ahead."""
+    tiles = -(-L // 64)
+    wanted = min(max(1, B // DBIAS_MIN_CLIPS), -(-DBIAS_TARGET_BLOCKS // (H * tiles * tiles)))
+    per_group = -(-B // wanted)
+    return -(-B // per_group)
+
+
+def dbias_scratch_shape(H: int, L: int, clip_groups: int):
+    """The [groups, H, L, L] f32 scratch of the groups' partial dbias planes,
+    or None with one group (the kernel then writes dbias itself)."""
+    return None if clip_groups == 1 else (clip_groups, H, L, L)
+
+
+def launch_backward(q, k, v, position_bias, gate, key_mask_bias, out, do, row_stats,
+                    grid_order: int, clip_groups: int):
+    """Launch the backward kernels on checked CUDA inputs (``do`` laid out
+    like q) with the given bf16 grid order and clip groups (read by the bf16
+    path only), uncounted: (dq, dk, dv, dbias, dgate).
+    ``gated_relpos_attention_backward`` calls it with ``grid_order_for``'s
+    order and ``clip_groups_for``'s groups; ``cli/flash_tiles_ab.py`` runs
+    the others through it."""
+    if _device_kind(q) != "cuda":
+        raise ValueError(f"launch_backward launches CUDA kernels; got a tensor on {q.device}")
+    from stutter_tpu_torch.ops._build import kernel_library
+
+    lib = kernel_library()
+    B, H, L, _ = q.shape
+    f32 = {"dtype": torch.float32, "device": q.device}
+    dq, dk, dv = empty_like_q(q), empty_like_q(q), empty_like_q(q)
+    dsum = torch.empty((B, H, L), **f32)  # D, written by the first kernel
+    dgate = torch.empty((B, H, L), **f32)
+    dbias = torch.empty((H, L, L), **f32)
+    shape = dbias_scratch_shape(H, L, clip_groups)
+    parts = None if shape is None or q.dtype != torch.bfloat16 else torch.empty(shape, **f32)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.wavlm_gated_relpos_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), position_bias.data_ptr(),
+            gate.data_ptr(), key_mask_bias.data_ptr(), do.data_ptr(), row_stats.data_ptr(),
+            out.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            dgate.data_ptr(), dbias.data_ptr(), None if parts is None else parts.data_ptr(),
+            B, H, L, clip_groups,
+            vector_bytes(position_bias, key_mask_bias, gate, row_stats, dsum), grid_order,
+            q.stride(0), q.stride(1), q.stride(2), DTYPE_CODES[q.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"wavlm_gated_relpos_attention_bwd launch failed: CUDA error {rc}")
+    return dq, dk, dv, dbias, dgate
+
+
 def gated_relpos_attention_backward(q, k, v, position_bias, gate, key_mask_bias, out,
                                     grad_out, row_stats=None):
     """The backward of ``gated_relpos_attention``: (dq, dk, dv [B, H, L, d] in
     q's dtype and laid out like q, dbias [H, L, L] f32, dgate [B, H, L] f32).
-    On the card ``row_stats`` is the buffer the forward filled; the CPU path
-    recomputes the softmax and ignores it."""
+    On the card ``row_stats`` is the buffer the forward filled, and the
+    kernels compute D themselves (from ``grad_out`` in q's dtype); the CPU
+    path recomputes the softmax and ignores it."""
     if _device_kind(q) == "cpu":
         return gated_relpos_attention_backward_reference(
             q, k, v, position_bias, gate, key_mask_bias, out, grad_out)
@@ -214,33 +275,16 @@ def gated_relpos_attention_backward(q, k, v, position_bias, gate, key_mask_bias,
                              f"q is {tuple(q.shape)} on {q.device}")
     if out.dtype != q.dtype or out.stride() != q.stride():
         raise ValueError("out must be the forward's output, laid out like q")
-    # D = sum_d do * out, one plain reduction, as the JAX package takes it
-    dsum = (grad_out.float() * out.float()).sum(dim=-1).contiguous()
     do = grad_out
     if do.dtype != q.dtype or do.stride() != q.stride():
         do = empty_like_q(q)
         do.copy_(grad_out)
     check_qkv(q, do, v)  # the kernels read do with q's strides and alignment
-    from stutter_tpu_torch.ops._build import kernel_library
-
-    lib = kernel_library()
-    dq, dk, dv = empty_like_q(q), empty_like_q(q), empty_like_q(q)
     B, H, L, _ = q.shape
-    dgate = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
-    dbias = torch.empty((H, L, L), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.wavlm_gated_relpos_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), position_bias.data_ptr(),
-            gate.data_ptr(), key_mask_bias.data_ptr(), do.data_ptr(),
-            row_stats.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), dgate.data_ptr(), dbias.data_ptr(),
-            B, H, L, q.stride(0), q.stride(1), q.stride(2),
-            DTYPE_CODES[q.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"wavlm_gated_relpos_attention_bwd launch failed: CUDA error {rc}")
+    grads = launch_backward(q, k, v, position_bias, gate, key_mask_bias, out, do, row_stats,
+                            grid_order_for(H, L), clip_groups_for(B, H, L))
     gated_relpos_attention_backward.launches += 1
-    return dq, dk, dv, dbias, dgate
+    return grads
 
 
 gated_relpos_attention_backward.launches = 0
