@@ -23,13 +23,17 @@ Phases, one line each on stdout ([time] lines give each phase's seconds):
    cosine distance, two calls bit-equal, median times per launch and, in
    bf16, with 8 launches queued; beside them, as a yardstick for dq, dk and
    dv alone, the maskless bf16 backward of scaled_dot_product_attention;
-4. logmel: the Whisper log-mel kernel against its plain version at 16 x 30 s
-   (80 and 128 mels; silent, quiet and zero-padded clips among them);
+4. logmel: the Whisper log-mel kernel against its plain version and the
+   float64 log-mel at 16 x 30 s (80 and 128 mels; silent, quiet and
+   zero-padded clips among them), timed per launch and 8 queued, and
+   untimed at 1 and 17 clips with a pure tone and a loud burst in 1e-6
+   noise;
 5. mha: the Whisper encoder's flash-attention kernel against its plain
    version at 16 x 20 x 1500 x 64 in bf16 and f32, with key padding and at a
    ragged length; scaled_dot_product_attention timed beside it; and what
    ptxas said of the bf16 wgmma kernels, every instantiation of the
-   forward tiles and of the backward (registers, spills, serialised wgmma);
+   forward tiles, of the backward and of the stem's conv layers (registers,
+   spills, serialised wgmma);
 5a. mha_bias: the materialised-bias flash kernel (WavLM's escape hatch)
    against its plain version at 12 x 16 x 1504 x 64 and 19 x 16 x 1008 x 64
    in bf16 with keys masked, and f32 at a ragged length;
@@ -54,8 +58,11 @@ Phases, one line each on stdout ([time] lines give each phase's seconds):
 5c. probes: cli.attn_int8_probe and cli.attn_softmax_variants_probe at
    their defaults, in-process: their JSON, fidelity against f32, launches;
 5d. stem: the fused WavLM stem kernels against their plain version and the
-   plain ConvFeatureEncoder (cuDNN) at 128 x 3 s and 12 x 30 s, with ragged
-   lengths, a silent clip and a clip of 4 frames;
+   plain ConvFeatureEncoder (cuDNN) at 128 x 3 s and 12 x 30 s (timed per
+   launch and 8 queued), with ragged lengths, a silent clip and a clip of 4
+   frames, and untimed at one clip, a one-frame clip (T = 400), an
+   unaligned length and 1 s clips, whose last layers leave a CTA of a
+   cluster with no rows;
 6. slice: a synthetic 16 kHz corpus through ExtractionPipeline.run with
    WavLM-Large (random weights, seed 0) in the fast preset; checks the store,
    the checkpoints, that every attention call went through the kernel, and
@@ -682,7 +689,7 @@ def logmel_work(wave, out, n_mels: int) -> tuple[float, float, float]:
     the power of 201 bins (3 each), the mel bank's nonzero taps (2 each; each
     bin lies in at most two triangles), the log and the floor-affine (4 per
     mel); the bytes of the wave read once and the features written once.
-    Also the operations of the kernel's design, the dense 400 x 402 DFT and
+    Also the operations of a dense design, the 400 x 402 windowed DFT and
     201 x n_mels mel products."""
     import math
 
@@ -697,33 +704,73 @@ def logmel_work(wave, out, n_mels: int) -> tuple[float, float, float]:
     return frames * per_frame, nbytes, frames * dense
 
 
+def logmel_edge_clips(torch, B: int, seed: int):
+    """[B, 480000] f32 on the card for the untimed cases: one loud burst
+    (peak ~4) in 1e-6 noise when B is 1; else ``whisper_test_clips`` with a
+    pure 440 Hz tone (made in float64 and rounded once: f32 time stamps
+    would add phase noise ~60 dB under it) and such a burst in clips 3 and
+    4."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    t = torch.arange(480_000, device="cuda", dtype=torch.float64) / 16000.0
+
+    def burst():
+        clip = 1e-6 * torch.randn(480_000, device="cuda", generator=g)
+        clip[96_000:112_000] = torch.randn(16_000, device="cuda", generator=g)
+        return clip
+
+    if B == 1:
+        return burst()[None]
+    wave = whisper_test_clips(torch, B, seed)
+    wave[3] = (0.5 * torch.sin(2 * torch.pi * 440.0 * t)).float()
+    wave[4] = burst()
+    return wave
+
+
 def phase_logmel(torch, logmel):
-    """Log-mel kernel against its plain version at the path's 16 x 30 s;
-    returns (worst max-abs error, the numbers at 80 mels)."""
+    """Log-mel kernel against its plain version and the float64 log-mel (the
+    plain version on float64 tensors) at the path's 16 x 30 s, and untimed
+    at 1 and 17 clips (a pure tone, a loud burst in 1e-6 noise, silent,
+    quiet and zero-padded clips); returns (worst max-abs error from the
+    plain version, the numbers at 80 mels)."""
     worst, headline = 0.0, None
     for n_mels in (80, 128):
-        wave = whisper_test_clips(torch, 16, seed=n_mels)
-        out = logmel.whisper_log_mel(wave, n_mels)
-        ref = logmel.log_mel_spectrogram_reference(wave, n_mels)
-        torch.cuda.synchronize()
-        check(out.shape == ref.shape == (16, n_mels, 3000) and out.dtype == torch.float32,
-              f"log-mel kernel output {out.dtype} {tuple(out.shape)}")
-        check(bool(torch.isfinite(out).all()), "log-mel kernel output has non-finite values")
-        max_abs = float((out - ref).abs().max())
-        silent_ok = bool((out[0] == out[0, 0, 0]).all())  # one constant image
-        ms, plain_ms = time_turns(torch, lambda: logmel.whisper_log_mel(wave, n_mels),
-                                 lambda: logmel.log_mel_spectrogram_reference(wave, n_mels))
-        flops, nbytes, dense_flops = logmel_work(wave, out, n_mels)
-        numbers = timing(ms, plain_ms, *bound(flops, nbytes, F32_FLOPS))
-        # the kernel's own design (the dense windowed DFT as a product) for comparison
-        dense_ms, _ = bound(dense_flops, nbytes, F32_FLOPS)
-        say("logmel", shape="16x480000", n_mels=n_mels, max_abs_err=f"{max_abs:.3e}",
-            max_abs_tol=LOGMEL_MAX_ABS, silent_clip_exact=silent_ok, **shown(numbers),
-            bound_dense_dft_ms=f"{dense_ms:.4f}")
-        check(max_abs <= LOGMEL_MAX_ABS and silent_ok,
-              f"log-mel kernel disagrees with its plain version at {n_mels} mels")
-        worst = max(worst, max_abs)
-        headline = headline or numbers
+        for B in (16, 1, 17):
+            wave = (whisper_test_clips(torch, 16, seed=n_mels) if B == 16
+                    else logmel_edge_clips(torch, B, seed=B + n_mels))
+            out = logmel.whisper_log_mel(wave, n_mels)
+            ref = logmel.log_mel_spectrogram_reference(wave, n_mels)
+            exact = logmel.log_mel_spectrogram_reference(wave.double(), n_mels)
+            torch.cuda.synchronize()
+            check(out.shape == ref.shape == (B, n_mels, 3000) and out.dtype == torch.float32,
+                  f"log-mel kernel output {out.dtype} {tuple(out.shape)}")
+            check(bool(torch.isfinite(out).all()), "log-mel kernel output has non-finite values")
+            max_abs = float((out - ref).abs().max())
+            exact_abs = float((out.double() - exact).abs().max())
+            plain_exact_abs = float((ref.double() - exact).abs().max())
+            silent_ok = B == 1 or bool((out[0] == -1.5).all())  # log10(1e-10) floored, scaled
+            fields = dict(shape=f"{B}x480000", n_mels=n_mels, max_abs_err=f"{max_abs:.3e}",
+                          max_abs_err_vs_float64=f"{exact_abs:.3e}",
+                          plain_vs_float64=f"{plain_exact_abs:.3e}",
+                          max_abs_tol=LOGMEL_MAX_ABS, silent_clip_exact=silent_ok)
+            if B == 16:
+                ms, plain_ms = time_turns(
+                    torch, lambda: logmel.whisper_log_mel(wave, n_mels),
+                    lambda: logmel.log_mel_spectrogram_reference(wave, n_mels))
+                queued_ms, = time_turns(torch, lambda: logmel.whisper_log_mel(wave, n_mels),
+                                        reps=8)
+                flops, nbytes, dense_flops = logmel_work(wave, out, n_mels)
+                numbers = timing(ms, plain_ms, *bound(flops, nbytes, F32_FLOPS))
+                numbers["queued_ms"] = queued_ms
+                # a dense design's bound (the windowed DFT as a product), for comparison
+                dense_ms, _ = bound(dense_flops, nbytes, F32_FLOPS)
+                fields.update(shown(numbers), bound_dense_dft_ms=f"{dense_ms:.4f}")
+                headline = headline or numbers
+            say("logmel", **fields)
+            check(max_abs <= LOGMEL_MAX_ABS and exact_abs <= LOGMEL_MAX_ABS and silent_ok,
+                  f"log-mel kernel disagrees at {B} clips, {n_mels} mels")
+            worst = max(worst, max_abs)
+            del wave, out, ref, exact
+    torch.cuda.empty_cache()
     return worst, headline
 
 
@@ -750,6 +797,8 @@ TILE_KERNELS = {"KeyPadding<2, 4, 2, 0>", "FullBias<2, 4, 1, 0>", "GatedBiasRing
                 "GatedBiasRing<1, 3, 2, 1>"}
 # the bf16 backward's wgmma kernels: dq and dk+dv in either grid order, dbias
 BWD_TILE_KERNELS = {"dq<0>", "dq<1>", "dkv<0>", "dkv<1>", "dbias"}
+# the stem's wgmma conv kernels, by taps
+STEM_TILE_KERNELS = {"conv<3>", "conv<2>"}
 
 
 def phase_gated_edges(torch, attn) -> float:
@@ -792,9 +841,13 @@ def phase_bwd_edges(torch, attn) -> float:
 
 def phase_tile_resources(build) -> None:
     """What ptxas said of the bf16 wgmma kernels at the build, every
-    instantiation of the forward tiles and of the backward: no spill, no
-    stack, no serialised wgmma."""
-    from stutter_tpu_torch.cli.flash_tiles_ab import bwd_tile_kernels, tile_kernels
+    instantiation of the forward tiles, of the backward and of the stem's
+    conv layers: no spill, no stack, no serialised wgmma."""
+    from stutter_tpu_torch.cli.flash_tiles_ab import (
+        bwd_tile_kernels,
+        stem_tile_kernels,
+        tile_kernels,
+    )
 
     rows = tile_kernels(build)
     found = {row["tiles"] for row in rows}
@@ -804,8 +857,13 @@ def phase_tile_resources(build) -> None:
     found = {row["tiles"] for row in bwd_rows}
     check(len(bwd_rows) == len(BWD_TILE_KERNELS) and found == BWD_TILE_KERNELS,
           f"expected the backward's kernels {sorted(BWD_TILE_KERNELS)}, found {sorted(found)}")
+    stem_rows = stem_tile_kernels(build)
+    found = {row["tiles"] for row in stem_rows}
+    check(len(stem_rows) == len(STEM_TILE_KERNELS) and found == STEM_TILE_KERNELS,
+          f"expected the stem's kernels {sorted(STEM_TILE_KERNELS)}, found {sorted(found)}")
     named = ([(f"attention_bf16_kernel<{row['tiles']}>", row) for row in rows]
-             + [(f"bwd_{row['tiles']}", row) for row in bwd_rows])
+             + [(f"bwd_{row['tiles']}", row) for row in bwd_rows]
+             + [(f"stem_{row['tiles']}", row) for row in stem_rows])
     for name, row in named:
         say("ptxas", kernel=name,
             registers=row["registers"], stack_bytes=row["stack_bytes"],
@@ -1519,57 +1577,54 @@ def phase_finetune(torch, work: Path, card: str, device: str = "cuda", batch_siz
     return counts
 
 
-def seeded_stem(torch, cfg):
-    """WavLM-Large's conv stem in bf16 on the card: weights drawn like
-    init_wavlm's, biases and norm affines given seeded noise so that every
-    term of the epilogue is exercised."""
-    from stutter_tpu_torch.models.wavlm import ConvFeatureEncoder
-
-    g = torch.Generator().manual_seed(0)
-    stem = ConvFeatureEncoder(cfg)
-    with torch.no_grad():
-        for layer in stem.layers:
-            c_out, c_in, k = layer.weight.shape
-            layer.weight.copy_(torch.randn(layer.weight.shape, generator=g) * (c_in * k) ** -0.5)
-            layer.bias.copy_(torch.randn(c_out, generator=g) * 0.1)
-            layer.norm_scale.copy_(1.0 + 0.1 * torch.randn(c_out, generator=g))
-            layer.norm_bias.copy_(0.1 * torch.randn(c_out, generator=g))
-    return stem.to("cuda", torch.bfloat16)
-
-
 def stem_flops_bytes(st, B: int, T: int, weights, table):
     """The fused stem's operations, the bytes of its inputs and output (each
-    once), and the bytes the per-layer design also moves: each intermediate
-    layer's bf16 frames written once and read once."""
+    once), the bytes the per-layer design also moves (each intermediate
+    layer's bf16 frames written once and read once), and the conv layers'
+    weight bytes read from L2 (once a cluster of CTAs, ``st.conv_plan``)."""
     lengths = st.stem_layer_lengths(T)
     taps = (10,) + tuple(k * st.CHANNELS for k in (3, 3, 3, 3, 2, 2))
     flops = sum(2 * B * n * k * st.CHANNELS for n, k in zip(lengths, taps))
     io = 4 * B * T + 2 * weights.numel() + 4 * table.numel() + 2 * B * lengths[-1] * st.CHANNELS
     between = sum(2 * 2 * B * n * st.CHANNELS for n in lengths[:-1])
-    return flops, io, between
+    weight_reads = sum(B * tiles // st.CONV_CLUSTER * 2 * k * st.CHANNELS ** 2
+                       for (_, _, tiles), k in zip(st.conv_plan(T), (3, 3, 3, 3, 2, 2)))
+    return flops, io, between, weight_reads
+
+
+# the stem's cases (clips, samples, timed): the 3 s and 30 s buckets; then one
+# clip, a one-frame clip (T = 400), an unaligned length, and 1 s clips, whose
+# layers 1 and 6 leave a cluster with a CTA of no rows
+STEM_CASES = ((128, 51_280, True), (12, 481_360, True), (1, 51_280, False), (3, 400, False),
+              (5, 51_417, False), (2, 16_080, False))
 
 
 def phase_stem(torch, card: str):
     """The fused stem kernel against its plain version, and its end-masked
     frames against the plain ConvFeatureEncoder (cuDNN, per-layer masking),
-    at the 3 s and 30 s buckets with ragged lengths, a silent clip and a
-    clip of 4 frames; median times of all three. Returns (worst max-abs
-    error, the numbers at the 3 s bucket)."""
+    at ``STEM_CASES`` with ragged lengths, a silent clip and a clip of 4
+    frames; median times of all three at the two buckets. Returns (worst
+    max-abs error, the numbers at the 3 s bucket)."""
     from stutter_tpu_torch.frontend.wavlm_frontend import wavlm_prepare_batch
     from stutter_tpu_torch.models.wavlm import WavLMConfig, wavlm_feature_lengths
     from stutter_tpu_torch.ops import wavlm_stem as st
 
+    from stutter_tpu_torch.cli.flash_tiles_ab import seeded_stem_layers
+
     cfg = WavLMConfig.large()
-    stem = seeded_stem(torch, cfg)
+    stem = seeded_stem_layers(torch)
     weights, table = stem.packed()
     g = torch.Generator(device="cuda").manual_seed(3)
     worst, headline = 0.0, None
-    for B, T in ((128, 51_280), (12, 481_360)):  # the 3 s and 30 s buckets
+    for B, T, timed in STEM_CASES:
         lengths = torch.randint(T // 4, T + 1, (B,), device="cuda", generator=g)
-        lengths[0], lengths[1], lengths[2] = T, T, 400 + 3 * 320  # full, silent, 4 frames
+        lengths[0] = T
+        if B > 2:
+            lengths[1], lengths[2] = T, min(T, 400 + 3 * 320)  # full, silent, 4 frames
         wave = torch.randn(B, T, device="cuda", generator=g) * 0.1
         wave = wave * (torch.arange(T, device="cuda")[None] < lengths[:, None])
-        wave[1] = 0.0
+        if B > 2:
+            wave[1] = 0.0
         wave = wavlm_prepare_batch(wave, lengths, cfg.do_normalize)
         out = st.wavlm_fused_stem(wave, weights, table)
         ref = st.wavlm_fused_stem_reference(wave, weights, table)
@@ -1588,27 +1643,34 @@ def phase_stem(torch, card: str):
         masked = out.float() * keep
         lib_nrmse = float((masked - lib.float()).norm() / lib.float().norm())
         lib_cos = cosine_distance(masked, lib.float())
-        ms, plain_ms, library_ms = time_turns(
-            torch, lambda: st.wavlm_fused_stem(wave, weights, table),
-            lambda: st.wavlm_fused_stem_reference(wave, weights, table),
-            lambda: stem(wave, lengths))
-        flops, io, between = stem_flops_bytes(st, B, T, weights, table)
-        bound_ms, bound_by = bound(flops, io, BF16_FLOPS)
-        design_ms, _ = bound(flops, io + between, BF16_FLOPS)
-        say("stem", shape=f"{B}x{T}", frames=L, max_abs_err=f"{max_abs:.3e}",
-            nrmse=f"{nrmse:.3e}", nrmse_tol=STEM_NRMSE, cosine_dist=f"{cos:.3e}",
-            cosine_tol=STEM_COSINE, vs_convfeature_nrmse=f"{lib_nrmse:.3e}",
-            vs_convfeature_cosine=f"{lib_cos:.3e}", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-            library_ms=f"{library_ms:.4f}", tflop=f"{flops / 1e12:.4f}",
-            bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
-            bound_with_intermediates_ms=f"{design_ms:.4f}", card=f'"{card}"')
+        fields = dict(shape=f"{B}x{T}", frames=L, max_abs_err=f"{max_abs:.3e}",
+                      nrmse=f"{nrmse:.3e}", nrmse_tol=STEM_NRMSE, cosine_dist=f"{cos:.3e}",
+                      cosine_tol=STEM_COSINE, vs_convfeature_nrmse=f"{lib_nrmse:.3e}",
+                      vs_convfeature_cosine=f"{lib_cos:.3e}")
+        if timed:
+            ms, plain_ms, library_ms = time_turns(
+                torch, lambda: st.wavlm_fused_stem(wave, weights, table),
+                lambda: st.wavlm_fused_stem_reference(wave, weights, table),
+                lambda: stem(wave, lengths))
+            queued_ms, = time_turns(torch, lambda: st.wavlm_fused_stem(wave, weights, table),
+                                    runs=10, reps=8)
+            flops, io, between, weight_reads = stem_flops_bytes(st, B, T, weights, table)
+            bound_ms, bound_by = bound(flops, io, BF16_FLOPS)
+            design_ms, _ = bound(flops, io + between, BF16_FLOPS)
+            fields.update(ms=f"{ms:.4f}", queued_ms=f"{queued_ms:.4f}",
+                          plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
+                          tflop=f"{flops / 1e12:.4f}", bound_ms=f"{bound_ms:.4f}",
+                          bound_by=bound_by, bound_with_intermediates_ms=f"{design_ms:.4f}",
+                          weight_reads_gb=f"{weight_reads / 1e9:.3f}", card=f'"{card}"')
+            if headline is None:
+                headline = timing(ms, plain_ms, bound_ms, bound_by, library_ms)
+                headline["queued_ms"] = queued_ms
+        say("stem", **fields)
         check(nrmse <= STEM_NRMSE and cos <= STEM_COSINE,
               f"stem kernel disagrees with its plain version at {B}x{T}")
         check(lib_nrmse <= STEM_NRMSE and lib_cos <= STEM_COSINE,
               f"stem kernel disagrees with ConvFeatureEncoder at {B}x{T}")
         worst = max(worst, max_abs)
-        if headline is None:
-            headline = timing(ms, plain_ms, bound_ms, bound_by, library_ms)
         del out, ref, lib, masked, d
         torch.cuda.empty_cache()
     return worst, headline

@@ -1,10 +1,10 @@
 """Check and time the bf16 wgmma attention tiles on a CUDA card (flash_mha,
-flash_mha_bias, the WavLM gated attention and its backward), beside an
-earlier checkout's kernels and, where there is one,
-``scaled_dot_product_attention``.
+flash_mha_bias, the WavLM gated attention and its backward), the Whisper
+log-mel and the fused WavLM stem, beside an earlier checkout's kernels and,
+where there is one, ``scaled_dot_product_attention``.
 
     python -m stutter_tpu_torch.cli.flash_tiles_ab [--prev_root DIR] [--runs 20] \\
-        [--kernels all|flash|gated|bwd] [--skip_timing]
+        [--kernels all|flash|gated|bwd|logmel|stem] [--skip_timing]
 
 1. Prints what ``ptxas -v`` said of the bf16 tiles' kernels at the build
    (registers, spills, stack, per instantiation) and any "wgmma
@@ -42,6 +42,22 @@ earlier checkout's kernels and, where there is one,
    ``--prev_root``, also of the earlier kernel with its D reduction in
    PyTorch, with ``--skip_timing`` too).
 
+5. ``--kernels logmel`` (alone, not part of ``all``): holds the log-mel
+   wrapper to its plain version at 16 x 30 s, 80 and 128 mels, and reports
+   how far it and the plain version lie from the float64 log-mel on a tone
+   made with f32 time stamps; prints the profiler's split of one call,
+   launch by launch, of the earlier checkout's log-mel as its wrapper ran
+   it (the reflect pad, its kernel through its own C signature with its
+   [400, 402] basis, the epilogue in PyTorch) and of this one's; then times
+   both and the plain version in turns, per launch and with 8 launches
+   queued.
+6. ``--kernels stem`` (alone): the same for the fused stem at 128 x 3 s and
+   12 x 30 s, each checked against the plain version; the earlier kernel is
+   called through its own C signature with its tap-major weight packing, and
+   the split is by layer; beside them, cuBLAS's time for layer 1's product
+   alone as a GEMM (its im2col rows made beforehand), a yardstick for the
+   tensor cores' share.
+
 The last line is one JSON object with the times; the card's name and power
 limit are in it.
 """
@@ -56,6 +72,8 @@ import sys
 from pathlib import Path
 
 BF16_MAX_ABS, BF16_COSINE = 2e-2, 1e-5  # chip_smoke.py's bars for these kernels
+LOGMEL_MAX_ABS = 1e-4  # chip_smoke.py's bars for the log-mel and the fused stem
+STEM_COSINE, STEM_NRMSE = 5e-4, 0.03
 QUEUED_LAUNCHES = 8  # launches between two events in the second timing
 TIMED = [("flash_mha", 16, 20, 1500), ("flash_mha_bias", 12, 16, 1504),
          ("flash_mha_bias", 19, 16, 1008)]
@@ -69,13 +87,19 @@ BWD_EDGE_LENGTHS = (37, 63, 64, 65, 127, 128, 129, 160, 512, 1008)
 # the backward's shapes (B, H, L): the fine-tune CLI's 3 s batch, its 10 s
 # bucket, a ragged long length
 BWD_TIMED = [(32, 16, 160), (9, 16, 512), (4, 16, 1008)]
+# the log-mel's path shapes (clips, mel bins): a Whisper batch of 16 x 30 s at
+# large-v2's 80 and large-v3's 128 mels
+LOGMEL_TIMED = [(16, 80), (16, 128)]
+# the fused stem's buckets (clips, samples): 128 x 3 s and 12 x 30 s
+STEM_TIMED = [(128, 51_280), (12, 481_360)]
 
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--prev_root", default=None)
     parser.add_argument("--runs", type=int, default=20)
-    parser.add_argument("--kernels", choices=("all", "flash", "gated", "bwd"), default="all")
+    parser.add_argument("--kernels", default="all",
+                        choices=("all", "flash", "gated", "bwd", "logmel", "stem"))
     parser.add_argument("--skip_timing", action="store_true")
     return parser.parse_args(argv)
 
@@ -598,6 +622,255 @@ def bwd_tile_kernels(build) -> list[dict]:
     return found
 
 
+def profile_launches(torch, fn) -> list[tuple[str, float]]:
+    """The device time of each kernel launch of one call of ``fn`` (after a
+    warm call), by the profiler, in launch order: [(kernel name, ms)]."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):  # a process's first trace may come back empty: keep the second
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    launches = [evt for evt in prof.events()
+                if evt.device_type == DeviceType.CUDA and evt.name != "Activity Buffer Request"
+                and evt.time_range.elapsed_us() > 0]
+    launches.sort(key=lambda evt: evt.time_range.start)
+    return [(evt.name, evt.time_range.elapsed_us() / 1e3) for evt in launches]
+
+
+def print_launches(what: str, launches) -> None:
+    total = sum(ms for _, ms in launches)
+    print(f"[split] {what}: {len(launches)} launches, {total:.4f} ms of device time",
+          flush=True)
+    for name, ms in launches:
+        print(f"    {ms:9.4f}  {name[:110]}", flush=True)
+
+
+def logmel_wave(torch, g, B):
+    """[B, 480000] f32 on the card: noise and a tone per clip."""
+    t = torch.arange(480_000, device="cuda") / 16000.0
+    f0 = torch.rand(B, 1, device="cuda", generator=g) * 500 + 100
+    return 0.1 * torch.randn(B, 480_000, device="cuda", generator=g) + 0.2 * torch.sin(
+        2 * torch.pi * f0 * t[None])
+
+
+def prev_logmel_call(torch, prev, wave, n_mels):
+    """An earlier checkout's log-mel as its wrapper ran it: the reflect pad
+    in PyTorch, its dense-DFT kernel through its own C signature (x, basis,
+    mel, out, B, n_mels, stream) with its [400, 402] basis, then the floor,
+    affine and transpose in PyTorch."""
+    from stutter_tpu_torch.ops import logmel
+
+    basis, mel_m = logmel._constants(wave.device, n_mels)  # [400, 402] and [201, n_mels]
+    x = logmel._reflect_pad(wave).contiguous()
+    B = wave.shape[0]
+    out = torch.empty((B, 3000, n_mels), dtype=torch.float32, device=wave.device)
+    rc = prev.whisper_log_mel(x.data_ptr(), basis.data_ptr(), mel_m.data_ptr(), out.data_ptr(),
+                              B, n_mels, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"the earlier whisper_log_mel failed: CUDA error {rc}")
+    return logmel._floor_affine(out)
+
+
+def check_logmel(torch, logmel, prev) -> int:
+    """The log-mel wrapper against its plain version (and an earlier
+    checkout's kernel) at the path's shapes; returns the cases that
+    disagree (chip_smoke.py's bar, 1e-4 max-abs)."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    failures = 0
+    for B, n_mels in LOGMEL_TIMED:
+        wave = logmel_wave(torch, g, B)
+        out = logmel.whisper_log_mel(wave, n_mels)
+        ref = logmel.log_mel_spectrogram_reference(wave, n_mels)
+        err = float((out - ref).abs().max())
+        line = f"[check] logmel {B}x480000 n_mels={n_mels} max_abs={err:.3e}"
+        if prev is not None:
+            prev_err = (prev_logmel_call(torch, prev, wave, n_mels) - ref).abs().max()
+            line += f" prev_max_abs={float(prev_err):.3e}"
+        ok = err <= LOGMEL_MAX_ABS and bool(torch.isfinite(out).all())
+        print(f"{line} {'ok' if ok else 'DISAGREES'}", flush=True)
+        failures += not ok
+    # How far the kernel and the plain f32 version each lie from the float64
+    # log-mel on a tone under which f32 time stamps put phase noise ~60 dB
+    # down: a report, not a check.
+    t = torch.arange(480_000, device="cuda") / 16000.0
+    tone = (0.5 * torch.sin(2 * torch.pi * 440.0 * t))[None]
+    for n_mels in (80, 128):
+        exact = logmel.log_mel_spectrogram_reference(tone.double(), n_mels)
+        kernel = float((logmel.whisper_log_mel(tone, n_mels).double() - exact).abs().max())
+        plain = float((logmel.log_mel_spectrogram_reference(tone, n_mels).double()
+                       - exact).abs().max())
+        print(f"[accuracy] f32-stamped tone n_mels={n_mels} kernel_vs_float64={kernel:.3e} "
+              f"plain_vs_float64={plain:.3e}", flush=True)
+    return failures
+
+
+def time_logmel(torch, logmel, prev, runs: int) -> list[dict]:
+    """The log-mel at its path shapes: the profiler's split of one call
+    (reflect pad, kernel, epilogue ops) of the earlier checkout's and of
+    this one's, then per launch and queued in turns with the earlier
+    kernel and the plain version."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    results = []
+    for B, n_mels in LOGMEL_TIMED:
+        wave = logmel_wave(torch, g, B)
+        fns = {"kernel": lambda: logmel.whisper_log_mel(wave, n_mels),
+               "plain": lambda: logmel.log_mel_spectrogram_reference(wave, n_mels)}
+        if prev is not None:
+            fns["prev"] = lambda: prev_logmel_call(torch, prev, wave, n_mels)
+            print_launches(f"prev logmel {B}x480000 n_mels={n_mels}",
+                           profile_launches(torch, fns["prev"]))
+        print_launches(f"logmel {B}x480000 n_mels={n_mels}",
+                       profile_launches(torch, fns["kernel"]))
+        if runs == 0:
+            continue
+        ms = time_turns(torch, list(fns.values()), runs)
+        queued = time_turns(torch, list(fns.values()), runs, reps=QUEUED_LAUNCHES)
+        row = {"kernel": "whisper_log_mel", "shape": f"{B}x480000", "n_mels": n_mels}
+        for (name, _), t, tq in zip(fns.items(), ms, queued):
+            key = "" if name == "kernel" else f"{name}_"
+            row[f"{key}ms"], row[f"{key}queued_ms"] = t, tq
+        print(f"[time] {row}", flush=True)
+        results.append(row)
+    return results
+
+
+def seeded_stem_layers(torch):
+    """WavLM-Large's conv stem in bf16 on the card: weights drawn like
+    init_wavlm's, biases and norm affines given seeded noise so that every
+    term of the epilogue is exercised."""
+    from stutter_tpu_torch.models.wavlm import ConvFeatureEncoder, WavLMConfig
+
+    g = torch.Generator().manual_seed(0)
+    stem = ConvFeatureEncoder(WavLMConfig.large())
+    with torch.no_grad():
+        for layer in stem.layers:
+            c_out, c_in, k = layer.weight.shape
+            layer.weight.copy_(torch.randn(layer.weight.shape, generator=g) * (c_in * k) ** -0.5)
+            layer.bias.copy_(torch.randn(c_out, generator=g) * 0.1)
+            layer.norm_scale.copy_(1.0 + 0.1 * torch.randn(c_out, generator=g))
+            layer.norm_bias.copy_(0.1 * torch.randn(c_out, generator=g))
+    return stem.to("cuda", torch.bfloat16)
+
+
+def prev_stem_pack(torch, conv_layers):
+    """The stem weights as the 64-row mma.sync stem kernel took them: each
+    layer's tap-major [k * C_in, 512] matrix stacked, layer 0's 10 rows
+    zero-padded to 16; and the [7, 3, 512] f32 table."""
+    mats, rows = [], []
+    for i, layer in enumerate(conv_layers):
+        w = layer.weight.detach()
+        C, c_in, k = w.shape
+        mat = w.permute(2, 1, 0).reshape(k * c_in, C).to(torch.bfloat16)
+        if i == 0:
+            mat = torch.cat([mat, mat.new_zeros(16 - mat.shape[0], C)])
+        mats.append(mat)
+        rows.append(torch.stack([layer.bias.detach().float(), layer.norm_scale.detach().float(),
+                                 layer.norm_bias.detach().float()]))
+    return torch.cat(mats).contiguous(), torch.stack(rows).contiguous()
+
+
+def prev_stem_call(torch, prev, wave, weights, table):
+    """An earlier checkout's stem through its own C signature (wave,
+    weights, table, buf0, buf1, out, B, T, stream) and packing."""
+    from stutter_tpu_torch.ops.wavlm_stem import stem_layer_lengths
+
+    B, T = wave.shape
+    lengths = stem_layer_lengths(T)
+    opts = dict(dtype=torch.bfloat16, device=wave.device)
+    buf0 = torch.empty((B, lengths[0], 512), **opts)
+    buf1 = torch.empty((B, lengths[1], 512), **opts)
+    out = torch.empty((B, lengths[-1], 512), **opts)
+    rc = prev.wavlm_fused_stem(wave.data_ptr(), weights.data_ptr(), table.data_ptr(),
+                               buf0.data_ptr(), buf1.data_ptr(), out.data_ptr(), B, T,
+                               torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"the earlier wavlm_fused_stem failed: CUDA error {rc}")
+    return out
+
+
+def stem_close(torch, out, ref) -> tuple[bool, float, float]:
+    d = out.float() - ref.float()
+    nrmse = float(d.norm() / ref.float().norm())
+    cos = cosine_distance(out.float(), ref.float())
+    ok = bool(torch.isfinite(out).all()) and nrmse <= STEM_NRMSE and cos <= STEM_COSINE
+    return ok, nrmse, cos
+
+
+def layer1_gemm_ms(torch, B: int, T: int, runs: int) -> float:
+    """A yardstick for the tensor cores' share: cuBLAS's bf16 product of the
+    stem's layer 1 as a GEMM alone ([B T_1, 3 x 512] im2col rows, made
+    here, by the [1536, 512] weight), 8 queued, ms a product."""
+    from stutter_tpu_torch.ops.wavlm_stem import stem_layer_lengths
+
+    rows = B * stem_layer_lengths(T)[1]
+    a = torch.randn(rows, 3 * 512, device="cuda", dtype=torch.bfloat16)
+    w = torch.randn(3 * 512, 512, device="cuda", dtype=torch.bfloat16)
+    ms, = time_turns(torch, [lambda: a @ w], runs, reps=QUEUED_LAUNCHES)
+    del a, w
+    torch.cuda.empty_cache()
+    return ms
+
+
+def time_stem(torch, prev, runs: int) -> list[dict]:
+    """The fused stem at its buckets: each checked against its plain
+    version, the profiler's split of one call by layer (the earlier
+    checkout's and this one's), then per launch and queued in turns with
+    the earlier kernel."""
+    from stutter_tpu_torch.ops import wavlm_stem as st
+
+    stem = seeded_stem_layers(torch)
+    weights, table = stem.packed()
+    prev_packed = prev_stem_pack(torch, stem.layers) if prev is not None else None
+    g = torch.Generator(device="cuda").manual_seed(13)
+    results = []
+    for B, T in STEM_TIMED:
+        wave = torch.randn(B, T, device="cuda", generator=g) * 0.5
+        fns = {"kernel": lambda: st.wavlm_fused_stem(wave, weights, table)}
+        if prev is not None:
+            fns["prev"] = lambda: prev_stem_call(torch, prev, wave, *prev_packed)
+        ref = st.wavlm_fused_stem_reference(wave, weights, table)
+        for name, fn in fns.items():
+            ok, nrmse, cos = stem_close(torch, fn(), ref)
+            print(f"[check] stem {name} {B}x{T} nrmse={nrmse:.3e} cosine={cos:.3e} "
+                  f"{'ok' if ok else 'DISAGREES'}", flush=True)
+            if not ok:
+                raise RuntimeError(f"the stem ({name}) disagrees with its plain version")
+        del ref
+        for name, fn in reversed(fns.items()):
+            print_launches(f"{name} stem {B}x{T}", profile_launches(torch, fn))
+        if runs == 0:
+            continue
+        ms = time_turns(torch, list(fns.values()), runs)
+        queued = time_turns(torch, list(fns.values()), runs, reps=QUEUED_LAUNCHES)
+        row = {"kernel": "wavlm_fused_stem", "shape": f"{B}x{T}"}
+        for (name, _), t, tq in zip(fns.items(), ms, queued):
+            key = "" if name == "kernel" else f"{name}_"
+            row[f"{key}ms"], row[f"{key}queued_ms"] = t, tq
+        row["layer1_gemm_cublas_queued_ms"] = layer1_gemm_ms(torch, B, T, runs)
+        print(f"[time] {row}", flush=True)
+        results.append(row)
+        torch.cuda.empty_cache()
+    return results
+
+
+def stem_tile_kernels(build) -> list[dict]:
+    """ptxas's rows for the stem's wgmma conv kernels, each named by its taps
+    (``conv<3>``, ``conv<2>``)."""
+    import re
+
+    found = []
+    for row in build.resource_report("stem_conv_kernel"):
+        m = re.search(r"stem_conv_kernelILi(\d+)EE", row["kernel"])
+        if m:
+            row["tiles"] = f"conv<{m.group(1)}>"
+            found.append(row)
+    return found
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
 
@@ -607,6 +880,7 @@ def main(argv=None) -> int:
     from stutter_tpu_torch.extract.pipeline import resolve_device
     from stutter_tpu_torch.ops import _build
     from stutter_tpu_torch.ops import flash_mha as mha
+    from stutter_tpu_torch.ops import logmel
     from stutter_tpu_torch.ops import wavlm_attention as attn
 
     resolve_device("cuda")
@@ -624,11 +898,20 @@ def main(argv=None) -> int:
         print(f"[ptxas] bwd {row['tiles']} registers={row['registers']} "
               f"stack={row['stack_bytes']} spill_stores={row['spill_store_bytes']} "
               f"spill_loads={row['spill_load_bytes']}", flush=True)
+    for row in stem_tile_kernels(_build):
+        print(f"[ptxas] stem {row['tiles']} registers={row['registers']} "
+              f"stack={row['stack_bytes']} spill_stores={row['spill_store_bytes']} "
+              f"spill_loads={row['spill_load_bytes']}", flush=True)
     warnings = _build.serialized_wgmma_warnings()
     print(f"[ptxas] serialized_wgmma_warnings={len(warnings)}", flush=True)
     for line in warnings[:8]:
         print(f"    {line}", flush=True)
 
+    bwd = args.kernels in ("all", "bwd")
+    own = args.kernels in ("logmel", "stem")  # timed with their earlier kernels alone
+    prev = None
+    if args.prev_root and (bwd or own or not args.skip_timing):
+        prev = load_prev_library(Path(args.prev_root))
     failures = 0
     if args.kernels in ("all", "flash"):
         cases, bad, _ = check_cases(torch, mha)
@@ -642,12 +925,16 @@ def main(argv=None) -> int:
         cases, bad, _ = check_bwd_cases(torch, attn)
         print(f"[check] bwd: {bad} of {cases} cases disagree", flush=True)
         failures += bad
+    if args.kernels == "logmel":
+        failures += check_logmel(torch, logmel, prev)
     if failures:
         return 1
-    bwd = args.kernels in ("all", "bwd")
-    prev = None
-    if args.prev_root and (bwd or not args.skip_timing):
-        prev = load_prev_library(Path(args.prev_root))
+    if own:
+        runs = 0 if args.skip_timing else args.runs
+        results = (time_logmel(torch, logmel, prev, runs) if args.kernels == "logmel"
+                   else time_stem(torch, prev, runs))
+        print(json.dumps({"card": card, "times": results}))
+        return 0
     if prev is not None and bwd:
         prev_bwd_splits(torch, prev)
     if args.skip_timing:

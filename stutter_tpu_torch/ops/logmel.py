@@ -7,17 +7,25 @@ HF's ``WhisperFeatureExtractor``: Hann STFT with n_fft 400 and hop 160,
 centre reflect padding, the last frame dropped, slaney mels over 0-8 kHz,
 ``log10(max(., 1e-10))``, a floor at each clip's max - 8, then (x + 4) / 4.
 
-``whisper_log_mel`` launches ``csrc/logmel.cu`` for CUDA tensors (counted in
-``whisper_log_mel.launches``) and runs the epilogue (floor, affine, transpose
-to [B, n_mels, 3000]) as plain tensor ops; for CPU tensors it runs
-``log_mel_spectrogram_reference``, the plain version, which the tests and
-the on-card comparison also use.
+``whisper_log_mel`` launches ``csrc/logmel.cu`` for CUDA tensors (counted
+once a call in ``whisper_log_mel.launches``; a call is two kernel launches:
+the features, then each clip's floor and affine in place); for CPU tensors
+it runs ``log_mel_spectrogram_reference``, the plain version, which the
+tests and the on-card comparison also use.
+
+The kernel computes each frame by a real FFT (a 200-point complex FFT of the
+even and odd samples in Stockham stages of ``FFT_RADICES``, then the
+real-split step) and multiplies only the mel bank's nonzero taps; its tables
+(``fft_tables``, ``mel_taps``) are made here in float64 and rounded once to
+f32. It reads the unpadded wave and reflects the ends itself
+(``reflect_index`` is its rule).
 
 Both products stay in full f32 (the JAX package runs them at
 ``Precision.HIGHEST``): quiet frames rely on cancellation that bf16 or TF32
 loses. The plain version frames with ``unfold`` and multiplies with f32
 ``matmul`` under ``no_tf32``; a ``conv1d`` would go through cuDNN, which
-defaults to TF32.
+defaults to TF32. Given a float64 wave it computes in float64 throughout,
+with float64 tables: the exact log-mel that the kernel is also held to.
 """
 
 from __future__ import annotations
@@ -39,6 +47,9 @@ WHISPER_CHUNK_S = 30
 WHISPER_N_SAMPLES = WHISPER_SR * WHISPER_CHUNK_S  # 480_000
 WHISPER_N_FRAMES = WHISPER_N_SAMPLES // WHISPER_HOP  # 3000
 MAX_MELS = 128  # the kernel's limit (large-v3 has 128)
+FFT_RADICES = (8, 5, 5)  # the kernel's Stockham stages of its 200-point complex FFT
+TILE_FRAMES = 16  # frames a block of the kernel computes
+N_TILES = -(-WHISPER_N_FRAMES // TILE_FRAMES)  # 188 blocks a clip
 
 
 def _hann_periodic(n: int) -> np.ndarray:
@@ -47,8 +58,8 @@ def _hann_periodic(n: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=4)
-def _dft_basis(n_fft: int) -> np.ndarray:
-    """Windowed real-DFT basis, shape [2 * (n_fft//2 + 1), 1, n_fft].
+def _dft_basis64(n_fft: int) -> np.ndarray:
+    """Windowed real-DFT basis in float64, shape [2 * (n_fft//2 + 1), 1, n_fft].
 
     Row k is window * cos(2 pi k n / N); row n_bins + k is -window * sin(...).
     Power spectrum = cos_part^2 + sin_part^2 (sign of sin irrelevant).
@@ -59,11 +70,17 @@ def _dft_basis(n_fft: int) -> np.ndarray:
     ang = 2.0 * np.pi * k * n / n_fft
     win = _hann_periodic(n_fft)[None, :]
     basis = np.concatenate([np.cos(ang) * win, -np.sin(ang) * win], axis=0)
-    return basis[:, None, :].astype(np.float32)
+    return basis[:, None, :]
 
 
 @functools.lru_cache(maxsize=4)
-def _whisper_mel_matrix(n_fft: int, n_mels: int, sr: int) -> np.ndarray:
+def _dft_basis(n_fft: int) -> np.ndarray:
+    """``_dft_basis64`` rounded to float32."""
+    return _dft_basis64(n_fft).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def _whisper_mel_matrix(n_fft: int, n_mels: int, sr: int, dtype=np.float32) -> np.ndarray:
     return mel_filter_bank(
         num_frequency_bins=n_fft // 2 + 1,
         num_mel_filters=n_mels,
@@ -71,15 +88,63 @@ def _whisper_mel_matrix(n_fft: int, n_mels: int, sr: int) -> np.ndarray:
         max_frequency=float(sr) / 2.0,
         sampling_rate=sr,
         norm="slaney",
+        dtype=dtype,
     )
 
 
 @functools.lru_cache(maxsize=8)
-def _constants(device: torch.device, n_mels: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """(basis [400, 402], mel matrix [201, n_mels]), f32 and contiguous on device."""
-    basis = np.ascontiguousarray(_dft_basis(WHISPER_N_FFT)[:, 0, :].T)
-    mel = _whisper_mel_matrix(WHISPER_N_FFT, n_mels, WHISPER_SR)
+def _constants(device: torch.device, n_mels: int,
+               dtype: torch.dtype = torch.float32) -> tuple[torch.Tensor, torch.Tensor]:
+    """(basis [400, 402], mel matrix [201, n_mels]), f32 (or float64, from
+    the unrounded tables) and contiguous on device."""
+    wide = dtype == torch.float64
+    basis = _dft_basis64(WHISPER_N_FFT) if wide else _dft_basis(WHISPER_N_FFT)
+    basis = np.ascontiguousarray(basis[:, 0, :].T)
+    mel = _whisper_mel_matrix(WHISPER_N_FFT, n_mels, WHISPER_SR,
+                              np.float64 if wide else np.float32)
     return torch.from_numpy(basis).to(device), torch.from_numpy(mel).to(device)
+
+
+@functools.lru_cache(maxsize=1)
+def fft_tables() -> tuple[np.ndarray, np.ndarray]:
+    """The kernel's FFT tables, made in float64 and rounded once to f32: the
+    periodic Hann window [400] and the twiddles [400, 2], (cos, sin) of
+    2 pi m / 400 (the kernel multiplies by cos - i sin)."""
+    ang = 2.0 * np.pi * np.arange(WHISPER_N_FFT) / WHISPER_N_FFT
+    twiddles = np.stack([np.cos(ang), np.sin(ang)], axis=1)
+    return _hann_periodic(WHISPER_N_FFT).astype(np.float32), twiddles.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=4)
+def mel_taps(n_mels: int) -> tuple[np.ndarray, np.ndarray]:
+    """The mel bank's nonzero taps as the kernel reads them: (weights f32,
+    index int32 [2 * n_mels + 1]). Filter m's weights are
+    ``weights[index[m]:index[m + 1]]``, for the consecutive bins from
+    ``index[n_mels + 1 + m]`` on; they are the entries of
+    ``_whisper_mel_matrix`` (made in float64, rounded once)."""
+    fb = _whisper_mel_matrix(WHISPER_N_FFT, n_mels, WHISPER_SR)
+    weights, offsets, first = [], [0], []
+    for m in range(n_mels):
+        nz = np.flatnonzero(fb[:, m])
+        lo, hi = (int(nz[0]), int(nz[-1]) + 1) if nz.size else (0, 0)
+        weights.append(fb[lo:hi, m])
+        offsets.append(offsets[-1] + hi - lo)
+        first.append(lo)
+    return np.concatenate(weights).astype(np.float32), np.array(offsets + first, np.int32)
+
+
+def reflect_index(s: np.ndarray) -> np.ndarray:
+    """The kernel's rule for sample s of the centre-padded wave (s = padded
+    index - 200): its index into the unpadded clip, reflected at both ends
+    without repeating the edge sample, as ``_reflect_pad`` pads."""
+    s = np.abs(s)
+    return np.where(s < WHISPER_N_SAMPLES, s, 2 * (WHISPER_N_SAMPLES - 1) - s)
+
+
+@functools.lru_cache(maxsize=8)
+def _kernel_tables(device: torch.device, n_mels: int) -> tuple[torch.Tensor, ...]:
+    """(window, twiddles, tap weights, tap index) on device."""
+    return tuple(torch.from_numpy(t).to(device) for t in (*fft_tables(), *mel_taps(n_mels)))
 
 
 def pad_or_trim(waveform: torch.Tensor, n_samples: int = WHISPER_N_SAMPLES) -> torch.Tensor:
@@ -91,9 +156,11 @@ def pad_or_trim(waveform: torch.Tensor, n_samples: int = WHISPER_N_SAMPLES) -> t
 
 
 def _reflect_pad(waveform: torch.Tensor) -> torch.Tensor:
-    """[B, T] -> [B, T + n_fft] f32, centre reflect padding (torch.stft's)."""
+    """[B, T] -> [B, T + n_fft] f32 (float64 stays), centre reflect padding
+    (torch.stft's)."""
     pad = WHISPER_N_FFT // 2
-    return F.pad(waveform.float()[:, None, :], (pad, pad), mode="reflect")[:, 0]
+    wave = waveform if waveform.dtype == torch.float64 else waveform.float()
+    return F.pad(wave[:, None, :], (pad, pad), mode="reflect")[:, 0]
 
 
 def _floor_affine(log_spec: torch.Tensor) -> torch.Tensor:
@@ -106,9 +173,11 @@ def _floor_affine(log_spec: torch.Tensor) -> torch.Tensor:
 
 def log_mel_spectrogram_reference(waveform: torch.Tensor,
                                   n_mels: int = WHISPER_N_MELS) -> torch.Tensor:
-    """Plain version: [B, T] -> [B, n_mels, T // 160] f32, every product in
-    full f32 (the [B, F, 402] spectrum is materialised)."""
-    basis, mel_m = _constants(waveform.device, n_mels)
+    """Plain version: [B, T] -> [B, n_mels, T // 160] f32 (float64 for a
+    float64 wave), every product in full f32 (the [B, F, 402] spectrum is
+    materialised)."""
+    dtype = torch.float64 if waveform.dtype == torch.float64 else torch.float32
+    basis, mel_m = _constants(waveform.device, n_mels, dtype)
     frames = _reflect_pad(waveform).unfold(-1, WHISPER_N_FFT, WHISPER_HOP)[:, :-1]
     n_bins = WHISPER_N_FFT // 2 + 1
     with no_tf32():
@@ -140,19 +209,23 @@ def whisper_log_mel(waveform: torch.Tensor, n_mels: int = WHISPER_N_MELS) -> tor
     from stutter_tpu_torch.ops._build import kernel_library
 
     lib = kernel_library()
-    x = _reflect_pad(waveform).contiguous()
-    basis, mel_m = _constants(waveform.device, n_mels)
+    x = waveform.contiguous()
+    if x.data_ptr() % 16:  # the kernel stages the samples with 16-byte copies
+        x = x.clone()
+    window, twiddles, taps, tap_index = _kernel_tables(waveform.device, n_mels)
     B = waveform.shape[0]
-    out = torch.empty((B, WHISPER_N_FRAMES, n_mels), dtype=torch.float32,
+    out = torch.empty((B, n_mels, WHISPER_N_FRAMES), dtype=torch.float32,
                       device=waveform.device)
+    block_max = torch.empty((B, N_TILES), dtype=torch.float32, device=waveform.device)
     with torch.cuda.device(waveform.device):
         stream = torch.cuda.current_stream(waveform.device).cuda_stream
-        rc = lib.whisper_log_mel(x.data_ptr(), basis.data_ptr(), mel_m.data_ptr(),
-                                 out.data_ptr(), B, n_mels, stream)
+        rc = lib.whisper_log_mel(x.data_ptr(), window.data_ptr(), twiddles.data_ptr(),
+                                 taps.data_ptr(), tap_index.data_ptr(), out.data_ptr(),
+                                 block_max.data_ptr(), B, n_mels, stream)
     if rc != 0:
         raise RuntimeError(f"whisper_log_mel launch failed: CUDA error {rc}")
     whisper_log_mel.launches += 1
-    return _floor_affine(out)
+    return out
 
 
 whisper_log_mel.launches = 0

@@ -17,10 +17,16 @@ package):
 - the tanh GELU of that bf16 value, rounded to bf16.
 
 ``pack_stem_weights`` lays the 7 ``_ConvLayer``s out once as the kernels read
-them: each layer's [C_out, C_in, k] weight as a tap-major [k * C_in, C_out]
-matrix (layer 0's 10 taps zero-padded to 16 rows), all in one bf16 buffer,
-and a [7, 3, C] f32 table of (conv bias, LN scale, LN bias).
-``WavLMModel`` caches the pack per model and dtype.
+them, all in one bf16 buffer of [16 + sum_i k_i C, C] rows, and a [7, 3, C]
+f32 table of (conv bias, LN scale, LN bias): layer 0's [C_out, 1, 10] weight
+as a tap-major [16, C_out] matrix (taps zero-padded to 16 rows); each conv
+layer's [C_out, C_in, k] weight, in its k * C_in rows, as the wgmma tiles of
+``csrc/wavlm_stem.cu``: for each pass of ``min(C, 256)`` output channels and
+each chunk of 64 of the tap-major contraction (index j * C_in + c), a
+K-major [channels, 64] tile whose 16-byte groups are swizzled (group g of
+row n stored at g ^ (n % 8): the 128-byte swizzle that wgmma reads), so that
+a tile is one contiguous copy. ``WavLMModel`` caches the pack per model and
+dtype.
 
 ``wavlm_fused_stem`` launches ``csrc/wavlm_stem.cu`` for CUDA tensors (seven
 kernel launches, one per layer, counted once per call in
@@ -54,6 +60,10 @@ _STRIDES = (5, 2, 2, 2, 2, 2, 2)
 _BLOCK_FRAMES = 16  # the JAX kernel's output frames per grid step
 CHANNELS = 512  # the width the Hopper kernel is built for
 _LAYER0_ROWS = 16  # layer 0's 10 taps, zero-padded to one m16n8k16 depth
+_TILE_K = 64  # the conv tiles' contraction: one 128-byte row
+_TILE_N = 256  # the conv tiles' output channels: one pass of the kernel
+CONV_TILE_FRAMES = 128  # output frames a tile of the conv kernels
+CONV_CLUSTER = 2  # CTAs a cluster along the frames, sharing each weight tile
 
 
 def stem_layer_lengths(T: int) -> list[int]:
@@ -63,6 +73,20 @@ def stem_layer_lengths(T: int) -> list[int]:
         L = (L - k) // s + 1
         lengths.append(L)
     return lengths
+
+
+def conv_plan(T: int) -> list[tuple[int, int, int]]:
+    """The CUDA conv kernels' tiles along one clip, layer by layer (1-6):
+    (input frames, output frames, tiles). A tile is ``CONV_TILE_FRAMES``
+    output frames; a cluster of ``CONV_CLUSTER`` CTAs takes that many
+    adjacent tiles at a time, so the count is rounded up to whole clusters,
+    and a tile whose frames all lie past the clip's end stores nothing."""
+    lengths = stem_layer_lengths(T)
+    plan = []
+    for T_in, T_out in zip(lengths[:-1], lengths[1:]):
+        tiles = -(-T_out // CONV_TILE_FRAMES)
+        plan.append((T_in, T_out, -(-tiles // CONV_CLUSTER) * CONV_CLUSTER))
+    return plan
 
 
 def stem_frames_for_samples(T: int) -> int:
@@ -94,17 +118,49 @@ def fused_stem_supported(cfg, device: torch.device) -> bool:
     return device.type == "cpu" or cfg.conv_dim[0] == CHANNELS
 
 
+def _swizzled_groups(rows: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Indices ([rows, 1] rows, [rows, 8] groups) of the 16-byte group of a
+    128-byte row that lands at each position under the 128-byte swizzle (an
+    involution: g ^ (row % 8))."""
+    row = torch.arange(rows, device=device)[:, None]
+    return row, torch.arange(8, device=device)[None, :] ^ (row % 8)
+
+
+def conv_tiles(w: torch.Tensor) -> torch.Tensor:
+    """A conv layer's [C_out, C_in, k] weight -> its wgmma tiles as k * C_in
+    rows of C_out: [passes][chunks][n][64] with each row's 16-byte groups
+    swizzled."""
+    C, c_in, k = w.shape
+    nb = min(C, _TILE_N)
+    mat = w.permute(0, 2, 1).reshape(C, k * c_in)  # [n, j * C_in + c]
+    tiles = mat.view(C // nb, nb, k * c_in // _TILE_K, 8, 8).permute(0, 2, 1, 3, 4)
+    tiles = tiles[(slice(None), slice(None), *_swizzled_groups(nb, w.device))]
+    return tiles.reshape(k * c_in, C)
+
+
+def conv_from_tiles(block: torch.Tensor, k: int) -> torch.Tensor:
+    """``conv_tiles``'s inverse: k * C_in rows of C_out -> [C_out, C_in, k]."""
+    rows, C = block.shape
+    c_in, nb = rows // k, min(C, _TILE_N)
+    tiles = block.reshape(C // nb, rows // _TILE_K, nb, 8, 8)
+    tiles = tiles[(slice(None), slice(None), *_swizzled_groups(nb, block.device))]
+    return tiles.permute(0, 2, 1, 3, 4).reshape(C, k, c_in).permute(0, 2, 1)
+
+
 def pack_stem_weights(conv_layers) -> tuple[torch.Tensor, torch.Tensor]:
-    """The 7 ``_ConvLayer``s -> (weights bf16 [16 + 4 * 3C + 2 * 2C, C]: each
-    layer's tap-major [k * C_in, C] matrix stacked, layer 0's padded to 16
-    rows; table f32 [7, 3, C]: conv bias, LN scale, LN bias)."""
+    """The 7 ``_ConvLayer``s -> (weights bf16 [16 + 4 * 3C + 2 * 2C, C]:
+    layer 0's tap-major [16, C] matrix, then each conv layer's wgmma tiles in
+    its k * C rows (see the module's docstring); table f32 [7, 3, C]: conv
+    bias, LN scale, LN bias)."""
     mats, rows = [], []
     for i, layer in enumerate(conv_layers):
-        w = layer.weight  # [C_out, C_in, k]
+        w = layer.weight.detach().to(torch.bfloat16)  # [C_out, C_in, k]
         C, c_in, k = w.shape
-        mat = w.detach().permute(2, 1, 0).reshape(k * c_in, C).to(torch.bfloat16)
         if i == 0:
+            mat = w.permute(2, 1, 0).reshape(k * c_in, C)
             mat = F.pad(mat, (0, 0, 0, _LAYER0_ROWS - mat.shape[0]))
+        else:
+            mat = conv_tiles(w)
         mats.append(mat)
         bias = (layer.bias.detach().float() if layer.bias is not None
                 else torch.zeros(C, device=w.device))
@@ -114,15 +170,19 @@ def pack_stem_weights(conv_layers) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _layer_weights(weights: torch.Tensor):
-    """Split the packed buffer into each layer's [C_out, C_in, k] f32 weight."""
+    """Split the packed buffer into each layer's contiguous [C_out, C_in, k]
+    f32 weight (as ``ConvFeatureEncoder`` holds it, so that the convs sum in
+    its order)."""
     C = weights.shape[1]
     out, row = [], 0
     for i, k in enumerate(_KERNELS):
-        c_in = 1 if i == 0 else C
-        n = _LAYER0_ROWS if i == 0 else k * c_in
-        mat = weights[row:row + k * c_in].float()  # layer 0's padding rows dropped
-        out.append(mat.view(k, c_in, C).permute(2, 1, 0))
-        row += n
+        if i == 0:  # layer 0's padding rows dropped
+            w = weights[:k].view(k, 1, C).permute(2, 1, 0)
+            row = _LAYER0_ROWS
+        else:
+            w = conv_from_tiles(weights[row:row + k * C], k)
+            row += k * C
+        out.append(w.float().contiguous())
     return out
 
 

@@ -129,10 +129,20 @@ def test_pack_layout(rng):
     assert table.dtype == torch.float32 and tuple(table.shape) == (7, 3, C)
     w0 = weights[:16].float().numpy()
     np.testing.assert_array_equal(w0[10:], 0)
-    # layer 1, tap j, input channel c, output n: W[n, c, j]
-    w1 = weights[16:16 + 3 * C].float().numpy().reshape(3, C, C)
+    # layer 0, tap j, output n: W[n, 0, j]
+    ref0 = torch.from_numpy(layers[0]["w"]).bfloat16().float().numpy()
+    np.testing.assert_array_equal(w0[:10], ref0[:, 0, :].T)
+    # layer 1: K-major wgmma tiles [passes][chunks][C][64]; row n of tile
+    # (0, c) holds W[n, c', j] for the contraction index j * C + c' in
+    # 64 c .. 64 c + 63, its 16-byte group g stored at g ^ (n % 8)
+    tiles = weights[16:16 + 3 * C].float().numpy().reshape(3 * C // 64, C, 8, 8)
     ref1 = torch.from_numpy(layers[1]["w"]).bfloat16().float().numpy()
-    np.testing.assert_array_equal(w1, ref1.transpose(2, 1, 0))
+    wt = ref1.transpose(0, 2, 1).reshape(C, 3 * C)  # [n, j * C + c']
+    for c in range(3 * C // 64):
+        for n in range(C):
+            for g in range(8):
+                np.testing.assert_array_equal(tiles[c, n, g ^ (n % 8)],
+                                              wt[n, 64 * c + 8 * g:64 * c + 8 * g + 8])
     np.testing.assert_array_equal(table[3, 1].numpy(), layers[3]["norm"]["scale"])
 
 
