@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's WavLM-Large and Whisper-large extraction (fidelity,
 fast, turbo), WavLM's long-bucket escape hatch, the two attention probes,
-the fused WavLM stem and WavLM-Large fine-tuning on one NVIDIA GPU and check
-them.
+the fused WavLM stem, WavLM-Large fine-tuning and the downstream classifier
+stack on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
@@ -98,8 +98,21 @@ Phases, one line each on stdout ([time] lines give each phase's seconds):
    2 epochs with checkpoints, a --resume run for a third, a --grad_accum 2
    run; losses, parameters, launch counts (per-layer remat: 2 forwards and
    1 backward per layer per microbatch, 1 forward per eval batch), resume,
-   outputs, ms per update, training audio-s/s, peak memory.
-Each extraction, probe, stem A/B and fine-tune path is driven with every kernel's
+   outputs, ms per update, training audio-s/s, peak memory;
+14. downstream_dsp: resample (six rate pairs) and pitch_shift (+-2) on the
+   card against the committed float64 goldens and the CPU tensor path;
+   augment_audio's ms per clip over 256 clips of 3 s, per kind;
+15. downstream_heads: a KSF-scale training split (4,096 x 1,024, 8 classes,
+   the largest 25x the smallest): SMOTE on the card against the CPU with
+   the same draws (values, neighbour indices), a 3-epoch head fit on the
+   card against the CPU, the default MLP's seconds and held-out balanced
+   accuracy on the balanced set;
+16. downstream: cli.extract_wavlm then cli.train (MLP, augmentation factor
+   2, threshold 20) on a KSF-layout corpus at WavLM-Large, then
+   run_grid_training with the two heads: launches of the re-extraction (24
+   a batch), 64 augmented rows, SMOTE's balance, the JAX package's output
+   tree, balanced accuracies, seconds per stage.
+Each extraction, probe, stem A/B, fine-tune and downstream path is driven with every kernel's
 launch count (and the int8 GEMM count) set to 0 just before it and read just
 after. Then one JSON line with the kernels' numbers (time, plain time,
 bound, library time, launches on their path) and, last, the device line.
@@ -217,15 +230,18 @@ def cosine_distance(a, b) -> float:
     return float(1.0 - (a @ b) / (a.norm() * b.norm()))
 
 
+KSF_LABELS = ("no_disfluency", "block", "prolongation", "sound_repetition")
 _CORPORA: dict[Path, float] = {}  # corpora written in this run: their audio seconds
 
 
 def write_corpus(root: Path, n_per_split: dict, dur_range, seed: int,
-                 long_per_split: dict | None = None, long_range=(8.2, 9.8)) -> float:
+                 long_per_split: dict | None = None, long_range=(8.2, 9.8),
+                 labels: dict | None = None) -> float:
     """KSF layout: wav/{split}_{i}.wav at 16 kHz plus lab/{split}.csv, clips
     of ``dur_range`` seconds (or ``dur_range[split]``, given a dict), with
-    ``long_per_split[split]`` more clips of ``long_range`` seconds. Returns
-    the total audio seconds; a corpus already written at ``root`` is reused."""
+    ``long_per_split[split]`` more clips of ``long_range`` seconds; each
+    clip's label drawn at random, or ``labels[split][i]``. Returns the total
+    audio seconds; a corpus already written at ``root`` is reused."""
     import numpy as np
 
     if root in _CORPORA:
@@ -237,7 +253,6 @@ def write_corpus(root: Path, n_per_split: dict, dur_range, seed: int,
     (root / "wav").mkdir(parents=True)
     (root / "lab").mkdir()
     total = 0.0
-    labels = ("no_disfluency", "block", "prolongation", "sound_repetition")
     for split, n in n_per_split.items():
         rows = []
         n_long = (long_per_split or {}).get(split, 0)
@@ -249,7 +264,8 @@ def write_corpus(root: Path, n_per_split: dict, dur_range, seed: int,
             f0 = rng.uniform(100, 600)
             x = 0.4 * np.sin(2 * np.pi * f0 * t) + 0.05 * rng.randn(len(t))
             write_wav(str(root / "wav" / name), x / max(1.0, np.abs(x).max() * 1.05), 16000)
-            rows.append((name, labels[rng.randint(len(labels))]))
+            drawn = KSF_LABELS[rng.randint(len(KSF_LABELS))]
+            rows.append((name, labels[split][i] if labels else drawn))
             total += len(t) / 16000
         with open(root / "lab" / f"{split}.csv", "w", newline="") as f:
             w = csv.writer(f, lineterminator="\n")
@@ -1577,6 +1593,352 @@ def phase_finetune(torch, work: Path, card: str, device: str = "cuda", batch_siz
     return counts
 
 
+# the downstream DSP on the card against the committed float64 goldens (the
+# JAX tests' bars, tests/test_resample.py) and against the CPU tensor path
+RESAMPLE_GOLDEN_ATOL, PITCH_GOLDEN_ATOL = 3e-6, 2e-4
+RESAMPLE_CPU_ATOL, PITCH_CPU_ATOL = 1e-6, 1e-4
+DSP_RATE_PAIRS = ((44100, 16000), (22050, 16000), (16000, 14400), (14400, 16000),
+                  (16000, 17600), (8000, 16000))
+AUGMENT_KINDS = ("speed", "noise", "pitch", "volume")
+# SMOTE on the card against the CPU with the same draws (f32 sums in
+# another order), a head fit on the card against the same fit on the CPU
+# after 3 epochs, and the held-out balanced accuracy an MLP must reach on
+# the separable synthetic set
+SMOTE_MAX_ABS, HEAD_PROBA_MAX_ABS, HEAD_MIN_BALANCED_ACC = 1e-5, 1e-4, 0.9
+# a KSF-scale training split: 4,096 x 1,024, 8 classes, the largest 25x the smallest.
+# Equal neighbour indices on both devices are a fair check for this seed:
+# among the classes SMOTE grows, the closest two of a row's four nearest
+# squared distances lie 4.7e-3 apart, ~10x the f32 error of the distances
+# (<= 5.6e-4 against float64; computed on the CPU)
+HEAD_CLASS_COUNTS = (1550, 983, 615, 388, 245, 155, 98, 62)
+
+
+class StageClock:
+    """Wraps functions while the downstream CLI runs: each one's seconds
+    (the device synchronised at its end), its calls, and its results."""
+
+    def __init__(self, torch, device: str):
+        self.torch, self.sync = torch, device == "cuda"
+        self.seconds, self.calls, self.results = {}, {}, {}
+        self._undo = []
+
+    def wrap(self, owner, attr: str, stage: str) -> None:
+        real = getattr(owner, attr)
+        self.seconds.setdefault(stage, 0.0)
+        self.calls.setdefault(stage, 0)
+        self.results.setdefault(stage, [])
+
+        def timed_call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = real(*args, **kwargs)
+            if self.sync:
+                self.torch.cuda.synchronize()
+            self.seconds[stage] += time.perf_counter() - t0
+            self.calls[stage] += 1
+            self.results[stage].append((args, kwargs, out))
+            return out
+
+        setattr(owner, attr, timed_call)
+        self._undo.append((owner, attr, real, attr in vars(owner)))
+
+    def restore(self) -> None:
+        for owner, attr, real, own in reversed(self._undo):
+            if own:
+                setattr(owner, attr, real)
+            else:
+                delattr(owner, attr)
+        self._undo.clear()
+
+
+def phase_downstream_dsp(torch, card: str, device: str = "cuda", clips: int = 256,
+                         seconds: float = 3.0) -> dict:
+    """resample (the six golden rate pairs) and pitch_shift (+-2) on the
+    device against tests/goldens/dsp_goldens.npz and the CPU tensor path;
+    then augment_audio over ``clips`` clips of ``seconds`` per kind, ms per
+    clip (host clock, each call ends with its result on the host)."""
+    import random
+
+    import numpy as np
+
+    from stutter_tpu_torch.ops.pitch import pitch_shift
+    from stutter_tpu_torch.ops.resample import resample
+    from stutter_tpu_torch.train.augment import augment_audio
+
+    golden = np.load(ROOT / "tests" / "goldens" / "dsp_goldens.npz")
+    x = torch.from_numpy(golden["input"])
+    cases = [(f"resample_{o}_{n}", lambda t, o=o, n=n: resample(t, o, n),
+              RESAMPLE_GOLDEN_ATOL, RESAMPLE_CPU_ATOL) for o, n in DSP_RATE_PAIRS]
+    cases += [(f"pitch_{s}", lambda t, s=s: pitch_shift(t, 16000, s),
+               PITCH_GOLDEN_ATOL, PITCH_CPU_ATOL) for s in (-2, 2)]
+    errs = {}
+    for name, fn, golden_atol, cpu_atol in cases:
+        on_device = fn(x.to(device)).cpu()
+        on_cpu = fn(x)
+        want = torch.from_numpy(golden[name])
+        check(on_device.shape == on_cpu.shape == want.shape, f"{name}: shape {on_device.shape}")
+        e_golden = float((on_device.double() - want).abs().max())
+        e_cpu = float((on_device - on_cpu).abs().max())
+        check(e_golden <= golden_atol, f"{name}: {e_golden:.2e} from the golden > {golden_atol}")
+        check(e_cpu <= cpu_atol, f"{name}: {e_cpu:.2e} from the CPU path > {cpu_atol}")
+        errs[name] = (e_golden, e_cpu)
+    rs = [v for k, v in errs.items() if k.startswith("resample")]
+    ps = [v for k, v in errs.items() if k.startswith("pitch")]
+    say("downstream_dsp", device=device,
+        resample_golden_err=f"{max(e for e, _ in rs):.2e}", resample_golden_tol=RESAMPLE_GOLDEN_ATOL,
+        resample_cpu_err=f"{max(e for _, e in rs):.2e}", resample_cpu_tol=RESAMPLE_CPU_ATOL,
+        pitch_golden_err=f"{max(e for e, _ in ps):.2e}", pitch_golden_tol=PITCH_GOLDEN_ATOL,
+        pitch_cpu_err=f"{max(e for _, e in ps):.2e}", pitch_cpu_tol=PITCH_CPU_ATOL)
+
+    rng = np.random.RandomState(21)
+    T = int(seconds * 16000)
+    t = np.arange(T) / 16000
+    waves = (0.4 * np.sin(2 * np.pi * rng.uniform(100, 600, (clips, 1)) * t)
+             + 0.05 * rng.randn(clips, T)).astype(np.float32)
+    ms = {}
+    for kind in AUGMENT_KINDS:
+        r = random.Random(7)
+        for w in waves[:4]:  # warm: kernels, cuDNN's plans, the allocator
+            augment_audio(w, 16000, kind, rng=r, device=device)
+        t0 = time.perf_counter()
+        for w in waves:
+            y = augment_audio(w, 16000, kind, rng=r, device=device)
+        ms[kind] = (time.perf_counter() - t0) * 1e3 / clips
+        check(y.shape == w.shape and bool(np.isfinite(y).all()) and np.abs(y).max() <= 1.0,
+              f"augment_audio {kind}: shape {y.shape} or values out of range")
+    say("downstream_dsp", clips=clips, seconds=seconds,
+        **{f"{k}_ms_per_clip": f"{v:.3f}" for k, v in ms.items()}, card=f'"{card}"')
+    return ms
+
+
+def phase_downstream_heads(torch, card: str, device: str = "cuda",
+                           counts=HEAD_CLASS_COUNTS, dim: int = 1024,
+                           held_out: int = 128) -> dict:
+    """SMOTE and the heads at a KSF-scale training split: separable
+    synthetic embeddings, ``counts`` rows a class. SMOTE on the device
+    against smote_interpolate on the CPU with the same draws (values and
+    neighbour indices); a 3-epoch HeadClassifier fit on the device against
+    the same fit on the CPU; the default MLP (hidden 256, 200 epochs) on the
+    SMOTE-balanced set, its held-out balanced accuracy and seconds."""
+    import numpy as np
+
+    from stutter_tpu_torch.train.classifiers import make_classifier
+    from stutter_tpu_torch.train.heads import HeadClassifier, HeadConfig
+    from stutter_tpu_torch.train.metrics import classification_metrics
+    from stutter_tpu_torch.train.smote import (
+        apply_smote_oversampling,
+        smote_draws,
+        smote_interpolate,
+        smote_neighbors,
+    )
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    rng = np.random.RandomState(31)
+    n_classes = len(counts)
+    centres = rng.randn(n_classes, dim) * 0.3
+    y = np.repeat(np.arange(n_classes), counts)
+    X = (centres[y] + rng.randn(len(y), dim)).astype(np.float32)
+    y_held = np.repeat(np.arange(n_classes), held_out)
+    X_held = (centres[y_held] + rng.randn(len(y_held), dim)).astype(np.float32)
+
+    t0 = time.perf_counter()
+    Xs, ys = apply_smote_oversampling(X, y, k_neighbors=3, random_state=42, device=device)
+    smote_s = time.perf_counter() - t0
+    majority, k = max(counts), min(3, min(counts) - 1)
+    check(np.bincount(ys).tolist() == [majority] * n_classes,
+          f"SMOTE left counts {np.bincount(ys).tolist()}")
+    check(np.array_equal(Xs[: len(X)], X), "SMOTE moved the original rows")
+    generator, offset, smote_err = torch.Generator().manual_seed(42), len(X), 0.0
+    for cls in sorted(set(y.tolist()), key=str):
+        n_new = majority - counts[cls]
+        if n_new <= 0:
+            continue
+        block = torch.from_numpy(X[y == cls])
+        on_cpu = smote_interpolate(block, k, *smote_draws(generator, len(block), k, n_new))
+        smote_err = max(smote_err, float(np.abs(Xs[offset: offset + n_new] - on_cpu.numpy()).max()))
+        offset += n_new
+        check(torch.equal(smote_neighbors(block.to(device), k).cpu(), smote_neighbors(block, k)),
+              f"class {cls}: SMOTE's neighbours differ between {device} and the CPU")
+    check(smote_err <= SMOTE_MAX_ABS, f"SMOTE {device} vs CPU: {smote_err:.2e} > {SMOTE_MAX_ABS}")
+
+    cfg = HeadConfig(dim, n_classes, (256,), dropout=0.0, epochs=3, seed=0)
+    probas = {}
+    for where in (device, "cpu"):
+        probas[where] = HeadClassifier(cfg, device=where).fit(X, y).predict_proba(X_held)
+    proba_err = float(np.abs(probas[device] - probas["cpu"]).max())
+    check(proba_err <= HEAD_PROBA_MAX_ABS,
+          f"HeadClassifier {device} vs CPU predict_proba {proba_err:.2e} > {HEAD_PROBA_MAX_ABS}")
+
+    mlp = make_classifier("mlp", dim, n_classes, device=device)
+    sync()
+    t0 = time.perf_counter()
+    mlp.fit(Xs, ys)
+    sync()
+    fit_s = time.perf_counter() - t0
+    bal = classification_metrics(y_held, mlp.predict(X_held), n_classes)["balanced_accuracy"]
+    check(bal >= HEAD_MIN_BALANCED_ACC, f"MLP held-out balanced accuracy {bal:.4f} "
+          f"< {HEAD_MIN_BALANCED_ACC}")
+    steps = mlp.cfg.epochs * (len(ys) // mlp.cfg.batch_size)
+    say("downstream_heads", device=device, train=f"{len(y)}x{dim}", classes=n_classes,
+        counts=",".join(map(str, counts)), smote_rows=len(ys), smote_s=f"{smote_s:.3f}",
+        smote_err=f"{smote_err:.2e}", smote_tol=SMOTE_MAX_ABS, neighbours="equal",
+        head_proba_err=f"{proba_err:.2e}", head_proba_tol=HEAD_PROBA_MAX_ABS,
+        mlp_fit_s=f"{fit_s:.3f}", mlp_steps=steps, mlp_ms_per_step=f"{fit_s * 1e3 / steps:.3f}",
+        mlp_held_out_balanced_acc=f"{bal:.4f}", card=f'"{card}"')
+    return {"smote_s": smote_s, "fit_s": fit_s}
+
+
+def phase_downstream(torch, work: Path, card: str, device: str = "cuda",
+                     durations=(2.0, 3.0)) -> dict:
+    """The downstream stack end to end at WavLM-Large (random weights, seed
+    0, fast): a KSF-layout corpus with two classes of 48 training clips and
+    two of 16, extracted by cli.extract_wavlm; cli.train with the MLP,
+    augmentation factor 2 and threshold 20 (64 clips re-extracted through
+    the gated attention kernel); then run_grid_training with the two heads.
+    Checks the launches, the augmented rows, SMOTE's balance, the JAX
+    package's output tree and the balanced accuracies; prints each stage's
+    seconds. Returns the re-extraction's launch counts."""
+    import logging
+    import math
+
+    import numpy as np
+
+    from stutter_tpu_torch.cli import extract_wavlm as extract_cli
+    from stutter_tpu_torch.cli import train as train_cli
+    from stutter_tpu_torch.extract.pipeline import WavLMExtractor
+    from stutter_tpu_torch.models.wavlm import WavLMConfig
+    from stutter_tpu_torch.train import augment_extract, classifiers, heads, trainer
+    from stutter_tpu_torch.train.classifiers import GRID_MODELS_JAX
+    from stutter_tpu_torch.train.trainer import TrainConfig, run_grid_training
+
+    on_card = device == "cuda"
+    n_layers = WavLMConfig.large().num_hidden_layers
+    rng = np.random.RandomState(8)
+    train_labels = ["no_disfluency"] * 48 + ["block"] * 48 + ["prolongation"] * 16 \
+        + ["sound_repetition"] * 16
+    rng.shuffle(train_labels)
+    labels = {"train": train_labels, "test": list(KSF_LABELS) * 6, "devel": list(KSF_LABELS) * 6}
+    corpus, store, results = work / "ds_corpus", work / "ds_store", work / "ds_results"
+    audio_s = write_corpus(corpus, {s: len(v) for s, v in labels.items()}, durations, seed=8,
+                           labels=labels)
+    stages = {}
+    t0 = time.perf_counter()
+    rc = extract_cli.main(["--data_dir", str(corpus), "--output_dir", str(store / "wavlm"),
+                           "--random_init", "--device", device])
+    stages["extract"] = time.perf_counter() - t0
+    check(rc == 0, f"cli.extract_wavlm returned {rc}")
+
+    try:
+        import matplotlib  # noqa: F401
+        plots = True
+    except ImportError:
+        plots = False
+    warned = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            if "matplotlib" in record.getMessage():
+                warned.append(record.getMessage())
+
+    catch = Catch()
+    logging.getLogger().addHandler(catch)
+    clock = StageClock(torch, device)
+    clock.wrap(WavLMExtractor, "submit", "reextract_submit")
+    clock.wrap(augment_extract, "augment_audio", "augment_dsp")
+    clock.wrap(augment_extract, "_embed_waves", "reextract")
+    clock.wrap(trainer, "apply_data_augmentation", "augmentation")
+    clock.wrap(classifiers, "apply_smote_oversampling", "smote")
+    clock.wrap(heads.HeadClassifier, "fit", "head_fit")
+    zero_counts()
+    try:
+        t0 = time.perf_counter()
+        rc = train_cli.main(["--embeddings_dir", str(store), "--results_dir", str(results),
+                             "--model_type", "wavlm", "--classifier", "mlp",
+                             "--augmentation_factor", "2", "--minority_threshold", "20",
+                             "--random_init", "--device", device])
+        stages["train_cli"] = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        clock.restore()
+        logging.getLogger().removeHandler(catch)
+    check(rc == 0, f"cli.train returned {rc}")
+    batches = clock.calls["reextract_submit"]
+    launches = counts["gated_relpos_attention"]
+    check(batches == math.ceil(64 / 64), f"the re-extraction submitted {batches} batches")
+    check(launches == n_layers * batches * on_card,
+          f"gated attention launched {launches} times for {batches} re-extraction batches, "
+          f"expected {n_layers}x{batches}")
+    check(not any(v for k, v in counts.items() if k != "gated_relpos_attention"),
+          f"the downstream run launched other kernels: {counts}")
+    (aug_args, _, (meta_out, emb_out)), = clock.results["augmentation"]
+    n_aug = len(meta_out) - len(aug_args[0])
+    (waves_args, _, embedded), = clock.results["reextract"]
+    check(n_aug == 64 and len(waves_args[1]) == 64
+          and all(len(v) == len(meta_out) for v in emb_out.values())
+          and all(r.get("augmented") for r in meta_out[len(aug_args[0]):]),
+          f"{n_aug} augmented rows, {len(waves_args[1])} re-extracted clips, expected 64")
+    check(all(bool(np.isfinite(v).all()) for v in embedded.values()),
+          "non-finite re-extracted embeddings")
+    for _, _, (Xr, yr) in clock.results["smote"]:
+        check(len(set(np.bincount(yr).tolist())) == 1, f"SMOTE left counts {np.bincount(yr)}")
+    check(bool(warned) != plots,
+          f"matplotlib {'present' if plots else 'absent'}, warnings {warned}")
+    # the extractor's default layers: the last three hidden states and the middle one
+    layers = sorted({f"layer_{i}" for i in (n_layers, n_layers - 1, n_layers - 2,
+                                             (n_layers + 1) // 2)})
+    check(sorted(p.name for p in results.iterdir() if p.is_dir()) == layers,
+          f"layer dirs {sorted(p.name for p in results.iterdir())}, expected {layers}")
+    check(clock.calls["smote"] == clock.calls["head_fit"] == len(layers),
+          f"{clock.calls['smote']} SMOTE calls and {clock.calls['head_fit']} fits "
+          f"for {len(layers)} layers")
+    expect = ["all_results_comparison.csv", "layer_comparison_summary.csv", "final_summary.txt",
+              "best_per_layer.json"] + (["layer_comparison_balanced_accuracy.png"] if plots else [])
+    for layer in layers:
+        tag = f"{layer}_mlp"
+        expect += [f"{layer}/{tag}_classification_report.txt",
+                   f"{layer}/wavlm_{tag}_model.npz", f"{layer}/wavlm_{tag}_info.json"]
+        expect += [f"{layer}/{tag}_confusion_matrix.png",
+                   f"{layer}/{tag}_per_class_metrics.png"] if plots else []
+    missing = [f for f in expect if not (results / f).is_file()]
+    check(not missing, f"cli.train outputs missing: {missing}")
+    best = json.loads((results / "best_per_layer.json").read_text())
+
+    grid_dir = work / "ds_grid"
+    t0 = time.perf_counter()
+    grid = run_grid_training(TrainConfig(embeddings_dir=str(store), results_dir=str(grid_dir),
+                                         model_type="wavlm", make_plots=plots, device=device),
+                             model_names=GRID_MODELS_JAX)
+    stages["grid"] = time.perf_counter() - t0
+    check(sorted(grid) == layers, f"grid layers {sorted(grid)}")
+    for layer, r in grid.items():
+        key = r["configuration"]
+        for f in (f"{key}_classification_report.txt", f"wavlm_{layer}_{key}_model.npz",
+                  f"wavlm_{layer}_{key}_info.json") + (
+                      (f"{layer}_model_comparison.png", f"{key}_confusion_matrix.png")
+                      if plots else ()):
+            check((grid_dir / layer / f).is_file(), f"grid output {layer}/{f} missing")
+    for f in ("all_results_comparison.csv", "layer_comparison_summary.csv", "final_summary.txt"):
+        check((grid_dir / f).is_file(), f"grid output {f} missing")
+    accs = [r["balanced_accuracy"] for r in best.values()] + \
+        [r["balanced_accuracy"] for r in grid.values()]
+    check(all(math.isfinite(a) and 0.0 <= a <= 1.0 for a in accs), f"balanced accuracies {accs}")
+    say("downstream", corpus_clips=sum(len(v) for v in labels.values()),
+        corpus_audio_s=f"{audio_s:.1f}", augmented_rows=n_aug, reextract_batches=batches,
+        gated_launches=launches, expected=f"{n_layers}x{batches}", plots=plots,
+        balanced_acc=",".join(f"{best[k]['balanced_accuracy']:.4f}" for k in layers),
+        grid_balanced_acc=",".join(f"{grid[k]['balanced_accuracy']:.4f}" for k in layers),
+        card=f'"{card}"')
+    seconds = dict(extract=stages["extract"], train_cli=stages["train_cli"],
+                   augmentation=clock.seconds["augmentation"],
+                   augment_dsp=clock.seconds["augment_dsp"], reextract=clock.seconds["reextract"],
+                   smote=clock.seconds["smote"], head_fits=clock.seconds["head_fit"],
+                   grid=stages["grid"])
+    say("downstream", **{f"{k}_s": f"{v:.2f}" for k, v in seconds.items()}, card=f'"{card}"')
+    return counts
+
+
 def stem_flops_bytes(st, B: int, T: int, weights, table):
     """The fused stem's operations, the bytes of its inputs and output (each
     once), the bytes the per-layer design also moves (each intermediate
@@ -1879,6 +2241,13 @@ def main() -> int:
             torch.cuda.empty_cache()
             with timed("finetune"):
                 ft_counts = phase_finetune(torch, work, card)
+            torch.cuda.empty_cache()
+            with timed("downstream_dsp"):
+                phase_downstream_dsp(torch, card)
+            with timed("downstream_heads"):
+                phase_downstream_heads(torch, card)
+            with timed("downstream"):
+                ds_counts = phase_downstream(torch, work, card)
     except CheckFailed as e:
         print(f"FAILED: {e}", flush=True)
         return 1
@@ -1908,6 +2277,7 @@ def main() -> int:
             for name, source, replaces, launches, err, times in kernels]
     line[0]["also_replaces"] = "stutter_tpu/ops/wavlm_attention_pallas.py:93"
     line[0]["finetune_launches"] = ft_counts["gated_relpos_attention"]
+    line[0]["downstream_launches"] = ds_counts["gated_relpos_attention"]
     line[1]["also_replaces"] = ["stutter_tpu/ops/wavlm_attention_vjp.py:68",
                                 "stutter_tpu/ops/wavlm_attention_vjp.py:115"]
     line[1]["max_rel_err"] = bwd_rel

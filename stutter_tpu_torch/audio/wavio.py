@@ -3,9 +3,9 @@
 ``read_wav`` parses RIFF/WAVE as the JAX package's numpy parser does: PCM 8,
 16, 24 and 32 bit, IEEE float 32 and 64 bit, WAVE_FORMAT_EXTENSIBLE, mixed
 down to mono float32. ``load_audio`` keeps the reference loader's per-file
-skip contract (None on a file it cannot decode). There is no resampler and no
-compressed-format decoder in this package yet: a clip whose rate differs from
-the target raises ``NotImplementedError`` rather than being skipped.
+skip contract (None on a file it cannot decode) and resamples a clip of
+another rate on the host through ``ops.resample``, as the JAX package's
+reader does. There is no compressed-format decoder in this package yet.
 """
 
 from __future__ import annotations
@@ -15,6 +15,9 @@ import struct
 import wave
 
 import numpy as np
+import torch
+
+from stutter_tpu_torch.ops.resample import resample
 
 logger = logging.getLogger("stutter_tpu_torch.audio")
 
@@ -122,19 +125,18 @@ def write_wav(path: str, samples: np.ndarray, sample_rate: int) -> None:
 
 def load_audio(path: str, target_sr: int = 16000,
                max_length: float | None = None) -> np.ndarray | None:
-    """Decode -> mono -> optional trim to ``max_length`` seconds -> float32.
+    """Decode -> mono -> resample to ``target_sr`` (on the host) -> optional
+    trim to ``max_length`` seconds -> float32.
 
     Returns None for a file that cannot be read or parsed (per-file skip
-    contract); raises NotImplementedError for a rate other than target_sr."""
+    contract)."""
     try:
         x, sr = read_wav(path)
     except (OSError, ValueError, struct.error) as e:
         logger.error("error loading %s: %s", path, e)
         return None
     if sr != target_sr:
-        raise NotImplementedError(
-            f"{path} is {sr} Hz, the model takes {target_sr} Hz: resampling is not "
-            "ported yet (ROADMAP Queue 1, resampling and libav decode)")
+        x = resample(torch.from_numpy(x), sr, target_sr).numpy()
     if max_length is not None:
         x = x[: int(max_length * target_sr)]
     return x.astype(np.float32)

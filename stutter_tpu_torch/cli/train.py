@@ -1,0 +1,172 @@
+"""Balanced downstream training CLI on one GPU (flags of ``stutter_tpu.cli.train``).
+
+    python -m stutter_tpu_torch.cli.train --embeddings_dir <store> \\
+        --results_dir <out> --classifier mlp --random_init [--device cuda]
+
+The reference's flags (``model_training_01.py:41-70``) with the heads
+(mlp, linear) among the classifiers. ``--device`` names the torch device
+of SMOTE, the heads and the augmentation's re-extraction (default
+``cuda``); with no card it fails rather than running on the CPU. The
+re-extraction model is built with random weights from seed 0
+(``--random_init``): HF checkpoint loading is not ported, and without the
+flag a run that augments raises. 'bestrq' (accepted, never implemented
+by the reference) and ``--split all`` exit with 2, a missing store with 1.
+Plots need matplotlib: without it the run logs one warning and writes no
+plots.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+
+from stutter_tpu_torch.cli.extract_wavlm import WAVLM_CONFIGS, long_attention_from_env
+from stutter_tpu_torch.cli.extract_whisper import WHISPER_SIZES
+
+MODEL_TYPES = ["whisper", "wavlm", "wavlm_large", "bestrq", "combined", "whisper_large_fixed"]
+# accepted by the reference but implemented by neither it nor this package
+UNIMPLEMENTED = {"bestrq"}
+
+
+def add_device_args(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--devices", type=int, default=None,
+                        help="Number of devices (only 1 is supported)")
+    parser.add_argument("--tp", type=int, default=1,
+                        help="Tensor-parallel size (only 1 is supported)")
+    parser.add_argument("--preset", type=str, default="fast",
+                        choices=["fast", "fidelity", "turbo"],
+                        help="Numerics preset of the re-extraction model")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="Torch device to run on (default: cuda)")
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(
+        description="Train stuttering classification models with balanced approach "
+                    "(PyTorch/CUDA)")
+    parser.add_argument("--embeddings_dir", type=str, required=True)
+    parser.add_argument("--results_dir", type=str, required=True)
+    parser.add_argument("--model_type", type=str, default="wavlm", choices=MODEL_TYPES)
+    parser.add_argument("--split", type=str, default="predefined",
+                        choices=["train_test", "predefined", "all"])
+    parser.add_argument("--test_size", type=float, default=0.2)
+    parser.add_argument("--augmentation_factor", type=int, default=3)
+    parser.add_argument("--minority_threshold", type=int, default=100)
+    parser.add_argument("--smote_k_neighbors", type=int, default=3)
+    parser.add_argument("--no_smote", action="store_true", help="Disable SMOTE")
+    parser.add_argument("--no_augmentation", action="store_true",
+                        help="Disable augmentation re-extraction")
+    parser.add_argument("--model_name", type=str, default="microsoft/wavlm-large",
+                        help="Model for re-extracting embeddings from augmented audio")
+    parser.add_argument("--classifier", type=str, default="svm",
+                        choices=["svm", "rf", "xgb", "mlp", "linear", "all"])
+    parser.add_argument("--head_epochs", type=int, default=200,
+                        help="Training epochs for the mlp/linear heads")
+    parser.add_argument("--random_init", action="store_true",
+                        help="Random re-extraction weights from seed 0 (no checkpoint load)")
+    add_device_args(parser)
+    return parser.parse_args(argv)
+
+
+def check_devices(args) -> None:
+    if (args.devices or 1) != 1 or args.tp != 1:
+        raise NotImplementedError(
+            "multi-device runs are not ported yet (ROADMAP Queue 1, multi-GPU)")
+
+
+def build_extractor_for(model_type: str, model_name: str, random_init: bool, device,
+                        preset: str):
+    """The re-extraction model for augmentation (reference :735-758), or None
+    for a model type without one (combined)."""
+    import torch
+
+    from stutter_tpu_torch.extract.pipeline import WavLMExtractor, WhisperExtractor
+
+    kind = model_type.lower()
+    if kind not in ("wavlm", "wavlm_large", "whisper", "whisper_large_fixed"):
+        return None
+    if not random_init:
+        raise NotImplementedError(
+            "loading HF checkpoints is not ported yet (ROADMAP Queue 1, HF checkpoint "
+            "loading); pass --random_init")
+    logger = logging.getLogger("stutter_tpu_torch.cli.train")
+    generator = torch.Generator().manual_seed(0)
+    if kind in ("wavlm", "wavlm_large"):
+        from stutter_tpu_torch.models.wavlm import WavLMConfig
+        from stutter_tpu_torch.weights.convert import init_wavlm
+
+        preset_name = WAVLM_CONFIGS.get(model_name, "base")
+        logger.warning("--random_init: using fresh %s weights (no checkpoint load)", preset_name)
+        model = init_wavlm(getattr(WavLMConfig, preset_name)(), generator)
+        return WavLMExtractor(model, device, preset=preset, **long_attention_from_env())
+    from stutter_tpu_torch.models.whisper import WhisperConfig
+    from stutter_tpu_torch.weights.convert import init_whisper
+
+    name = model_name if "whisper" in model_name else "openai/whisper-large"
+    size = next((p for key, p in WHISPER_SIZES if key in name), "base")
+    logger.warning("--random_init: using fresh whisper %s weights", size)
+    return WhisperExtractor(init_whisper(getattr(WhisperConfig, size)(), generator), device,
+                            preset=preset)
+
+
+def plots_available(logger: logging.Logger) -> bool:
+    """Whether matplotlib imports; logs one warning line when it does not."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        logger.warning("matplotlib is not installed: writing no plots")
+        return False
+    return True
+
+
+def setup_logging() -> logging.Logger:
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s - %(name)s - %(levelname)s - %(message)s")
+    return logging.getLogger("stutter_tpu_torch.cli.train")
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    logger = setup_logging()
+    if args.model_type in UNIMPLEMENTED:
+        logger.error("--model_type %s is accepted by the reference CLI but has no "
+                     "implementation there or here; use one of %s",
+                     args.model_type, sorted(set(MODEL_TYPES) - UNIMPLEMENTED))
+        return 2
+    if args.split not in ("predefined", "train_test"):
+        logger.error("--split must be 'predefined' or 'train_test' (the reference accepts "
+                     "'all' but has no implementation)")
+        return 2
+    check_devices(args)
+
+    from stutter_tpu_torch.extract.pipeline import resolve_device
+    from stutter_tpu_torch.train.trainer import TrainConfig, run_balanced_training
+
+    device = resolve_device(args.device)
+    classifiers = ("svm", "rf", "xgb") if args.classifier == "all" else (args.classifier,)
+    extractor = None
+    if args.augmentation_factor > 0 and not args.no_augmentation:
+        extractor = build_extractor_for(args.model_type, args.model_name, args.random_init,
+                                        device, args.preset)
+
+    cfg = TrainConfig(
+        embeddings_dir=args.embeddings_dir, results_dir=args.results_dir,
+        model_type=args.model_type, classifiers=classifiers, use_smote=not args.no_smote,
+        smote_k_neighbors=args.smote_k_neighbors,
+        augmentation_factor=0 if args.no_augmentation else args.augmentation_factor,
+        minority_threshold=args.minority_threshold, make_plots=plots_available(logger),
+        head_overrides={"epochs": args.head_epochs}, split=args.split,
+        test_size=args.test_size, device=str(device))
+    try:
+        best = run_balanced_training(cfg, extractor=extractor)
+    except FileNotFoundError as e:
+        logger.error("%s", e)
+        return 1
+    best_layer = max(best, key=lambda k: best[k]["balanced_accuracy"])
+    logger.info("BEST: %s balanced_acc=%.4f", best_layer, best[best_layer]["balanced_accuracy"])
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -69,3 +69,17 @@ def classification_metrics(
         "per_class": per_class,
         "confusion_matrix": cm,
     }
+
+
+def classification_report_text(metrics: dict) -> str:
+    """sklearn-style plain-text report from a classification_metrics bundle."""
+    lines = [f"{'':>20} {'precision':>9} {'recall':>9} {'f1-score':>9} {'support':>9}", ""]
+    for name, m in metrics["per_class"].items():
+        lines.append(f"{name:>20} {m['precision']:>9.4f} {m['recall']:>9.4f} "
+                     f"{m['f1']:>9.4f} {m['support']:>9d}")
+    lines.append("")
+    lines.append(f"{'accuracy':>20} {metrics['accuracy']:>29.4f}")
+    lines.append(f"{'balanced accuracy':>20} {metrics['balanced_accuracy']:>29.4f}")
+    lines.append(f"{'macro f1':>20} {metrics['macro_f1']:>29.4f}")
+    lines.append(f"{'weighted f1':>20} {metrics['weighted_f1']:>29.4f}")
+    return "\n".join(lines)
