@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's WavLM-Large and Whisper-large extraction (fidelity,
 fast, turbo), WavLM's long-bucket escape hatch, the two attention probes,
-the fused WavLM stem, WavLM-Large fine-tuning and the downstream classifier
-stack on one NVIDIA GPU and check them.
+the fused WavLM stem, WavLM-Large fine-tuning, the downstream classifier
+stack, HF checkpoint loading, the chunk long-file policy and serving on one
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
@@ -111,8 +112,25 @@ Phases, one line each on stdout ([time] lines give each phase's seconds):
    2, threshold 20) on a KSF-layout corpus at WavLM-Large, then
    run_grid_training with the two heads: launches of the re-extraction (24
    a batch), 64 augmented rows, SMOTE's balance, the JAX package's output
-   tree, balanced accuracies, seconds per stage.
-Each extraction, probe, stem A/B, fine-tune and downstream path is driven with every kernel's
+   tree, balanced accuracies, seconds per stage;
+17. checkpoint: WavLM-Large (24 layers) and Whisper-large widths at 4 + 4
+   layers from the seeded init, written as HF checkpoint directories (a
+   hand-written model.safetensors; a pytorch_model.bin with weight_g/weight_v
+   names), loaded by load_wavlm / load_whisper and verify_* on the card:
+   every tensor and one fast batch's pooled embeddings bit-equal, the
+   safetensors files also parsed with the package hidden; the write, load
+   and verify seconds;
+18. chunk: ExtractionPipeline with long_files "chunk" over 8 clips of 3-8 s
+   and 3 of 41-75 s with the loaded WavLM: the long rows against
+   chunked_embeddings, 24 gated launches per batch, audio-s/s;
+19. serve: EmbeddingServer over the loaded WavLM with a ServingClassifier
+   (an MLP head run_balanced_training fits on the chunk store): 96 JSONL
+   requests (two 41 s clips, one undecodable file), then 8 POSTs, /stats and
+   /healthz on the HTTP frontend: each request answered once, only the bad
+   file failing, rows within 1e-3 of the pipeline's, the predictions
+   load_model's, 24 gated launches per batch; p50/p95 latency,
+   device_s_per_audio_s, audio-s/s.
+Each extraction, probe, stem A/B, fine-tune, downstream, chunk and serving path is driven with every kernel's
 launch count (and the int8 GEMM count) set to 0 just before it and read just
 after. Then one JSON line with the kernels' numbers (time, plain time,
 bound, library time, launches on their path) and, last, the device line.
@@ -2098,6 +2116,456 @@ def phase_turbo_fidelity(torch, name: str, embed, turbo_model, fast_model, fid_m
     check(d_turbo <= TURBO_COSINE, f"{name} turbo {d_turbo:.3e} from f32, bar {TURBO_COSINE}")
 
 
+# --- checkpoints, the chunk policy and serving --------------------------------
+
+# the pooled rows of another batching of the same clips in bf16: the repo's bar
+CHUNK_COSINE = 1e-3
+
+
+def write_safetensors(path: Path, tensors: dict) -> None:
+    """The safetensors format by hand, float32 only (a GPU host may lack the
+    package): 8 bytes of little-endian header length, the JSON
+    header (dtype, shape, data_offsets), then each tensor's bytes."""
+    header, offset, arrays = {}, 0, []
+    for name, t in tensors.items():
+        a = t.detach().cpu().float().contiguous().numpy()
+        header[name] = {"dtype": "F32", "shape": list(a.shape),
+                        "data_offsets": [offset, offset + a.nbytes]}
+        offset += a.nbytes
+        arrays.append(a)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for a in arrays:
+            a.tofile(f)
+
+
+def fold_pos_conv(model) -> tuple:
+    """(g, v) of a weight-normed positional conv whose v is the model's
+    weight; the model's weight becomes g * v / ||v|| (norm over dims 0, 1,
+    in float64), the fold an HF checkpoint's loader computes."""
+    import numpy as np
+    import torch
+
+    v = model.pos_conv.weight.detach().cpu().numpy().copy()
+    norm = np.sqrt((v.astype(np.float64) ** 2).sum(axis=(0, 1), keepdims=True))
+    g = norm.astype(np.float32)
+    with torch.no_grad():
+        model.pos_conv.weight.copy_(torch.from_numpy((g * v / norm).astype(np.float32)))
+    return torch.from_numpy(g), torch.from_numpy(v)
+
+
+def wavlm_hf_state(model, g, v, weight_g_v: bool) -> dict:
+    """A WavLMModel's weights under HF ``WavLMModel`` names, the positional
+    conv as (g, v) in either torch weight-norm naming."""
+    sd, cfg = model.state_dict(), model.cfg
+    out = {"masked_spec_embed": sd["masked_spec_embed"]}
+    for i in range(len(cfg.conv_dim)):
+        p, q = f"feature_extractor.conv_layers.{i}", f"feature_encoder.layers.{i}"
+        for hf, ours in (("conv.weight", "weight"), ("conv.bias", "bias"),
+                         ("layer_norm.weight", "norm_scale"), ("layer_norm.bias", "norm_bias")):
+            if f"{q}.{ours}" in sd:
+                out[f"{p}.{hf}"] = sd[f"{q}.{ours}"]
+    for hf, ours in (("feature_projection.layer_norm.weight", "feature_projection.ln_scale"),
+                     ("feature_projection.layer_norm.bias", "feature_projection.ln_bias"),
+                     ("feature_projection.projection.weight", "feature_projection.weight"),
+                     ("feature_projection.projection.bias", "feature_projection.bias"),
+                     ("encoder.pos_conv_embed.conv.bias", "pos_conv.bias"),
+                     ("encoder.layer_norm.weight", "ln_scale"),
+                     ("encoder.layer_norm.bias", "ln_bias"),
+                     ("encoder.layers.0.attention.rel_attn_embed.weight", "rel_attn_embed")):
+        out[hf] = sd[ours]
+    names = ("weight_g", "weight_v") if weight_g_v else (
+        "parametrizations.weight.original0", "parametrizations.weight.original1")
+    out[f"encoder.pos_conv_embed.conv.{names[0]}"] = g
+    out[f"encoder.pos_conv_embed.conv.{names[1]}"] = v
+    layer = {"attention.q_proj": "attention.q", "attention.k_proj": "attention.k",
+             "attention.v_proj": "attention.v", "attention.out_proj": "attention.o",
+             "attention.gru_rel_pos_linear": "attention.gru",
+             "feed_forward.intermediate_dense": "feed_forward.?1",
+             "feed_forward.output_dense": "feed_forward.?2"}
+    for i in range(cfg.num_hidden_layers):
+        p, q = f"encoder.layers.{i}", f"layers.{i}"
+        for hf, ours in layer.items():
+            w, b = (ours.replace("?", "w"), ours.replace("?", "b")) if "?" in ours else (
+                ours + "_w", ours + "_b")
+            out[f"{p}.{hf}.weight"], out[f"{p}.{hf}.bias"] = sd[f"{q}.{w}"], sd[f"{q}.{b}"]
+        for hf, ours in (("layer_norm", "ln1"), ("final_layer_norm", "ln2")):
+            out[f"{p}.{hf}.weight"], out[f"{p}.{hf}.bias"] = sd[f"{q}.{ours}_s"], sd[f"{q}.{ours}_b"]
+        out[f"{p}.attention.gru_rel_pos_const"] = sd[f"{q}.attention.gru_const"].reshape(
+            1, -1, 1, 1)
+    return out
+
+
+def whisper_hf_state(model) -> dict:
+    """A WhisperModel's weights under HF ``WhisperModel`` names."""
+    out = {}
+    top = {"conv1_w": "conv1.weight", "conv1_b": "conv1.bias", "conv2_w": "conv2.weight",
+           "conv2_b": "conv2.bias", "pos_embed": "embed_positions.weight",
+           "embed_tokens": "embed_tokens.weight", "ln_s": "layer_norm.weight",
+           "ln_b": "layer_norm.bias"}
+    blocks = {"attn": "self_attn", "xattn": "encoder_attn"}
+    leaf = {"w": "weight", "b": "bias", "s": "weight"}
+    for name, t in model.state_dict().items():
+        block, _, rest = name.partition(".")
+        if not rest.startswith("layers."):
+            out[f"{block}.{top[rest]}"] = t
+            continue
+        i, _, key = rest[len("layers."):].partition(".")
+        if key.startswith(("attn.", "xattn.")):
+            sub, _, pk = key.partition(".")
+            proj, _, kind = pk.partition("_")
+            hf = f"{blocks[sub]}.{'out' if proj == 'o' else proj}_proj.{leaf[kind]}"
+        elif key.startswith("ffn."):
+            fc, _, kind = key[4:].partition("_")
+            hf = f"{fc}.{leaf[kind]}"
+        else:
+            norm, _, kind = key.partition("_")
+            hf = {"ln1": "self_attn_layer_norm", "ln3": "final_layer_norm",
+                  "ln2": "encoder_attn_layer_norm" if block == "decoder"
+                  else "final_layer_norm"}[norm] + "." + leaf[kind]
+        out[f"{block}.layers.{i}.{hf}"] = t
+    return out
+
+
+def hf_config(cfg) -> dict:
+    """The config.json fields the loaders read, from a port config."""
+    import dataclasses
+
+    d = dataclasses.asdict(cfg)
+    if "d_model" in d:
+        return dict(d_model=cfg.d_model, encoder_layers=cfg.encoder_layers,
+                    encoder_attention_heads=cfg.encoder_attention_heads,
+                    decoder_layers=cfg.decoder_layers,
+                    decoder_attention_heads=cfg.decoder_attention_heads,
+                    encoder_ffn_dim=cfg.ffn_dim, decoder_ffn_dim=cfg.ffn_dim,
+                    num_mel_bins=cfg.num_mel_bins, max_source_positions=cfg.max_source_positions,
+                    max_target_positions=cfg.max_target_positions, vocab_size=cfg.vocab_size,
+                    model_type="whisper")
+    keys = ("hidden_size", "num_hidden_layers", "num_attention_heads", "intermediate_size",
+            "conv_dim", "conv_stride", "conv_kernel", "conv_bias", "feat_extract_norm",
+            "do_stable_layer_norm", "num_conv_pos_embeddings", "num_conv_pos_embedding_groups",
+            "num_buckets", "max_bucket_distance", "layer_norm_eps")
+    return dict({k: d[k] for k in keys}, model_type="wavlm")
+
+
+@contextlib.contextmanager
+def without_safetensors():
+    """Inside, importing the safetensors package fails, so the loader parses
+    the files itself (the submodule too: an imported one is found without
+    its parent)."""
+    saved = {k: sys.modules.get(k) for k in ("safetensors", "safetensors.torch")}
+    sys.modules.update(dict.fromkeys(saved))
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+
+
+def write_checkpoint(torch, path: Path, cfg, hf_state: dict, layout: str,
+                     do_normalize: bool | None = None) -> float:
+    """An HF checkpoint directory: config.json, the weights as one
+    safetensors file or a pytorch_model.bin, and for WavLM the
+    preprocessor_config.json. Returns the bytes written, in GB."""
+    path.mkdir(parents=True)
+    (path / "config.json").write_text(json.dumps(hf_config(cfg)))
+    if do_normalize is not None:
+        (path / "preprocessor_config.json").write_text(json.dumps({"do_normalize": do_normalize}))
+    if layout == "safetensors":
+        write_safetensors(path / "model.safetensors", hf_state)
+    else:
+        torch.save({k: t.contiguous() for k, t in hf_state.items()}, path / "pytorch_model.bin")
+    return sum(f.stat().st_size for f in path.iterdir()) / 1e9
+
+
+def phase_checkpoint(torch, work: Path, card: str, device: str = "cuda",
+                     whisper_layers: int = 4, seconds: float = 3.0,
+                     names=("wavlm-large", "whisper-large")):
+    """WavLM-Large (full depth) and Whisper-large widths at 4 + 4 layers,
+    from the port's seeded init, written as HF checkpoint directories (a
+    hand-written model.safetensors, read with and without the package, and
+    a pytorch_model.bin with the weight_g/weight_v names), loaded by
+    load_wavlm / load_whisper, checked by
+    verify_* on the device: every tensor and one fast batch's pooled
+    embeddings bit-equal to the seeded model's. Returns the loaded f32 WavLM."""
+    import dataclasses
+
+    import numpy as np
+
+    from stutter_tpu_torch.extract.batcher import Batch
+    from stutter_tpu_torch.extract.pipeline import WavLMExtractor, WhisperExtractor
+    from stutter_tpu_torch.models.verify import verify_wavlm, verify_whisper
+    from stutter_tpu_torch.models.wavlm import WavLMConfig
+    from stutter_tpu_torch.models.whisper import WhisperConfig
+    from stutter_tpu_torch.weights.convert import init_wavlm, init_whisper, load_wavlm, load_whisper
+
+    rng = np.random.RandomState(11)
+    loaded_wavlm = None
+    for kind in ("wavlm", "whisper"):
+        if kind == "wavlm":
+            cfg = WavLMConfig.large()
+            seeded = init_wavlm(cfg, torch.Generator().manual_seed(0))
+            g, v = fold_pos_conv(seeded)
+            states = {"safetensors": wavlm_hf_state(seeded, g, v, weight_g_v=False),
+                      "bin": wavlm_hf_state(seeded, g, v, weight_g_v=True)}
+            load, verify, make = load_wavlm, verify_wavlm, WavLMExtractor
+            name, samples = names[0], int(seconds * 16000)
+        else:
+            cfg = dataclasses.replace(WhisperConfig.large(), encoder_layers=whisper_layers,
+                                      decoder_layers=whisper_layers)
+            seeded = init_whisper(cfg, torch.Generator().manual_seed(0))
+            states = dict.fromkeys(("safetensors", "bin"), whisper_hf_state(seeded))
+            load, verify, make = load_whisper, verify_whisper, WhisperExtractor
+            name, samples = names[1], 480_000
+        B = 8
+        lengths = rng.randint(samples // 3, samples + 1, size=B)
+        waves = np.zeros((B, samples), np.float32)
+        for j, n in enumerate(lengths):
+            waves[j, :n] = 0.1 * rng.randn(n)
+        batch = Batch(paths=[""] * B, rows=list(range(B)), waves=waves,
+                      lengths=lengths.astype(np.int64), ok=np.ones(B, bool), bucket_s=30.0)
+        reference = make(copy.deepcopy(seeded), device, preset="fast")(batch)
+        for layout in ("safetensors", "safetensors_by_hand", "bin"):
+            path = work / f"ckpt_{kind}_{layout.removesuffix('_by_hand')}" / name
+            write_s = 0.0
+            if layout != "safetensors_by_hand":  # the same files, read without the package
+                t0 = time.perf_counter()
+                gb = write_checkpoint(torch, path, cfg, states[layout], layout,
+                                      do_normalize=cfg.do_normalize if kind == "wavlm" else None)
+                write_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            with without_safetensors() if layout.endswith("by_hand") else contextlib.nullcontext():
+                cfg_loaded, model = load(str(path))
+            load_s = time.perf_counter() - t0
+            check(cfg_loaded == cfg, f"{kind} {layout}: config {cfg_loaded} != {cfg}")
+            sd, ref = model.state_dict(), seeded.state_dict()
+            check(sorted(sd) == sorted(ref), f"{kind} {layout}: state dict keys differ")
+            unequal = [k for k in ref if not torch.equal(sd[k], ref[k])]
+            check(not unequal, f"{kind} {layout}: tensors differ from the seeded model's: "
+                               f"{unequal[:5]}")
+            t0 = time.perf_counter()
+            model = model.to(device)
+            states_n = verify(model, name)
+            verify_s = time.perf_counter() - t0
+            if kind == "wavlm" and loaded_wavlm is None:
+                loaded_wavlm = copy.deepcopy(model).cpu()
+            pooled = make(model, device, preset="fast")(batch)
+            differ = [c for c in reference if not np.array_equal(pooled[c], reference[c])]
+            check(not differ, f"{kind} {layout}: pooled embeddings differ in {differ}")
+            say("checkpoint", model=kind, layout=layout, layers=states_n, gb=f"{gb:.3f}",
+                write_s=f"{write_s:.2f}", load_s=f"{load_s:.2f}", verify_s=f"{verify_s:.2f}",
+                tensors_bit_equal=len(ref), pooled_bit_equal=f"{B}x{len(reference)}",
+                card=f'"{card}"')
+            del model, pooled
+        del seeded, reference
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return loaded_wavlm
+
+
+def phase_chunk(torch, extractor, work: Path, card: str, short=(3.0, 8.0), long=(41.0, 75.0),
+                buckets=None) -> tuple:
+    """ExtractionPipeline with long_files="chunk" over 8 clips of 3-8 s and 3
+    of 41-75 s (train, test, devel): the long rows against
+    chunked_embeddings of the same files (cosine <= 1e-3, another batching in
+    bf16), the gated launches exactly 24 per submitted batch, the chunks
+    column. Returns (launch counts, the store, its audio-s/s)."""
+    import numpy as np
+
+    from stutter_tpu_torch.extract.batcher import BucketBatcher
+    from stutter_tpu_torch.extract.pipeline import ExtractionPipeline, chunked_embeddings
+    from stutter_tpu_torch.extract.scanner import create_metadata_from_files
+
+    on_card = extractor.device.type == "cuda"
+    corpus, store = work / "chunk_corpus", work / "chunk_store"
+    audio_s = write_corpus(corpus, {"train": 4, "test": 2, "devel": 2}, short, seed=21,
+                           long_per_split={"train": 1, "test": 1, "devel": 1}, long_range=long)
+    meta = create_metadata_from_files(str(corpus))
+
+    def batcher():
+        return BucketBatcher(frame_align=extractor.frame_align,
+                             **({"buckets_s": buckets} if buckets else {}))
+
+    pipe = ExtractionPipeline(extractor, batcher=batcher(), long_file_policy="chunk")
+    seen = count_submits(extractor)
+    zero_counts()
+    t0 = time.perf_counter()
+    results = pipe.run(meta, str(store / "wavlm"))
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    del extractor.submit
+    n_layers = extractor.cfg.num_hidden_layers
+    launches = counts["gated_relpos_attention"]
+    check(launches == n_layers * seen["batches"] * on_card,
+          f"chunk: gated attention launched {launches} times for {seen['batches']} batches")
+    check(not any(v for k, v in counts.items() if k != "gated_relpos_attention"),
+          f"chunk: other kernels launched: {counts}")
+    rows = [r for split in results.values() for r in split]
+    long_rows = [r for r in rows if "chunks" in r]
+    check(len(rows) == 11 and len(long_rows) == 3,
+          f"chunk: {len(rows)} rows, {len(long_rows)} chunked, expected 11 and 3")
+    worst = 0.0
+    for r in long_rows:
+        ref, n_chunks, _ = chunked_embeddings(extractor, batcher(), r["path"])
+        check(n_chunks == r["chunks"], f"chunk: {r['path']} {r['chunks']} vs {n_chunks} chunks")
+        worst = max([worst] + [cosine_distance(torch.from_numpy(r[c]), torch.from_numpy(ref[c]))
+                               for c in extractor.column_names])
+    check(worst <= CHUNK_COSINE, f"chunk: long rows {worst:.3g} from chunked_embeddings")
+    check(all(bool(np.isfinite(r[c]).all()) for r in rows for c in extractor.column_names),
+          "chunk: non-finite rows")
+    rate = audio_s / wall
+    say("chunk", clips=len(rows), chunked=len(long_rows),
+        chunks=",".join(str(int(r["chunks"])) for r in long_rows), audio_s=f"{audio_s:.1f}",
+        batches=seen["batches"], launches=launches, expected=f"{n_layers}x{seen['batches']}",
+        worst_cosine_vs_single_file=f"{worst:.3g}", wall_s=f"{wall:.2f}",
+        audio_s_per_s=f"{rate:.1f}", card=f'"{card}"')
+    return counts, store, rate
+
+
+def phase_serve(torch, extractor, store: Path, work: Path, card: str, durations=(1.0, 8.0),
+                long_s=41.0, buckets=None, http_posts: int = 8) -> dict:
+    """EmbeddingServer over the loaded WavLM (max_clips 64, max_wait 0.1 s,
+    chunk policy) with a ServingClassifier from an MLP head that
+    run_balanced_training fits on the [chunk] store: 96 JSONL requests (93
+    clips of 1-8 s, two of 41 s, one undecodable file), then POSTs to the
+    HTTP frontend on 127.0.0.1:0 (JSON paths and raw WAV bytes), /stats and
+    /healthz. Checks: each request answered once, only the bad file fails,
+    every embedding within 1e-3 cosine of the file's ExtractionPipeline row,
+    the predictions equal load_model(...).predict, 24 gated launches per
+    batch. Returns the launch counts of the JSONL run."""
+    import io
+    import urllib.request
+
+    import numpy as np
+
+    from stutter_tpu_torch.cli.common import make_bucket_batcher
+    from stutter_tpu_torch.extract.pipeline import ExtractionPipeline
+    from stutter_tpu_torch.extract.scanner import create_metadata_from_files
+    from stutter_tpu_torch.serve.classify import ServingClassifier
+    from stutter_tpu_torch.serve.http import HttpEmbeddingFrontend
+    from stutter_tpu_torch.serve.server import EmbeddingServer, jsonl_requests
+    from stutter_tpu_torch.train.persistence import load_model
+    from stutter_tpu_torch.train.trainer import TrainConfig, run_balanced_training
+
+    on_card = extractor.device.type == "cuda"
+    device = str(extractor.device)
+    n_layers = extractor.cfg.num_hidden_layers
+    results = work / "serve_head"
+    t0 = time.perf_counter()
+    best = run_balanced_training(TrainConfig(
+        embeddings_dir=str(store), results_dir=str(results), classifiers=("mlp",),
+        use_smote=False, make_plots=False, head_overrides={"epochs": 20}, device=device))
+    fit_s = time.perf_counter() - t0
+    layer = f"layer_{n_layers}"
+    model_path = results / layer / f"wavlm_{layer}_mlp_model.npz"
+    check(layer in best and model_path.is_file(), f"serve: no head written at {model_path}")
+    clf = ServingClassifier.load(str(model_path), device=device)
+
+    corpus = work / "serve_corpus"
+    audio_s = write_corpus(corpus, {"train": 93}, durations, seed=31,
+                           long_per_split={"train": 2}, long_range=(long_s, long_s + 0.5))
+    paths = sorted(str(p) for p in (corpus / "wav").glob("*.wav"))
+    bad = corpus / "undecodable.wav"
+    bad.write_bytes(b"RIFF\x00\x00\x00\x00WAVEjunk")
+    lines = [json.dumps({"id": f"q{i:03d}", "path": p}) for i, p in enumerate(paths)]
+    lines.insert(50, json.dumps({"id": "bad", "path": str(bad)}))
+
+    def batcher():
+        return make_bucket_batcher(extractor, buckets_s=buckets, audio_budget_s=64 * 3.0,
+                                   max_batch=64)
+
+    # every file's row from the pipeline, the reference for the served vectors
+    rows = ExtractionPipeline(extractor, batcher=batcher(), long_file_policy="chunk").run(
+        create_metadata_from_files(str(corpus)), str(work / "serve_store"), splits=("train",))
+    by_path = {r["path"]: r for r in rows["train"]}
+
+    server = EmbeddingServer(extractor, batcher=batcher(), max_wait_s=0.1, max_clips=64,
+                             long_clip_policy="chunk", classifier=clf)
+    responses = []
+    seen = count_submits(extractor)
+    zero_counts()
+    t0 = time.perf_counter()
+    server.serve(jsonl_requests(io.StringIO("\n".join(lines) + "\n")), responses.append)
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    del extractor.submit
+    stats = server.stats()
+    launches = counts["gated_relpos_attention"]
+    ids = [r.req_id for r in responses]
+    check(sorted(ids) == sorted([f"q{i:03d}" for i in range(len(paths))] + ["bad"]),
+          f"serve: {len(ids)} answers, {len(set(ids))} distinct, for {len(lines)} requests")
+    failed = [r.req_id for r in responses if not r.ok]
+    check(failed == ["bad"], f"serve: failed requests {failed}, expected only 'bad'")
+    check(launches == n_layers * seen["batches"] * on_card,
+          f"serve: gated attention launched {launches} times for {seen['batches']} batches")
+    check(not any(v for k, v in counts.items() if k != "gated_relpos_attention"),
+          f"serve: other kernels launched: {counts}")
+    served = [r for r in responses if r.ok]
+    worst = max(cosine_distance(torch.from_numpy(r.embeddings[c]),
+                                torch.from_numpy(by_path[r.path][c]))
+                for r in served for c in extractor.column_names)
+    check(worst <= CHUNK_COSINE, f"serve: served rows {worst:.3g} from the pipeline's")
+    X = np.stack([r.embeddings[clf.layer] for r in served])
+    expect = [clf.class_names[int(i)] for i in load_model(str(model_path), device=device).predict(X)]
+    check([r.prediction for r in served] == expect, "serve: predictions differ from load_model's")
+    check(all(r.error is None for r in served), "serve: a classification failed")
+    check(stats["device_s_per_audio_s"] > 0 or not on_card, f"serve: stats {stats}")
+    say("serve", requests=len(lines), answered=len(ids), failed=",".join(failed),
+        rounds=stats["rounds"], batches=seen["batches"], launches=launches,
+        expected=f"{n_layers}x{seen['batches']}", worst_cosine_vs_pipeline=f"{worst:.3g}",
+        head_fit_s=f"{fit_s:.2f}", card=f'"{card}"')
+    say("serve", p50_ms=f"{stats['p50_s'] * 1e3:.1f}", p95_ms=f"{stats['p95_s'] * 1e3:.1f}",
+        max_ms=f"{stats['max_s'] * 1e3:.1f}",
+        device_s_per_audio_s=stats["device_s_per_audio_s"], audio_s=f"{audio_s:.1f}",
+        wall_s=f"{wall:.2f}", audio_s_per_s=f"{audio_s / wall:.1f}", card=f'"{card}"')
+
+    # the HTTP frontend over the same server
+    frontend = HttpEmbeddingFrontend(server, host="127.0.0.1", port=0, request_timeout_s=120)
+    frontend.start()
+    http_answers = []
+    try:
+        base = f"http://{frontend.host}:{frontend.port}"
+        for i, path in enumerate(paths[:http_posts]):
+            if i % 2:
+                body, ctype = Path(path).read_bytes(), "audio/wav"
+            else:
+                body, ctype = json.dumps({"path": path}).encode(), "application/json"
+            req = urllib.request.Request(base + "/embed", data=body, method="POST",
+                                         headers={"Content-Type": ctype})
+            with urllib.request.urlopen(req, timeout=120) as r:
+                obj = json.loads(r.read())
+                http_answers.append((r.status, path, obj))
+        with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
+            health = (r.status, json.loads(r.read()))
+        with urllib.request.urlopen(base + "/stats", timeout=30) as r:
+            http_stats = json.loads(r.read())
+    finally:
+        frontend.shutdown()
+    check(health == (200, {"ok": True}), f"serve: /healthz answered {health}")
+    check(http_stats["served"] >= len(served) + http_posts, f"serve: /stats {http_stats}")
+    http_worst = 0.0
+    for status, path, obj in http_answers:
+        check(status == 200 and obj["ok"] and obj.get("prediction") in clf.class_names,
+              f"serve: HTTP answer {status} {obj.get('error')} for {path}")
+        http_worst = max([http_worst] + [
+            cosine_distance(torch.tensor(obj["embeddings"][c]), torch.from_numpy(by_path[path][c]))
+            for c in extractor.column_names])
+    check(http_worst <= CHUNK_COSINE, f"serve: HTTP rows {http_worst:.3g} from the pipeline's")
+    say("serve_http", posts=len(http_answers), worst_cosine_vs_pipeline=f"{http_worst:.3g}",
+        healthz=health[0], stats_served=http_stats["served"], card=f'"{card}"')
+    return dict(counts, batches=seen["batches"], stats=stats, audio_s_per_s=audio_s / wall)
+
+
 @contextlib.contextmanager
 def timed(phase: str):
     t0 = time.perf_counter()
@@ -2248,6 +2716,14 @@ def main() -> int:
                 phase_downstream_heads(torch, card)
             with timed("downstream"):
                 ds_counts = phase_downstream(torch, work, card)
+            torch.cuda.empty_cache()
+            with timed("checkpoint"):
+                loaded = phase_checkpoint(torch, work, card)
+            with timed("chunk"):
+                extractor = WavLMExtractor(loaded, "cuda", preset="fast")
+                chunk_counts, chunk_store, chunk_rate = phase_chunk(torch, extractor, work, card)
+            with timed("serve"):
+                serve_counts = phase_serve(torch, extractor, chunk_store, work, card)
     except CheckFailed as e:
         print(f"FAILED: {e}", flush=True)
         return 1
@@ -2278,6 +2754,8 @@ def main() -> int:
     line[0]["also_replaces"] = "stutter_tpu/ops/wavlm_attention_pallas.py:93"
     line[0]["finetune_launches"] = ft_counts["gated_relpos_attention"]
     line[0]["downstream_launches"] = ds_counts["gated_relpos_attention"]
+    line[0]["chunk_launches"] = chunk_counts["gated_relpos_attention"]
+    line[0]["serve_launches"] = serve_counts["gated_relpos_attention"]
     line[1]["also_replaces"] = ["stutter_tpu/ops/wavlm_attention_vjp.py:68",
                                 "stutter_tpu/ops/wavlm_attention_vjp.py:115"]
     line[1]["max_rel_err"] = bwd_rel

@@ -112,6 +112,13 @@ def wav_info(path: str) -> tuple[int, int]:
         return data_size // (channels * (bits // 8)), rate
 
 
+def audio_info(path: str) -> tuple[int, int]:
+    """Cheap probe of any audio file: (n_mono_samples, sample_rate). WAV
+    through its RIFF header; any other format raises ValueError, as this
+    package's reader does (no compressed-format decoder yet)."""
+    return wav_info(path)
+
+
 def write_wav(path: str, samples: np.ndarray, sample_rate: int) -> None:
     """Write mono float32 [-1, 1] samples as 16-bit PCM WAV."""
     x = np.clip(np.asarray(samples, np.float32), -1.0, 1.0)

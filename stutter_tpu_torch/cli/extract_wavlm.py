@@ -1,17 +1,22 @@
 """WavLM embedding extraction CLI on one GPU (flags of ``stutter_tpu.cli.extract_wavlm``).
 
     python -m stutter_tpu_torch.cli.extract_wavlm --data_dir <corpus> \\
-        --output_dir <out> --random_init [--preset fast|fidelity|turbo] [--device cuda]
+        --output_dir <out> --model_path <local HF checkpoint dir> \\
+        [--preset fast|fidelity|turbo] [--long_files trim|chunk] [--verify_model] [--device cuda]
 
 ``--device`` names the torch device (default ``cuda``); with no card it
-fails rather than running on the CPU. ``--random_init`` (seed 0) is the only
-model source for now: HF checkpoint loading, ``--long_files chunk``,
-``--verify_model`` and the multi-device flags raise. ``--preset`` takes the
-JAX CLI's three: fast (bf16), fidelity (f32, no TF32) and turbo (fast with
-int8 projections). The JAX package's environment switch for WavLM's long
-buckets is read here, once: a non-empty ``STUTTER_TPU_LONG_ATTENTION_FLASH``
-sends bf16 attention from ``STUTTER_TPU_LONG_ATTENTION_MIN_L`` frames
-(default 1008) up through the materialised-bias flash kernel
+fails rather than running on the CPU. The weights come from a local HF
+checkpoint directory (``--model_path``, or ``--model_name`` naming one), or
+with ``--random_init`` from seed 0 in the architecture ``--model_name``
+names; a hub name raises ``OSError`` (no download). ``--verify_model`` runs
+the dummy-forward check first; ``--long_files chunk`` embeds files longer
+than the top bucket as length-weighted chunks; the multi-device flags
+raise. ``--preset`` takes the JAX CLI's three: fast (bf16), fidelity (f32,
+no TF32) and turbo (fast with int8 projections). The JAX package's
+environment switch for WavLM's long buckets is read here, once: a non-empty
+``STUTTER_TPU_LONG_ATTENTION_FLASH`` sends bf16 attention from
+``STUTTER_TPU_LONG_ATTENTION_MIN_L`` frames (default 1008) up through the
+materialised-bias flash kernel
 (``WavLMExtractor(long_attention="materialized_bias")``).
 """
 
@@ -22,12 +27,7 @@ import logging
 import os
 import sys
 
-WAVLM_CONFIGS = {
-    "microsoft/wavlm-base": "base",
-    "microsoft/wavlm-base-plus": "base_plus",
-    "microsoft/wavlm-large": "large",
-    "microsoft/wavlm-large-v2": "large",
-}
+from stutter_tpu_torch.cli.common import WAVLM_CONFIGS, check_single_device
 
 
 def long_attention_from_env(environ=None) -> dict:
@@ -52,7 +52,7 @@ def parse_args(argv=None):
     parser.add_argument("--model_name", type=str, default="microsoft/wavlm-large",
                         choices=sorted(WAVLM_CONFIGS), help="WavLM model name")
     parser.add_argument("--model_path", type=str, default=None,
-                        help="Local checkpoint directory (not supported yet)")
+                        help="Local checkpoint directory (overrides --model_name source)")
     parser.add_argument("--batch_size", type=int, default=128,
                         help="Max clips per device batch")
     parser.add_argument("--split", type=str, default="all",
@@ -69,9 +69,10 @@ def parse_args(argv=None):
     parser.add_argument("--random_init", action="store_true",
                         help="Random weights from seed 0 (no checkpoint load)")
     parser.add_argument("--long_files", type=str, default="trim", choices=["trim", "chunk"],
-                        help="Files longer than the top bucket: trim (chunk is not ported)")
+                        help="Files longer than the top bucket: trim (reference "
+                             "behavior) or chunk+weighted-average")
     parser.add_argument("--verify_model", action="store_true",
-                        help="Dummy-forward model verification (not ported)")
+                        help="Dummy-forward model verification before extraction")
     parser.add_argument("--devices", type=int, default=None,
                         help="Number of devices (only 1 is supported)")
     parser.add_argument("--tp", type=int, default=1,
@@ -85,43 +86,21 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def _check_supported(args) -> None:
-    if not args.random_init:
-        raise NotImplementedError(
-            "loading HF checkpoints is not ported yet (ROADMAP Queue 1, HF checkpoint "
-            "loading); pass --random_init")
-    if args.long_files != "trim":
-        raise NotImplementedError(
-            "--long_files chunk is not ported yet (ROADMAP Queue 1, the chunk "
-            "long-file policy)")
-    if args.verify_model:
-        raise NotImplementedError("--verify_model is not ported yet")
-    if (args.devices or 1) != 1 or args.tp != 1:
-        raise NotImplementedError(
-            "multi-device runs are not ported yet (ROADMAP Queue 1, multi-GPU)")
-
-
 def main(argv=None) -> int:
     args = parse_args(argv)
-    _check_supported(args)
+    check_single_device(args)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s - %(name)s - %(levelname)s - %(message)s")
     logger = logging.getLogger("stutter_tpu_torch.cli.extract_wavlm")
 
-    import torch
-
+    from stutter_tpu_torch.cli.common import load_wavlm_model
     from stutter_tpu_torch.extract.batcher import BucketBatcher
     from stutter_tpu_torch.extract.pipeline import (
         ExtractionPipeline, WavLMExtractor, resolve_device)
     from stutter_tpu_torch.extract.scanner import create_metadata_from_files
-    from stutter_tpu_torch.models.wavlm import WavLMConfig
-    from stutter_tpu_torch.weights.convert import init_wavlm
 
     device = resolve_device(args.device)
-    cfg = getattr(WavLMConfig, WAVLM_CONFIGS[args.model_name])()
-    logger.warning("--random_init: using fresh %s weights (seed 0, no checkpoint load)",
-                   args.model_name)
-    model = init_wavlm(cfg, torch.Generator().manual_seed(0))
+    cfg, model = load_wavlm_model(args.model_path or args.model_name, args.random_init)
     logger.info("model: %s (%d layers, hidden %d, stable_ln=%s) on %s, preset %s",
                 args.model_name, cfg.num_hidden_layers, cfg.hidden_size,
                 cfg.do_stable_layer_norm, device, args.preset)
@@ -130,6 +109,10 @@ def main(argv=None) -> int:
     if not metadata:
         logger.error("no files found under %s", args.data_dir)
         return 1
+    if args.verify_model:  # after the cheap metadata check
+        from stutter_tpu_torch.models.verify import verify_wavlm
+
+        verify_wavlm(model.to(device), model_name=args.model_path or args.model_name)
     extractor = WavLMExtractor(model, device, preset=args.preset, **long_attention_from_env())
     batcher = BucketBatcher(
         target_sr=args.sample_rate,
@@ -139,7 +122,8 @@ def main(argv=None) -> int:
         frame_align=extractor.frame_align,
     )
     pipe = ExtractionPipeline(extractor, batcher=batcher,
-                              checkpoint_interval=args.checkpoint_interval)
+                              checkpoint_interval=args.checkpoint_interval,
+                              long_file_policy=args.long_files)
     splits = [args.split] if args.split != "all" else ["train", "test", "devel"]
     pipe.run(metadata, args.output_dir, splits=splits, resume=args.resume)
     logger.info("extraction complete -> %s", args.output_dir)

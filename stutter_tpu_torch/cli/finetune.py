@@ -1,7 +1,7 @@
 """End-to-end WavLM fine-tuning on one GPU (flags of ``stutter_tpu.cli.finetune``).
 
     python -m stutter_tpu_torch.cli.finetune --data_dir <corpus> \\
-        --results_dir <out> --random_init [--epochs 5] [--batch_size 32] \\
+        --results_dir <out> --model_path <checkpoint dir> [--epochs 5] [--batch_size 32] \\
         [--grad_accum K] [--checkpoint_dir <dir> [--resume]] [--device cuda]
 
 WavLM backbone + layer-weighted sum + MLP head, class-weighted cross-entropy,
@@ -15,11 +15,13 @@ Test and devel are evaluated at the end; ``finetune_results.json`` and the
 model (``.npz`` + ``_info.json``) go to ``--results_dir``.
 
 ``--device`` names the torch device (default ``cuda``; with no card it fails
-rather than running on the CPU). ``--random_init`` (seed 0) is the only
-model source for now; ``--int8_forward``, the remat policies ``layer_dots``,
+rather than running on the CPU). The backbone comes from a local HF
+checkpoint directory (``--model_path``, or ``--model_name`` naming one), or
+with ``--random_init`` from seed 0; a hub name raises ``OSError`` (no
+download). ``--int8_forward``, the remat policies ``layer_dots``,
 ``layer_probs`` and ``dots``, ``--devices``/``--tp`` above 1, and the JAX
-package's ``STUTTER_TPU_LONG_ATTENTION_FLASH`` switch (its backward is not
-ported) raise.
+package's ``STUTTER_TPU_LONG_ATTENTION_FLASH`` switch raise (the reference
+has no backward for that attention either).
 ``--preset`` is accepted and ignored, as in the JAX CLI: fine-tuning always
 runs bf16 activations.
 """
@@ -32,7 +34,8 @@ import sys
 
 import numpy as np
 
-from stutter_tpu_torch.cli.extract_wavlm import WAVLM_CONFIGS, long_attention_from_env
+from stutter_tpu_torch.cli.common import WAVLM_CONFIGS, check_single_device
+from stutter_tpu_torch.cli.extract_wavlm import long_attention_from_env
 
 
 def parse_args(argv=None):
@@ -43,7 +46,7 @@ def parse_args(argv=None):
     parser.add_argument("--model_name", type=str, default="microsoft/wavlm-large",
                         choices=sorted(WAVLM_CONFIGS))
     parser.add_argument("--model_path", type=str, default=None,
-                        help="Local checkpoint directory (not supported yet)")
+                        help="Local checkpoint directory (overrides --model_name source)")
     parser.add_argument("--epochs", type=int, default=5)
     parser.add_argument("--batch_size", type=int, default=32)
     parser.add_argument("--backbone_lr", type=float, default=1e-5)
@@ -89,17 +92,12 @@ def parse_args(argv=None):
 
 
 def _check_supported(args) -> None:
-    if not args.random_init:
-        raise NotImplementedError(
-            "loading HF checkpoints is not ported yet (ROADMAP Queue 1, HF checkpoint "
-            "loading); pass --random_init")
-    if (args.devices or 1) != 1 or args.tp != 1:
-        raise NotImplementedError(
-            "multi-device runs are not ported yet (ROADMAP Queue 1, multi-GPU)")
+    check_single_device(args)
     if long_attention_from_env()["long_attention"] != "gated":
         raise NotImplementedError(
-            "STUTTER_TPU_LONG_ATTENTION_FLASH is set: the backward of the materialised-bias "
-            "attention is not ported yet (ROADMAP Queue 1, fine-tuning); unset it to train")
+            "STUTTER_TPU_LONG_ATTENTION_FLASH is set: the materialised-bias attention has "
+            "no backward, here or in the reference (whose flash attention is built without "
+            "backward blocks); unset it to train")
 
 
 def main(argv=None) -> int:
@@ -113,6 +111,7 @@ def main(argv=None) -> int:
 
     import torch
 
+    from stutter_tpu_torch.cli.common import load_wavlm_model
     from stutter_tpu_torch.extract.batcher import BucketBatcher
     from stutter_tpu_torch.extract.pipeline import resolve_device
     from stutter_tpu_torch.extract.scanner import create_metadata_from_files
@@ -126,9 +125,8 @@ def main(argv=None) -> int:
     from stutter_tpu_torch.train.persistence import save_model, save_results
     from stutter_tpu_torch.weights.convert import finetune_params_to_numpy, flatten_tree
 
-    cfg_model = getattr(WavLMConfig, WAVLM_CONFIGS[args.model_name])()
-    cfg = FinetuneConfig(  # n_classes is set once the labels are read
-        model=cfg_model, n_classes=1,
+    cfg = FinetuneConfig(  # the model's config is set once it is loaded, n_classes
+        model=WavLMConfig(), n_classes=1,  # once the labels are read
         backbone_lr=args.backbone_lr, head_lr=args.head_lr,
         freeze_backbone=args.freeze_backbone,
         remat_encoder=not args.no_remat,
@@ -141,8 +139,9 @@ def main(argv=None) -> int:
         logger.error("--resume requires --checkpoint_dir")
         return 2
     device = resolve_device(args.device)
-    logger.warning("--random_init: using fresh %s weights (seed 0, no checkpoint load)",
-                   args.model_name)
+    cfg_model, backbone = load_wavlm_model(args.model_path or args.model_name,
+                                           args.random_init)
+    cfg = dataclasses.replace(cfg, model=cfg_model)
 
     metadata = [r for r in create_metadata_from_files(args.data_dir, split="all")
                 if r.get("label") not in (None, "")]
@@ -157,8 +156,8 @@ def main(argv=None) -> int:
     class_weights = compute_class_weights(y_train, len(class_names))
 
     cfg = dataclasses.replace(cfg, n_classes=len(class_names))
-    # a random backbone from seed cfg.seed = 0, as --random_init says
-    trainer = FinetuneTrainer(cfg, device=device, grad_accum=max(1, args.grad_accum))
+    trainer = FinetuneTrainer(cfg, backbone=backbone, device=device,
+                              grad_accum=max(1, args.grad_accum))
     batcher = BucketBatcher(
         audio_budget_s=args.batch_size * 3.0, max_batch=args.batch_size,
         max_length_s=args.max_length,

@@ -7,9 +7,10 @@ The reference's flags (``model_training_01.py:41-70``) with the heads
 (mlp, linear) among the classifiers. ``--device`` names the torch device
 of SMOTE, the heads and the augmentation's re-extraction (default
 ``cuda``); with no card it fails rather than running on the CPU. The
-re-extraction model is built with random weights from seed 0
-(``--random_init``): HF checkpoint loading is not ported, and without the
-flag a run that augments raises. 'bestrq' (accepted, never implemented
+re-extraction model is loaded from the local HF checkpoint directory
+``--model_name`` names, or built with random weights from seed 0
+(``--random_init``); a hub name raises ``OSError`` (no download).
+'bestrq' (accepted, never implemented
 by the reference) and ``--split all`` exit with 2, a missing store with 1.
 Plots need matplotlib: without it the run logs one warning and writes no
 plots.
@@ -19,10 +20,11 @@ from __future__ import annotations
 
 import argparse
 import logging
+import os
 import sys
 
-from stutter_tpu_torch.cli.extract_wavlm import WAVLM_CONFIGS, long_attention_from_env
-from stutter_tpu_torch.cli.extract_whisper import WHISPER_SIZES
+from stutter_tpu_torch.cli.common import check_single_device
+from stutter_tpu_torch.cli.extract_wavlm import long_attention_from_env
 
 MODEL_TYPES = ["whisper", "wavlm", "wavlm_large", "bestrq", "combined", "whisper_large_fixed"]
 # accepted by the reference but implemented by neither it nor this package
@@ -69,45 +71,25 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def check_devices(args) -> None:
-    if (args.devices or 1) != 1 or args.tp != 1:
-        raise NotImplementedError(
-            "multi-device runs are not ported yet (ROADMAP Queue 1, multi-GPU)")
-
-
 def build_extractor_for(model_type: str, model_name: str, random_init: bool, device,
                         preset: str):
     """The re-extraction model for augmentation (reference :735-758), or None
     for a model type without one (combined)."""
-    import torch
-
+    from stutter_tpu_torch.cli.common import load_wavlm_model, load_whisper_model
     from stutter_tpu_torch.extract.pipeline import WavLMExtractor, WhisperExtractor
 
     kind = model_type.lower()
-    if kind not in ("wavlm", "wavlm_large", "whisper", "whisper_large_fixed"):
-        return None
-    if not random_init:
-        raise NotImplementedError(
-            "loading HF checkpoints is not ported yet (ROADMAP Queue 1, HF checkpoint "
-            "loading); pass --random_init")
-    logger = logging.getLogger("stutter_tpu_torch.cli.train")
-    generator = torch.Generator().manual_seed(0)
     if kind in ("wavlm", "wavlm_large"):
-        from stutter_tpu_torch.models.wavlm import WavLMConfig
-        from stutter_tpu_torch.weights.convert import init_wavlm
-
-        preset_name = WAVLM_CONFIGS.get(model_name, "base")
-        logger.warning("--random_init: using fresh %s weights (no checkpoint load)", preset_name)
-        model = init_wavlm(getattr(WavLMConfig, preset_name)(), generator)
+        _, model = load_wavlm_model(model_name, random_init)
         return WavLMExtractor(model, device, preset=preset, **long_attention_from_env())
-    from stutter_tpu_torch.models.whisper import WhisperConfig
-    from stutter_tpu_torch.weights.convert import init_whisper
-
-    name = model_name if "whisper" in model_name else "openai/whisper-large"
-    size = next((p for key, p in WHISPER_SIZES if key in name), "base")
-    logger.warning("--random_init: using fresh whisper %s weights", size)
-    return WhisperExtractor(init_whisper(getattr(WhisperConfig, size)(), generator), device,
-                            preset=preset)
+    if kind in ("whisper", "whisper_large_fixed"):
+        # the JAX CLI's rule (a WavLM name means the default Whisper), but a
+        # local checkpoint directory is taken whatever its name
+        local = os.path.isdir(model_name)
+        name = model_name if local or "whisper" in model_name else "openai/whisper-large"
+        _, model = load_whisper_model(name, random_init)
+        return WhisperExtractor(model, device, preset=preset)
+    return None
 
 
 def plots_available(logger: logging.Logger) -> bool:
@@ -138,7 +120,7 @@ def main(argv=None) -> int:
         logger.error("--split must be 'predefined' or 'train_test' (the reference accepts "
                      "'all' but has no implementation)")
         return 2
-    check_devices(args)
+    check_single_device(args)
 
     from stutter_tpu_torch.extract.pipeline import resolve_device
     from stutter_tpu_torch.train.trainer import TrainConfig, run_balanced_training

@@ -15,12 +15,12 @@ from __future__ import annotations
 import argparse
 import sys
 
+from stutter_tpu_torch.cli.common import check_single_device
 from stutter_tpu_torch.cli.train import (
     MODEL_TYPES,
     UNIMPLEMENTED,
     add_device_args,
     build_extractor_for,
-    check_devices,
     plots_available,
     setup_logging,
 )
@@ -85,7 +85,7 @@ def main(argv=None) -> int:
         logger.error("--split must be 'predefined' or 'train_test' (the reference accepts "
                      "'all' but has no implementation)")
         return 2
-    check_devices(args)
+    check_single_device(args)
 
     from stutter_tpu_torch.extract.pipeline import resolve_device
     from stutter_tpu_torch.train.classifiers import GRID_MODELS, GRID_MODELS_JAX

@@ -17,7 +17,7 @@ from typing import Iterator, Sequence
 
 import numpy as np
 
-from stutter_tpu_torch.audio.wavio import decode_batch, wav_info
+from stutter_tpu_torch.audio.wavio import audio_info, decode_batch
 
 logger = logging.getLogger("stutter_tpu_torch.extract.batcher")
 
@@ -75,17 +75,26 @@ class BucketBatcher:
     def batch_size_for(self, bucket_s: float) -> int:
         return max(1, min(self.max_batch, int(self.audio_budget_s / bucket_s)))
 
-    def assign_buckets(self, paths: Sequence[str]) -> dict[float, list[int]]:
-        """Probe headers and group file indices by smallest covering bucket."""
+    def assign_buckets(self, paths: Sequence[str],
+                       durations: Sequence[float | None] | None = None,
+                       ) -> dict[float, list[int]]:
+        """Probe headers and group file indices by smallest covering bucket.
+
+        ``durations`` skips the probe where the caller already knows a clip's
+        length (the server probes every request once for its long-clip
+        split); an entry of None is probed. A file that cannot be probed goes
+        to the top bucket."""
         assignment: dict[float, list[int]] = {b: [] for b in self.buckets_s}
         top = self.buckets_s[-1]
         for i, p in enumerate(paths):
-            try:
-                n, sr = wav_info(p)
-                dur = n / sr
-            except (OSError, ValueError, struct.error) as e:
-                logger.error("cannot probe %s (%s); assigning top bucket", p, e)
-                dur = top
+            dur = durations[i] if durations is not None else None
+            if dur is None:
+                try:
+                    n, sr = audio_info(p)
+                    dur = n / sr
+                except (OSError, ValueError, struct.error) as e:
+                    logger.error("cannot probe %s (%s); assigning top bucket", p, e)
+                    dur = top
             bucket = next((b for b in self.buckets_s if dur <= b), top)
             assignment[bucket].append(i)
         return {b: idxs for b, idxs in assignment.items() if idxs}

@@ -7,18 +7,30 @@ enqueues a batch's device work and the copy of its pooled result on the
 current CUDA stream without waiting for either, and ``collect`` waits for
 that copy alone, so the pipeline keeps one batch in flight while it stores
 the previous one.
+
+Files longer than the top bucket are trimmed to it (``long_file_policy=
+"trim"``, the reference's behaviour) or cut into top-bucket chunks whose
+pooled embeddings are combined, weighted by each chunk's true frame count
+(``"chunk"``): ``chunked_embeddings`` does one file (the server's long
+clips), ``ExtractionPipeline`` packs the chunks of all long files into the
+same full-size bucket batches.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import logging
+import struct
 import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import Sequence
 
 import numpy as np
 import torch
 
+from stutter_tpu_torch.audio.wavio import audio_info, load_audio
 from stutter_tpu_torch.extract.batcher import DEFAULT_BUCKETS_S, Batch, BucketBatcher
 from stutter_tpu_torch.extract.checkpoint import (
     find_latest_checkpoint,
@@ -262,14 +274,70 @@ class WhisperExtractor(_Extractor):
             return self.model.embed(mel, self.encoder_indices, self.decoder_indices)
 
 
+def chunked_embeddings(extractor, batcher: BucketBatcher, path: str,
+                       ) -> tuple[dict[str, np.ndarray], int, float] | None:
+    """Embed one over-length file as top-bucket chunks and combine the pooled
+    embeddings weighted by each chunk's true frame count (in float64). For
+    WavLM (mask-correct pooling) this is the whole-file mean pool up to the
+    chunk boundaries; for Whisper (its pool over the padding kept) it weighs
+    each chunk's padded pool by its real audio.
+
+    The chunk count pads to a multiple of 4 (the JAX package's ``max(
+    batch_multiple, 4)`` on one device), so few batch shapes are seen.
+    Returns (column -> combined [D] f32, n_chunks, audio seconds), or None
+    when the file does not decode or no chunk has a frame."""
+    sr = batcher.target_sr
+    chunk_samples = batcher.bucket_samples(batcher.buckets_s[-1])
+    wave = load_audio(path, target_sr=sr)
+    if wave is None:
+        logger.error("skipping %s (decode failed)", path)
+        return None
+    n_chunks = max(1, -(-len(wave) // chunk_samples))
+    n_padded = -(-n_chunks // 4) * 4
+    waves = np.zeros((n_padded, chunk_samples), np.float32)
+    lengths = np.zeros((n_padded,), np.int64)
+    for c in range(n_chunks):
+        seg = wave[c * chunk_samples: (c + 1) * chunk_samples]
+        waves[c, : len(seg)] = seg
+        lengths[c] = len(seg)
+    ok = np.arange(n_padded) < n_chunks
+    batch = Batch(paths=[path] * n_chunks, rows=list(range(n_chunks)), waves=waves,
+                  lengths=lengths, ok=ok, bucket_s=chunk_samples / sr, sample_rate=sr)
+    embeddings = extractor(batch)
+    # a tiny tail chunk can come out of the conv stem with <= 0 frames: clamp
+    weights = np.array([max(0, extractor.frame_count(int(n))) if ok[c] else 0
+                        for c, n in enumerate(lengths)], np.float64)
+    if weights.sum() <= 0:
+        logger.error("skipping %s (no usable chunks)", path)
+        return None
+    weights /= weights.sum()
+    combined = {col: np.asarray((np.asarray(arr, np.float64) * weights[:, None]).sum(axis=0),
+                                np.float32)
+                for col, arr in embeddings.items()}
+    return combined, n_chunks, float(len(wave)) / sr
+
+
+def _store_row(meta_row: dict, split: str) -> dict:
+    entry = {"filename": meta_row["filename"], "path": meta_row["path"], "split": split}
+    if meta_row.get("label") not in (None, ""):
+        entry["label"] = meta_row["label"]
+    return entry
+
+
 class ExtractionPipeline:
     """Split loop -> bucketed batches -> device forward -> store.
 
-    Files longer than the top bucket keep their first top-bucket seconds (the
-    reference's 'trim' policy)."""
+    ``long_file_policy``: files longer than the top bucket keep their first
+    top-bucket seconds ("trim", the reference's behaviour) or are embedded
+    as top-bucket chunks combined by true frame count ("chunk"; their rows
+    carry a ``chunks`` column)."""
 
     def __init__(self, extractor, batcher: BucketBatcher | None = None,
-                 checkpoint_interval: int = 50):
+                 checkpoint_interval: int = 50, long_file_policy: str = "trim"):
+        if long_file_policy not in ("trim", "chunk"):
+            raise ValueError(f"long_file_policy must be 'trim' or 'chunk', "
+                             f"got {long_file_policy!r}")
+        self.long_file_policy = long_file_policy
         self.extractor = extractor
         if batcher is None:
             batcher = BucketBatcher(
@@ -295,38 +363,52 @@ class ExtractionPipeline:
                 ckpt_num = latest
         done_paths = {r["path"] for r in results}
         todo = [r for r in split_rows if r["path"] not in done_paths]
-        paths = [r["path"] for r in todo]
+
+        long_rows: list[int] = []
+        if self.long_file_policy == "chunk":
+            top_s = self.batcher.buckets_s[-1]
+            for i, r in enumerate(todo):
+                try:
+                    n, sr = audio_info(r["path"])
+                except (OSError, ValueError, struct.error):
+                    continue  # the batch path reports the file
+                if n / sr > top_s:
+                    long_rows.append(i)
+        long_set = set(long_rows)
+        short_rows = [i for i in range(len(todo)) if i not in long_set]
 
         t0 = time.perf_counter()
         audio_s = 0.0
         since_ckpt = 0
 
-        def drain(batch: Batch, handle) -> None:
-            nonlocal audio_s, since_ckpt, ckpt_num
-            embeddings = self.extractor.collect(handle)
-            for j, row_idx in enumerate(batch.rows):
-                if not batch.ok[j]:
-                    logger.error("skipping %s (decode failed)", batch.paths[j])
-                    continue
-                meta_row = todo[row_idx]
-                entry = {"filename": meta_row["filename"], "path": meta_row["path"],
-                         "split": split}
-                if meta_row.get("label") not in (None, ""):
-                    entry["label"] = meta_row["label"]
-                for col, arr in embeddings.items():
-                    entry[col] = np.asarray(arr[j], np.float32)
-                results.append(entry)
-                since_ckpt += 1
-            audio_s += batch.audio_seconds
+        def checkpoint_if_due() -> None:
+            """After each batch, and after each chunked file."""
+            nonlocal since_ckpt, ckpt_num
             if since_ckpt >= self.checkpoint_interval:
                 ckpt_num += 1
                 save_checkpoint(results, output_dir, split, ckpt_num)
                 since_ckpt = 0
 
+        def drain(batch: Batch, handle) -> None:
+            nonlocal audio_s, since_ckpt
+            embeddings = self.extractor.collect(handle)
+            audio_s += batch.audio_seconds
+            for j, row_idx in enumerate(batch.rows):
+                if not batch.ok[j]:
+                    logger.error("skipping %s (decode failed)", batch.paths[j])
+                    continue
+                entry = _store_row(todo[row_idx], split)
+                for col, arr in embeddings.items():
+                    entry[col] = np.asarray(arr[j], np.float32)
+                results.append(entry)
+                since_ckpt += 1
+            checkpoint_if_due()
+
         # 1-deep: batch i+1 is enqueued on the device before batch i's pooled
         # result is copied back and stored
         pending = None
-        for batch in self.batcher.batches(paths):
+        for batch in self.batcher.batches([todo[i]["path"] for i in short_rows]):
+            batch.rows = [short_rows[r] for r in batch.rows]
             handle = self.extractor.submit(batch)
             if pending is not None:
                 drain(*pending)
@@ -334,14 +416,145 @@ class ExtractionPipeline:
         if pending is not None:
             drain(*pending)
 
+        if long_rows:
+            def file_done(entry: dict) -> None:
+                nonlocal audio_s, since_ckpt
+                audio_s += entry.pop("_audio_s")
+                results.append(entry)
+                since_ckpt += 1
+                checkpoint_if_due()
+
+            self._extract_chunked_rows(todo, long_rows, split, file_done)
+
         wall = time.perf_counter() - t0
         if wall > 0 and audio_s > 0:
             logger.info("split %s: %d files, %.1f audio-s in %.1f s (%.1fx real-time)",
                         split, len(results), audio_s, wall, audio_s / wall)
+        # the JAX package's store: columns in order of first appearance in
+        # extraction order, rows sorted stably by path, and a chunks column
+        # that is float where some rows lack it (pandas' int column with holes)
+        columns = list(dict.fromkeys(c for r in results for c in r))
         results = sorted(results, key=lambda r: r["path"])
+        n_chunked = sum("chunks" in r for r in results)
+        if 0 < n_chunked < len(results):
+            for r in results:
+                if "chunks" in r:
+                    r["chunks"] = float(r["chunks"])
         save_embeddings(results, output_dir, split,
-                        expected_dim=self.extractor.embedding_dim)
+                        expected_dim=self.extractor.embedding_dim, columns=columns)
         return results
+
+    def _extract_chunked_rows(self, todo: list[dict], long_rows: list[int], split: str,
+                              on_file_done) -> None:
+        """The chunk policy's batches: the chunks of all long files share
+        full-size bucket batches (whole chunks ride the top bucket, each tail
+        its smallest covering bucket), one batch in flight. Each file's
+        pooled chunks are summed in float64, weighted by true frame count, as
+        its batches drain; its row goes to ``on_file_done`` when its last
+        chunk lands. Files decode on two host threads, at most four ahead."""
+        batcher = self.batcher
+        sr = batcher.target_sr
+        top_samples = batcher.bucket_samples(batcher.buckets_s[-1])
+        acc: dict[int, dict] = {}  # row -> weighted sums, weight, chunks left
+        pend: dict[float, tuple[list, list]] = {}  # bucket -> (segments, rows)
+        inflight: list = []  # [(slot (row, weight) list, handle)]
+
+        def finalize(row_idx: int) -> None:
+            a = acc.pop(row_idx)
+            if a["wsum"] <= 0:
+                logger.error("skipping %s (no usable chunks)", a["path"])
+                return
+            meta_row = todo[row_idx]
+            entry = {"filename": meta_row["filename"], "path": meta_row["path"],
+                     "split": split, "chunks": a["n_chunks"], "_audio_s": a["audio_s"]}
+            if meta_row.get("label") not in (None, ""):
+                entry["label"] = meta_row["label"]
+            for col, v in a["sums"].items():
+                entry[col] = np.asarray(v / a["wsum"], np.float32)
+            logger.info("chunked %s: %d chunks (%.1f s)", meta_row["filename"],
+                        a["n_chunks"], a["audio_s"])
+            on_file_done(entry)
+
+        def drain_one() -> None:
+            slots, handle = inflight.pop(0)
+            embeddings = self.extractor.collect(handle)
+            for slot, (row_idx, w) in enumerate(slots):
+                a = acc[row_idx]
+                if w > 0:
+                    for col, arr in embeddings.items():
+                        a["sums"][col] = a["sums"].get(col, 0.0) + np.asarray(
+                            arr[slot], np.float64) * w
+                    a["wsum"] += w
+                a["remaining"] -= 1
+                if a["remaining"] == 0:
+                    finalize(row_idx)
+
+        def submit_bucket(bucket_s: float) -> None:
+            segs, rows = pend.pop(bucket_s)
+            bsz, max_samples = batcher.batch_size_for(bucket_s), batcher.bucket_samples(bucket_s)
+            waves = np.zeros((bsz, max_samples), np.float32)
+            lengths = np.zeros((bsz,), np.int64)
+            slots = []
+            for s, (seg, row_idx) in enumerate(zip(segs, rows)):
+                # a frame-aligned bucket can hold up to stride-1 samples under
+                # its nominal seconds: trim as decode_batch does
+                n = min(len(seg), max_samples)
+                waves[s, :n] = seg[:n]
+                lengths[s] = n
+                slots.append((row_idx, float(max(0, self.extractor.frame_count(n)))))
+            batch = Batch(paths=[todo[r]["path"] for r in rows], rows=list(rows), waves=waves,
+                          lengths=lengths, ok=np.arange(bsz) < len(segs), bucket_s=bucket_s,
+                          sample_rate=sr)
+            inflight.append((slots, self.extractor.submit(batch)))
+            while len(inflight) > 1:  # 1-deep: drain the previous batch
+                drain_one()
+
+        def push(bucket_s: float, seg: np.ndarray, row_idx: int) -> None:
+            segs, rows = pend.setdefault(bucket_s, ([], []))
+            segs.append(seg)
+            rows.append(row_idx)
+            if len(segs) >= batcher.batch_size_for(bucket_s):
+                submit_bucket(bucket_s)
+
+        pool = ThreadPoolExecutor(max_workers=2)
+        row_iter = iter(long_rows)
+        futures: deque = deque()
+
+        def schedule(row_idx: int) -> None:
+            futures.append((row_idx, pool.submit(load_audio, todo[row_idx]["path"],
+                                                 target_sr=sr)))
+
+        try:
+            for row_idx in itertools.islice(row_iter, 4):
+                schedule(row_idx)
+            while futures:
+                row_idx, future = futures.popleft()
+                nxt = next(row_iter, None)
+                if nxt is not None:
+                    schedule(nxt)
+                path = todo[row_idx]["path"]
+                wave = future.result()  # None when the file does not decode
+                if wave is None:
+                    logger.error("skipping %s (decode failed)", path)
+                    continue
+                n_chunks = max(1, -(-len(wave) // top_samples))
+                acc[row_idx] = {"path": path, "sums": {}, "wsum": 0.0, "remaining": n_chunks,
+                                "n_chunks": n_chunks, "audio_s": float(len(wave)) / sr}
+                for c in range(n_chunks):
+                    seg = wave[c * top_samples: (c + 1) * top_samples]
+                    # the tail's bucket by sample cover, not nominal seconds
+                    # (a frame-aligned bucket sits a sliver under them)
+                    bucket = next((b for b in batcher.buckets_s
+                                   if len(seg) <= batcher.bucket_samples(b)),
+                                  batcher.buckets_s[-1])
+                    push(bucket, seg, row_idx)
+        finally:
+            pool.shutdown(wait=False, cancel_futures=True)
+
+        for bucket_s in list(pend):
+            submit_bucket(bucket_s)
+        while inflight:
+            drain_one()
 
     def run(self, metadata: list[dict], output_dir: str,
             splits: Sequence[str] = ("train", "test", "devel"),

@@ -47,15 +47,17 @@ def csv_cell(value) -> str:
 
 
 def save_embeddings(rows: list[dict], output_dir: str, split: str | None = None,
-                    expected_dim: int | None = None) -> None:
-    """Persist one split's embeddings: metadata CSV + one .npy per layer."""
+                    expected_dim: int | None = None, columns: list[str] | None = None) -> None:
+    """Persist one split's embeddings: metadata CSV + one .npy per layer.
+    ``columns`` orders the columns (default: first appearance in ``rows``)."""
     if not rows:
         logger.warning("no embeddings to save")
         return
     split_dir = os.path.join(output_dir, split) if split and split != "all" else output_dir
     os.makedirs(split_dir, exist_ok=True)
 
-    columns = list(dict.fromkeys(col for row in rows for col in row))
+    if columns is None:
+        columns = list(dict.fromkeys(col for row in rows for col in row))
     metadata_cols = [c for c in columns if not _is_embedding_col(c)]
     with open(os.path.join(split_dir, "embedding_metadata.csv"), "w", newline="") as f:
         writer = csv.writer(f, lineterminator="\n")

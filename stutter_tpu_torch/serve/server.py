@@ -1,0 +1,332 @@
+"""Latency-bounded online embedding serving over the extraction stack
+(counterpart of ``stutter_tpu/serve/server.py``).
+
+The same ``BucketBatcher`` buckets and the same extractors serve interactive
+requests; the server adds a deadline-bounded gather, so that a lone request
+never waits for a full batch.
+
+- A reader thread drains the request source into a queue, so that a slow
+  client does not stall the device loop.
+- The serving loop gathers requests until ``max_wait_s`` has passed since
+  the first one or ``max_clips`` are waiting, groups them by length bucket,
+  submits each bucket batch, and emits one response per request.
+- One round is in flight: round k's device work runs while round k+1
+  gathers and decodes. Submitting enqueues a batch on the card without
+  waiting (``extractor.submit``); ``extractor.collect``, when the round is
+  finished, is the only place that waits on the device.
+- Clips longer than the top bucket are chunked (``chunked_embeddings``) or
+  trimmed to it (``long_clip_policy``).
+- A failed batch answers only its own requests, and no request is answered
+  twice; a classifier error still ships the embeddings.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import queue
+import struct
+import threading
+import time
+from collections import deque
+from typing import Callable, Iterable, Iterator
+
+import numpy as np
+
+from stutter_tpu_torch.audio.wavio import audio_info
+from stutter_tpu_torch.extract.batcher import BucketBatcher
+from stutter_tpu_torch.extract.pipeline import chunked_embeddings
+
+logger = logging.getLogger("stutter_tpu_torch.serve.server")
+
+
+@dataclasses.dataclass
+class Request:
+    req_id: str
+    path: str
+
+
+@dataclasses.dataclass
+class Response:
+    req_id: str
+    path: str
+    ok: bool
+    embeddings: dict[str, np.ndarray] | None  # column -> [D] f32
+    error: str | None = None
+    # with a ServingClassifier: the predicted label and per-class
+    # probabilities (None where the model has no predict_proba)
+    prediction: str | None = None
+    probs: dict[str, float] | None = None
+
+
+_STOP = object()
+
+
+class EmbeddingServer:
+    def __init__(self, extractor, batcher: BucketBatcher | None = None,
+                 max_wait_s: float = 0.25, max_clips: int = 64, stats_every: int = 20,
+                 long_clip_policy: str = "chunk", classifier=None):
+        if long_clip_policy not in ("trim", "chunk"):
+            raise ValueError(f"long_clip_policy must be 'trim' or 'chunk', "
+                             f"got {long_clip_policy!r}")
+        self.extractor = extractor
+        # checked against the extractor's columns now, so that a layer
+        # mismatch fails at startup rather than on every request
+        self.classifier = classifier
+        cols = getattr(extractor, "column_names", None)
+        if classifier is not None and cols and classifier.layer not in cols:
+            raise ValueError(f"classifier was trained on column '{classifier.layer}' but the "
+                             f"extractor serves columns {list(cols)}")
+        self.batcher = batcher or BucketBatcher(audio_budget_s=max_clips * 3.0,
+                                                max_batch=max_clips)
+        self.max_wait_s = max_wait_s
+        self.max_clips = max_clips
+        self.long_clip_policy = long_clip_policy
+        self.stats_every = stats_every
+        # latency from arrival (queue pop) to response, the last 100k requests
+        self._latencies: deque[float] = deque(maxlen=100_000)
+        self._served = self._failed = self._rounds = 0
+        # time spent waiting in collect() and in the chunked path, and the
+        # audio seconds they produced: device_s_per_audio_s, the serving
+        # loop's and the device's cost per unit of work whatever the pacing
+        self._collect_s = 0.0
+        self._audio_s = 0.0
+
+    def reset_stats(self) -> None:
+        """Zero the counters (after a warm-up, before measuring)."""
+        self._latencies.clear()
+        self._served = self._failed = self._rounds = 0
+        self._collect_s = self._audio_s = 0.0
+
+    def stats(self) -> dict:
+        """Counters since startup; latency percentiles over the last 100k
+        requests (seconds)."""
+        lat = np.asarray(self._latencies, np.float64)
+        out = {"served": self._served, "failed": self._failed, "rounds": self._rounds,
+               "device_collect_s": round(self._collect_s, 3),
+               "audio_s_served": round(self._audio_s, 2)}
+        if self._audio_s > 0:
+            out["device_s_per_audio_s"] = round(self._collect_s / self._audio_s, 4)
+        if len(lat):
+            out.update(p50_s=float(np.percentile(lat, 50)), p95_s=float(np.percentile(lat, 95)),
+                       max_s=float(lat.max()))
+        return out
+
+    # -- one gathered round ------------------------------------------------
+
+    def _submit_round(self, reqs: list[Request]):
+        """The round's host half: probe and split off the long clips, decode,
+        and submit every bucket batch without waiting for the device.
+        Returns the work ``_finish_round`` takes."""
+        long_reqs: list[Request] = []
+        durations: list[float | None] | None = None
+        if self.long_clip_policy == "chunk":
+            top_s = self.batcher.buckets_s[-1]
+            short: list[Request] = []
+            durations = []
+            for r in reqs:
+                try:
+                    n, sr = audio_info(r.path)
+                    dur = n / sr
+                except (OSError, ValueError, struct.error):
+                    dur = None  # the batch path reports the file
+                if dur is not None and dur > top_s:
+                    long_reqs.append(r)
+                else:
+                    short.append(r)
+                    durations.append(dur)  # assign_buckets need not probe again
+            reqs = short
+        paths = [r.path for r in reqs]
+        assignment = self.batcher.assign_buckets(paths, durations=durations)
+        pending = []  # (requests of the batch, batch, handle | exception)
+        for bucket_s, rows in assignment.items():
+            bsz = self.batcher.batch_size_for(bucket_s)
+            for i in range(0, len(rows), bsz):
+                chunk = rows[i: i + bsz]
+                chunk_reqs = [reqs[r] for r in chunk]
+                try:
+                    batch = self.batcher._make_batch(paths, chunk, bucket_s)
+                    pending.append((chunk_reqs, batch, self.extractor.submit(batch)))
+                except Exception as e:  # noqa: BLE001 — fails this batch's requests only
+                    logger.exception("batch submit failed")
+                    pending.append((chunk_reqs, None, e))
+        return pending, long_reqs
+
+    def _finish_round(self, work, emit: Callable[[Response], None], emitted: set[str]):
+        """Collect, classify and emit a submitted round. Every emit is
+        recorded in ``emitted``, so that a failure part way through never
+        answers a request twice; a failed batch fails its own requests."""
+        pending, long_reqs = work
+        for chunk_reqs, batch, handle in pending:
+            try:
+                if batch is None:
+                    raise handle
+                t_c = time.monotonic()
+                cols = self.extractor.collect(handle)
+                self._collect_s += time.monotonic() - t_c
+                self._audio_s += float(np.sum(batch.lengths[batch.ok])) / float(batch.sample_rate)
+            except Exception as e:  # noqa: BLE001
+                logger.exception("batch failed")
+                for req in chunk_reqs:
+                    emitted.add(req.req_id)
+                    emit(Response(req.req_id, req.path, False, None, f"batch failed: {e}"))
+                continue
+            # one classifier call for the whole batch
+            preds: dict[int, tuple[str, dict | None]] = {}
+            classify_err = None
+            if self.classifier is not None:
+                valid = [j for j in range(len(chunk_reqs)) if batch.ok[j]]
+                try:
+                    rows = np.asarray(cols[self.classifier.layer], np.float32)[valid]
+                    labels, probs = self.classifier.predict_rows(rows)
+                    preds = {j: (labels[i], probs[i] if probs else None)
+                             for i, j in enumerate(valid)}
+                except Exception as e:  # noqa: BLE001 — the embeddings still ship
+                    logger.exception("classification failed for batch")
+                    classify_err = f"classification failed: {e}"
+            for j, req in enumerate(chunk_reqs):
+                emitted.add(req.req_id)
+                if not batch.ok[j]:
+                    emit(Response(req.req_id, req.path, False, None, "decode failed"))
+                    continue
+                label, probs_j = preds.get(j, (None, None))
+                emit(Response(req.req_id, req.path, True,
+                              {name: np.asarray(col[j], np.float32) for name, col in cols.items()},
+                              error=classify_err, prediction=label, probs=probs_j))
+        for req in long_reqs:
+            emitted.add(req.req_id)
+            try:
+                t_c = time.monotonic()
+                res = chunked_embeddings(self.extractor, self.batcher, req.path)
+                self._collect_s += time.monotonic() - t_c
+                if res is not None:
+                    self._audio_s += res[2]
+            except Exception as e:  # noqa: BLE001 — one bad clip must not end the round
+                logger.exception("chunked extraction failed for %s", req.path)
+                emit(Response(req.req_id, req.path, False, None,
+                              f"chunked extraction failed: {e}"))
+                continue
+            if res is None:
+                emit(Response(req.req_id, req.path, False, None, "decode failed"))
+                continue
+            label, probs, classify_err = None, None, None
+            if self.classifier is not None:
+                try:
+                    label, probs = self.classifier.classify_embeddings(res[0])
+                except Exception as e:  # noqa: BLE001 — the embeddings still ship
+                    logger.exception("classification failed for %s", req.path)
+                    classify_err = f"classification failed: {e}"
+            emit(Response(req.req_id, req.path, True, res[0], error=classify_err,
+                          prediction=label, probs=probs))
+
+    # -- serving loop ------------------------------------------------------
+
+    def _finish_pending(self, pending) -> None:
+        """Finish a submitted round: collect, emit, never answer twice."""
+        work, gathered, tracked_emit, emitted, t0 = pending
+        try:
+            self._finish_round(work, tracked_emit, emitted)
+        except Exception as e:  # noqa: BLE001 — a bad round must not end the server
+            logger.exception("serving round failed")
+            for r in gathered:
+                if r.req_id not in emitted:
+                    tracked_emit(Response(r.req_id, r.path, False, None, f"round failed: {e}"))
+        self._rounds += 1
+        logger.info("served %d clips in %.1f ms", len(gathered),
+                    (time.monotonic() - t0) * 1e3)
+        if self._rounds % self.stats_every == 0:
+            logger.info("serving stats: %s", self.stats())
+
+    def serve(self, requests: Iterable[Request], emit: Callable[[Response], None]):
+        """Serve until ``requests`` is exhausted; blocks the calling thread.
+
+        One round is in flight: round k's device work runs while round k+1
+        gathers and decodes. When the queue goes idle the round in flight is
+        finished at once, so light traffic never waits on a later round."""
+        q: queue.Queue = queue.Queue()
+
+        def reader():
+            try:
+                for r in requests:
+                    q.put(r)
+            finally:
+                q.put(_STOP)
+
+        t = threading.Thread(target=reader, daemon=True)
+        t.start()
+
+        done = False
+        in_flight = None  # (work, gathered, tracked_emit, emitted, t0)
+        while not done:
+            if in_flight is not None:
+                try:
+                    first = q.get_nowait()
+                except queue.Empty:
+                    # idle queue: answer the round in flight now
+                    self._finish_pending(in_flight)
+                    in_flight = None
+                    continue
+            else:
+                first = q.get()
+            if first is _STOP:
+                break
+            arrivals = {first.req_id: time.monotonic()}
+            gathered = [first]
+            deadline = time.monotonic() + self.max_wait_s
+            while len(gathered) < self.max_clips:
+                timeout = deadline - time.monotonic()
+                if timeout <= 0:
+                    break
+                try:
+                    nxt = q.get(timeout=timeout)
+                except queue.Empty:
+                    break
+                if nxt is _STOP:
+                    done = True
+                    break
+                arrivals[nxt.req_id] = time.monotonic()
+                gathered.append(nxt)
+            t0 = time.monotonic()
+
+            def tracked_emit(resp: Response, _arr=arrivals, _t0=t0):
+                self._latencies.append(time.monotonic() - _arr.get(resp.req_id, _t0))
+                if resp.ok:
+                    self._served += 1
+                else:
+                    self._failed += 1
+                emit(resp)
+
+            emitted: set[str] = set()
+            try:
+                work = self._submit_round(gathered)
+            except Exception as e:  # noqa: BLE001
+                logger.exception("round submit failed")
+                for r in gathered:
+                    tracked_emit(Response(r.req_id, r.path, False, None, f"round failed: {e}"))
+                self._rounds += 1
+                work = None
+            # the new round's device work is queued: now finish the previous
+            # round, whose device time overlapped this gather and decode
+            if in_flight is not None:
+                self._finish_pending(in_flight)
+                in_flight = None
+            if work is not None:
+                in_flight = (work, gathered, tracked_emit, emitted, t0)
+        if in_flight is not None:
+            self._finish_pending(in_flight)
+        t.join(timeout=1.0)
+
+
+def jsonl_requests(lines: Iterable[str]) -> Iterator[Request]:
+    """JSONL requests: ``{"id": ..., "path": ...}`` (id optional, the line
+    number by default); a line that is not such an object is a bare path."""
+    for n, line in enumerate(lines):
+        line = line.strip()
+        if not line:
+            continue
+        try:
+            obj = json.loads(line)
+            yield Request(str(obj.get("id", n)), obj["path"])
+        except (ValueError, KeyError, TypeError, AttributeError):
+            yield Request(str(n), line)

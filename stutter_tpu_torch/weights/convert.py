@@ -17,12 +17,26 @@ keyed by the JAX tree's paths.
 ``init_wavlm`` and ``init_whisper`` build a model with a seeded random init
 drawn like the JAX package's (normal * fan_in^-0.5 weights, zero biases, unit
 norm scales), from a ``torch.Generator`` on the CPU so that the same seed
-gives the same weights on every device. Loading HF checkpoints is not in
-this package yet.
+gives the same weights on every device.
+
+``load_wavlm`` and ``load_whisper`` read a local HF checkpoint directory
+(``config.json``, the weights as ``*.safetensors`` or ``pytorch_model*.bin``
+shards, and for WavLM ``preprocessor_config.json``) into a float32 model,
+as the JAX package's loaders of the same names do, without ``transformers``:
+``read_safetensors`` parses the files by hand where the ``safetensors``
+package is missing. ``convert_wavlm_state_dict`` and
+``convert_whisper_state_dict`` map an HF state dict onto the port's: dense
+weights stay [out, in], the positional conv's weight norm is folded in
+float64, and every HF key must be used exactly once. They never download: a
+name that is not a local directory raises ``OSError``.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import logging
+import os
 from typing import Any, Mapping
 
 import numpy as np
@@ -30,6 +44,8 @@ import torch
 
 from stutter_tpu_torch.models.wavlm import WavLMConfig, WavLMModel
 from stutter_tpu_torch.models.whisper import WhisperConfig, WhisperModel, sinusoids
+
+logger = logging.getLogger("stutter_tpu_torch.weights")
 
 # per-layer JAX key -> (port name under layers.{i}, transpose [in, out] -> [out, in])
 _LAYER_KEYS = {
@@ -68,11 +84,15 @@ class _Leaves:
         self.used: set[str] = set()
 
     def __call__(self, path: str, transpose: bool = False) -> torch.Tensor:
+        a = self.array(path)
+        return torch.from_numpy(np.array(a.T if transpose else a, order="C"))
+
+    def array(self, path: str) -> np.ndarray:
+        """The leaf itself (not copied), marked as used."""
         if path not in self.leaves:
             raise KeyError(f"parameter tree has no leaf {path!r}")
         self.used.add(path)
-        a = self.leaves[path]
-        return torch.from_numpy(np.array(a.T if transpose else a, order="C"))
+        return self.leaves[path]
 
     def stacked(self, path: str, n_layers: int) -> torch.Tensor:
         t = self(path)
@@ -314,3 +334,299 @@ def init_whisper(cfg: WhisperConfig, generator: torch.Generator,
     model = WhisperModel(cfg, device=device)
     model.load_state_dict(state, strict=True)
     return model
+
+
+# ---------------------------------------------------------------------------
+# HF checkpoints: a local directory -> the port's state dicts
+# ---------------------------------------------------------------------------
+
+_SAFETENSORS_DTYPES = {"F64": "<f8", "F32": "<f4", "F16": "<f2", "I64": "<i8", "I32": "<i4",
+                       "I16": "<i2", "I8": "i1", "U8": "u1", "BOOL": "?"}
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A CPU tensor as numpy; bfloat16 (which numpy lacks) widened exactly to
+    float32."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def read_safetensors(path: str) -> dict[str, np.ndarray]:
+    """One ``.safetensors`` file as {name: numpy array}, bfloat16 widened to
+    float32. Read by the ``safetensors`` package where it imports, else
+    parsed here: 8 bytes of little-endian header length, the JSON header
+    (dtype, shape, ``data_offsets`` into the data that follows it)."""
+    try:
+        from safetensors.torch import load_file
+    except ImportError:
+        load_file = None
+    if load_file is not None:
+        return {k: _to_numpy(v) for k, v in load_file(path).items()}
+    raw = np.fromfile(path, np.uint8)
+    n = int.from_bytes(raw[:8].tobytes(), "little")
+    header = json.loads(raw[8: 8 + n].tobytes())
+    data = raw[8 + n:]
+    out: dict[str, np.ndarray] = {}
+    for name, entry in header.items():
+        if name == "__metadata__":
+            continue
+        begin, end = entry["data_offsets"]
+        chunk, shape = data[begin:end], tuple(entry["shape"])
+        if entry["dtype"] == "BF16":
+            bits = chunk.view("<u2").astype(np.uint32) << 16
+            out[name] = bits.view(np.float32).reshape(shape)
+        elif entry["dtype"] in _SAFETENSORS_DTYPES:
+            out[name] = chunk.view(_SAFETENSORS_DTYPES[entry["dtype"]]).reshape(shape).copy()
+        else:
+            raise ValueError(f"{path}: tensor {name!r} has dtype {entry['dtype']}, "
+                             f"which this reader does not take")
+    return out
+
+
+def _load_state_dict_from_dir(path: str) -> dict[str, np.ndarray]:
+    """A checkpoint directory's weights as {name: numpy array}: every
+    ``*.safetensors`` file in sorted order (so shards combine), else the
+    ``pytorch_model*.bin`` / ``model*.bin`` shards through ``torch.load``
+    (a Trainer directory's other ``.bin`` files, and any file that is not a
+    state dict, are skipped)."""
+    files = sorted(os.listdir(path))
+    sd: dict[str, np.ndarray] = {}
+    safetensors = [f for f in files if f.endswith(".safetensors")]
+    if safetensors:
+        for f in safetensors:
+            sd.update(read_safetensors(os.path.join(path, f)))
+        return sd
+    bins = [f for f in files if f.endswith(".bin") and f.startswith(("pytorch_model", "model"))]
+    for f in bins:
+        loaded = torch.load(os.path.join(path, f), map_location="cpu", weights_only=True)
+        if not isinstance(loaded, Mapping):
+            logger.warning("skipping non-state-dict file %s", f)
+            continue
+        sd.update({k: _to_numpy(v) for k, v in loaded.items()})
+    if not sd:
+        raise OSError(f"no *.safetensors or pytorch_model*.bin weights in {path}")
+    return sd
+
+
+def _read_json(path: str) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def _local_dir(name: str) -> str:
+    if not os.path.isdir(name):
+        raise OSError(
+            f"{name!r} is not a local checkpoint directory: this package loads HF "
+            f"checkpoints only from a local checkpoint directory (config.json and the "
+            f"weights) and never downloads; pass that directory, or --random_init")
+    return name
+
+
+def _backbone(sd: Mapping[str, np.ndarray], prefix: str) -> dict[str, np.ndarray]:
+    """The backbone's entries of an HF state dict. A task model's checkpoint
+    (WavLMForCTC, WhisperForConditionalGeneration, ...) keeps the backbone
+    under ``prefix``: those keys lose the prefix and the head's are dropped."""
+    if not any(k.startswith(prefix) for k in sd):
+        return dict(sd)
+    head = sorted(k for k in sd if not k.startswith(prefix))
+    if head:
+        logger.info("dropping the task head's entries %s", head)
+    return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+
+def wavlm_config_from_hf(hf: Mapping) -> WavLMConfig:
+    """``WavLMConfig`` from an HF ``config.json`` (as a dict)."""
+    return WavLMConfig(
+        hidden_size=hf["hidden_size"],
+        num_hidden_layers=hf["num_hidden_layers"],
+        num_attention_heads=hf["num_attention_heads"],
+        intermediate_size=hf["intermediate_size"],
+        conv_dim=tuple(hf["conv_dim"]),
+        conv_stride=tuple(hf["conv_stride"]),
+        conv_kernel=tuple(hf["conv_kernel"]),
+        conv_bias=hf["conv_bias"],
+        feat_extract_norm=hf["feat_extract_norm"],
+        do_stable_layer_norm=hf["do_stable_layer_norm"],
+        num_conv_pos_embeddings=hf["num_conv_pos_embeddings"],
+        num_conv_pos_embedding_groups=hf["num_conv_pos_embedding_groups"],
+        num_buckets=hf["num_buckets"],
+        max_bucket_distance=hf["max_bucket_distance"],
+        layer_norm_eps=hf["layer_norm_eps"],
+    )
+
+
+def whisper_config_from_hf(hf: Mapping) -> WhisperConfig:
+    """``WhisperConfig`` from an HF ``config.json`` (as a dict)."""
+    return WhisperConfig(
+        d_model=hf["d_model"],
+        encoder_layers=hf["encoder_layers"],
+        encoder_attention_heads=hf["encoder_attention_heads"],
+        decoder_layers=hf["decoder_layers"],
+        decoder_attention_heads=hf["decoder_attention_heads"],
+        ffn_dim=hf["encoder_ffn_dim"],
+        num_mel_bins=hf["num_mel_bins"],
+        max_source_positions=hf["max_source_positions"],
+        max_target_positions=hf["max_target_positions"],
+        vocab_size=hf["vocab_size"],
+    )
+
+
+def _pos_conv_weight(take: _Leaves, prefix: str) -> torch.Tensor:
+    """The positional conv's weight norm folded into a plain weight [out,
+    in/groups, k]: g * v / ||v||, the norm over dims (0, 1) for each kernel
+    position (torch's weight_norm(dim=2)), taken in float64 as the JAX
+    converter takes it."""
+    if f"{prefix}.parametrizations.weight.original0" in take.leaves:
+        g = take.array(f"{prefix}.parametrizations.weight.original0")
+        v = take.array(f"{prefix}.parametrizations.weight.original1")
+    else:
+        g, v = take.array(f"{prefix}.weight_g"), take.array(f"{prefix}.weight_v")
+    norm = np.sqrt((v.astype(np.float64) ** 2).sum(axis=(0, 1), keepdims=True))
+    return torch.from_numpy((g * v / norm).astype(v.dtype))
+
+
+# port name under layers.{i} -> HF name under encoder.layers.{i}
+_HF_WAVLM_LAYER = {
+    "attention.q_w": "attention.q_proj.weight", "attention.q_b": "attention.q_proj.bias",
+    "attention.k_w": "attention.k_proj.weight", "attention.k_b": "attention.k_proj.bias",
+    "attention.v_w": "attention.v_proj.weight", "attention.v_b": "attention.v_proj.bias",
+    "attention.o_w": "attention.out_proj.weight", "attention.o_b": "attention.out_proj.bias",
+    "attention.gru_w": "attention.gru_rel_pos_linear.weight",
+    "attention.gru_b": "attention.gru_rel_pos_linear.bias",
+    "feed_forward.w1": "feed_forward.intermediate_dense.weight",
+    "feed_forward.b1": "feed_forward.intermediate_dense.bias",
+    "feed_forward.w2": "feed_forward.output_dense.weight",
+    "feed_forward.b2": "feed_forward.output_dense.bias",
+    "ln1_s": "layer_norm.weight", "ln1_b": "layer_norm.bias",
+    "ln2_s": "final_layer_norm.weight", "ln2_b": "final_layer_norm.bias",
+}
+
+
+def convert_wavlm_state_dict(sd: Mapping[str, np.ndarray],
+                             cfg: WavLMConfig) -> dict[str, torch.Tensor]:
+    """HF ``WavLMModel`` state dict (numpy values; a task model's with its
+    ``wavlm.`` prefix) -> ``WavLMModel``'s. Raises KeyError for a missing
+    entry and ValueError for one left over, naming it. A checkpoint without
+    ``masked_spec_embed`` (HF makes it only where SpecAugment is on) gets a
+    zero one: extraction never reads it."""
+    take = _Leaves(_backbone(sd, "wavlm."))
+    state: dict[str, torch.Tensor] = {}
+    for i in range(len(cfg.conv_dim)):
+        src, dst = f"feature_extractor.conv_layers.{i}", f"feature_encoder.layers.{i}"
+        state[f"{dst}.weight"] = take(f"{src}.conv.weight")
+        if cfg.conv_bias:
+            state[f"{dst}.bias"] = take(f"{src}.conv.bias")
+        if _conv_has_norm(cfg, i):
+            state[f"{dst}.norm_scale"] = take(f"{src}.layer_norm.weight")
+            state[f"{dst}.norm_bias"] = take(f"{src}.layer_norm.bias")
+    state["feature_projection.ln_scale"] = take("feature_projection.layer_norm.weight")
+    state["feature_projection.ln_bias"] = take("feature_projection.layer_norm.bias")
+    state["feature_projection.weight"] = take("feature_projection.projection.weight")
+    state["feature_projection.bias"] = take("feature_projection.projection.bias")
+    state["pos_conv.weight"] = _pos_conv_weight(take, "encoder.pos_conv_embed.conv")
+    state["pos_conv.bias"] = take("encoder.pos_conv_embed.conv.bias")
+    state["ln_scale"] = take("encoder.layer_norm.weight")
+    state["ln_bias"] = take("encoder.layer_norm.bias")
+    state["rel_attn_embed"] = take("encoder.layers.0.attention.rel_attn_embed.weight")
+    if "masked_spec_embed" in take.leaves:
+        state["masked_spec_embed"] = take("masked_spec_embed")
+    else:
+        logger.info("the checkpoint has no masked_spec_embed: using zeros")
+        state["masked_spec_embed"] = torch.zeros(cfg.hidden_size)
+    for layer in range(cfg.num_hidden_layers):
+        src = f"encoder.layers.{layer}"
+        for name, hf_name in _HF_WAVLM_LAYER.items():
+            state[f"layers.{layer}.{name}"] = take(f"{src}.{hf_name}")
+        state[f"layers.{layer}.attention.gru_const"] = take(
+            f"{src}.attention.gru_rel_pos_const").reshape(-1)
+    take.check_all_used()
+    return state
+
+
+def _hf_whisper_layer(name: str, decoder: bool) -> str:
+    """The port's name under ``{encoder,decoder}.layers.{i}`` -> HF's:
+    attn.q_w -> self_attn.q_proj.weight, xattn.o_b -> encoder_attn.out_proj.bias,
+    ffn.fc1_w -> fc1.weight, ln2_s -> (decoder) encoder_attn_layer_norm.weight."""
+    leaf = {"w": "weight", "b": "bias", "s": "weight"}
+    if name.startswith(("attn.", "xattn.")):
+        block, _, key = name.partition(".")
+        proj, _, kind = key.partition("_")
+        module = {"attn": "self_attn", "xattn": "encoder_attn"}[block]
+        return f"{module}.{'out' if proj == 'o' else proj}_proj.{leaf[kind]}"
+    if name.startswith("ffn."):
+        fc, _, kind = name[len("ffn."):].partition("_")
+        return f"{fc}.{leaf[kind]}"
+    norm, _, kind = name.partition("_")
+    norms = {"ln1": "self_attn_layer_norm", "ln3": "final_layer_norm",
+             "ln2": "encoder_attn_layer_norm" if decoder else "final_layer_norm"}
+    return f"{norms[norm]}.{leaf[kind]}"
+
+
+def convert_whisper_state_dict(sd: Mapping[str, np.ndarray],
+                               cfg: WhisperConfig) -> dict[str, torch.Tensor]:
+    """HF ``WhisperModel`` state dict (numpy values; a
+    ``WhisperForConditionalGeneration``'s with its ``model.`` prefix) ->
+    ``WhisperModel``'s. Raises KeyError for a missing entry and ValueError
+    for one left over, naming it."""
+    take = _Leaves(_backbone(sd, "model."))
+    top = {"encoder.conv1_w": "encoder.conv1.weight", "encoder.conv1_b": "encoder.conv1.bias",
+           "encoder.conv2_w": "encoder.conv2.weight", "encoder.conv2_b": "encoder.conv2.bias",
+           "encoder.pos_embed": "encoder.embed_positions.weight",
+           "encoder.ln_s": "encoder.layer_norm.weight", "encoder.ln_b": "encoder.layer_norm.bias",
+           "decoder.embed_tokens": "decoder.embed_tokens.weight",
+           "decoder.pos_embed": "decoder.embed_positions.weight",
+           "decoder.ln_s": "decoder.layer_norm.weight", "decoder.ln_b": "decoder.layer_norm.bias"}
+    state: dict[str, torch.Tensor] = {}
+    for name in WhisperModel(cfg, device="meta").state_dict():
+        block, _, rest = name.partition(".")
+        if rest.startswith("layers."):
+            i, _, leaf = rest[len("layers."):].partition(".")
+            state[name] = take(f"{block}.layers.{i}.{_hf_whisper_layer(leaf, block == 'decoder')}")
+        else:
+            state[name] = take(top[name])
+    take.check_all_used()
+    return state
+
+
+def _wavlm_do_normalize(path: str) -> bool:
+    """The checkpoint's frontend policy: ``do_normalize`` of its
+    ``preprocessor_config.json``; without one, the JAX package's last resort,
+    the name (the wavlm-large family normalises), with a warning."""
+    pp = os.path.join(path, "preprocessor_config.json")
+    if os.path.isfile(pp):
+        return bool(_read_json(pp).get("do_normalize", False))
+    do_norm = "large" in os.path.basename(os.path.normpath(path)).lower()
+    logger.warning("no preprocessor config found; inferring do_normalize=%s from the "
+                   "checkpoint name (wavlm-large family normalizes)", do_norm)
+    return do_norm
+
+
+def _model_from_state(model_cls, cfg, state: dict[str, torch.Tensor]) -> Any:
+    model = model_cls(cfg)
+    model.load_state_dict(state, strict=True)
+    return model
+
+
+def load_wavlm(path: str) -> tuple[WavLMConfig, WavLMModel]:
+    """A local HF WavLM checkpoint directory -> (config, float32
+    ``WavLMModel`` on the CPU). Any other name raises ``OSError``: this
+    package never downloads."""
+    path = _local_dir(path)
+    cfg = wavlm_config_from_hf(_read_json(os.path.join(path, "config.json")))
+    cfg = dataclasses.replace(cfg, do_normalize=_wavlm_do_normalize(path))
+    state = convert_wavlm_state_dict(_load_state_dict_from_dir(path), cfg)
+    logger.info("converted WavLM %s: %d layers, hidden %d", path, cfg.num_hidden_layers,
+                cfg.hidden_size)
+    return cfg, _model_from_state(WavLMModel, cfg, state)
+
+
+def load_whisper(path: str) -> tuple[WhisperConfig, WhisperModel]:
+    """A local HF Whisper checkpoint directory -> (config, float32
+    ``WhisperModel`` on the CPU). Any other name raises ``OSError``: this
+    package never downloads."""
+    path = _local_dir(path)
+    cfg = whisper_config_from_hf(_read_json(os.path.join(path, "config.json")))
+    state = convert_whisper_state_dict(_load_state_dict_from_dir(path), cfg)
+    logger.info("converted Whisper %s: %d enc / %d dec layers, d_model %d", path,
+                cfg.encoder_layers, cfg.decoder_layers, cfg.d_model)
+    return cfg, _model_from_state(WhisperModel, cfg, state)

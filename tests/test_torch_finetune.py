@@ -423,8 +423,16 @@ def test_cli_on_cpu_with_checkpoint_resume_and_grad_accum(corpus, tmp_path, monk
                                    ["--random_init", "--remat_policy", "layer_dots"],
                                    ["--random_init", "--devices", "2"]])
 def test_cli_refuses_what_is_not_ported(tmp_path, extra):
+    """int8_forward, the unported remat policies and the multi-device flags
+    raise; without --random_init a hub name raises OSError naming a local
+    checkpoint directory (no download)."""
+    argv = ["--data_dir", str(tmp_path), "--results_dir", str(tmp_path / "r"), *extra]
+    if not extra:
+        with pytest.raises(OSError, match="local checkpoint directory"):
+            cli.main(argv + ["--device", "cpu"])
+        return
     with pytest.raises(NotImplementedError):
-        cli.main(["--data_dir", str(tmp_path), "--results_dir", str(tmp_path / "r"), *extra])
+        cli.main(argv)
 
 
 def test_cli_raises_without_card(monkeypatch, tmp_path):

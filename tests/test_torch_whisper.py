@@ -351,9 +351,45 @@ def test_cli_random_init_on_cpu(tmp_path):
                                    ["--random_init", "--devices", "2"],
                                    ["--random_init", "--tp", "2"],
                                    ["--random_init", "--verify_model"]])
-def test_cli_refuses_what_is_not_ported(tmp_path, extra):
-    with pytest.raises(NotImplementedError):
-        cli.main(["--data_dir", str(tmp_path), "--output_dir", str(tmp_path / "o"), *extra])
+def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, caplog, extra):
+    """The multi-device flags still raise. What used to raise now runs: a hub
+    name raises OSError naming a local checkpoint directory (no download),
+    --long_files chunk writes the long rows (fidelity and turbo),
+    --verify_model logs and runs."""
+    out = str(tmp_path / "o")
+    if "--devices" in extra or "--tp" in extra:
+        with pytest.raises(NotImplementedError, match="multi-GPU"):
+            cli.main(["--data_dir", str(tmp_path), "--output_dir", out, *extra])
+        return
+    if not extra:
+        with pytest.raises(OSError, match="local checkpoint directory"):
+            cli.main(["--data_dir", str(tmp_path), "--output_dir", out, "--device", "cpu"])
+        return
+    monkeypatch.setattr(tw.WhisperConfig, "tiny_official",
+                        staticmethod(lambda: tw.WhisperConfig.tiny(d_model=32, layers=2, heads=4)))
+    root = tmp_path / "corpus"
+    make_synthetic_corpus(str(root), n_per_split={"train": 1}, duration_range=(0.3, 0.6), seed=2)
+    x = (np.random.RandomState(5).randn(31 * 16000) * 0.1).astype(np.float32)
+    from stutter_tpu_torch.audio.wavio import write_wav
+
+    write_wav(str(root / "wav" / "train_long.wav"), x, 16000)  # 30 s + 1 s chunks
+    preset = [] if "--preset" in extra else ["--preset", "fidelity"]
+    with caplog.at_level("INFO"):
+        rc = cli.main(["--data_dir", str(root), "--output_dir", out, *extra, *preset,
+                       "--model_name", "openai/whisper-tiny", "--device", "cpu",
+                       "--split", "train", "--batch_size", "2"])
+    assert rc == 0
+    with open(os.path.join(out, "train", "embedding_metadata.csv")) as f:
+        lines = f.read().splitlines()
+    arr = np.load(os.path.join(out, "train", "encoder_layer_2_embeddings.npy"))
+    assert len(lines) == 3 and arr.shape == (2, 32) and np.isfinite(arr).all()
+    if "chunk" in extra:  # the long row carries its chunk count; the other none
+        assert lines[0].split(",")[-1] == "chunks"
+        assert sorted(line.split(",")[-1] for line in lines[1:]) == ["", "2.0"]
+    else:
+        assert "chunks" not in lines[0]
+        assert any("Whisper verified: 3 encoder / 3 decoder hidden states" in r.message
+                   for r in caplog.records)
 
 
 @pytest.mark.parametrize("entry", ["extract_whisper", "profile_whisper"])
