@@ -2,10 +2,13 @@
 """Run the PyTorch port's WavLM-Large and Whisper-large extraction (fidelity,
 fast, turbo), WavLM's long-bucket escape hatch, the two attention probes,
 the fused WavLM stem, WavLM-Large fine-tuning, the downstream classifier
-stack, HF checkpoint loading, the chunk long-file policy and serving on one
-NVIDIA GPU and check them.
+stack, HF checkpoint loading, the chunk long-file policy, serving and the
+process groups of data and tensor parallelism on one NVIDIA GPU and check
+them.
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
+    python3 chip_smoke.py --only-parallel   # [slice], then [parallel] alone
+                                 # (with two cards or more: NCCL world 2, DP scaling)
 
 Phases, one line each on stdout ([time] lines give each phase's seconds):
 1. device: the card's name and power limit (nvidia-smi);
@@ -129,8 +132,18 @@ Phases, one line each on stdout ([time] lines give each phase's seconds):
    /healthz on the HTTP frontend: each request answered once, only the bad
    file failing, rows within 1e-3 of the pipeline's, the predictions
    load_model's, 24 gated launches per batch; p50/p95 latency,
-   device_s_per_audio_s, audio-s/s.
-Each extraction, probe, stem A/B, fine-tune, downstream, chunk and serving path is driven with every kernel's
+   device_s_per_audio_s, audio-s/s;
+20. parallel (after the Whisper phases, from the fast states they leave):
+   a one-rank NCCL group through make_plan ([slice]'s rows and two
+   data-parallel fine-tune steps bit-equal to the plain runs; audio-s/s with
+   and without the group); two gloo ranks (card 0 shared on one card) for
+   WavLM-Large at TP = 2 (16 x 3 s, 2 x 30 s) and Whisper-large at TP = 2
+   (4 x 30 s), each rank's kernels at 8 and 10 heads (launches, heads,
+   contiguous bias planes), and a DP = 2 extraction of 64 clips, within the
+   kernel-vs-plain bar of the one-process run; dryrun_multichip(2,
+   backend="gloo"); with two cards or more, the same over NCCL and the
+   data-parallel audio-s/s at 1 and 2 cards.
+Each extraction, probe, stem A/B, fine-tune, downstream, chunk, serving and parallel path is driven with every kernel's
 launch count (and the int8 GEMM count) set to 0 just before it and read just
 after. Then one JSON line with the kernels' numbers (time, plain time,
 bound, library time, launches on their path) and, last, the device line.
@@ -143,6 +156,7 @@ import contextlib
 import copy
 import csv
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -1392,7 +1406,7 @@ def phase_finetune_path(torch, attn, cfg_model, device: str = "cuda", T: int = 5
     labels, cw = rng.randint(0, 4, size=B), np.array([1.0, 2.0, 0.5, 1.5], np.float32)
     batch = [torch.from_numpy(waves).to(device), torch.from_numpy(lengths).long().to(device),
              torch.from_numpy(labels).long().to(device), torch.ones(B, device=device)]
-    state = init_finetune_model(FinetuneConfig(model=mcfg, n_classes=4)).state_dict()
+    state = init_finetune_model(FinetuneConfig(model=mcfg, n_classes=4), device=device).state_dict()
     n_layers = mcfg.num_hidden_layers
     for name, dtype, loss_bar, cos_bar in (
             ("bf16", torch.bfloat16, FT_BF16_LOSS_REL, FT_BF16_GRAD_COSINE),
@@ -1540,7 +1554,7 @@ def phase_finetune(torch, work: Path, card: str, device: str = "cuda", batch_siz
     n_batches = sum(per_bucket)
     ckpt, results, results_accum = work / "ft_ckpt", work / "ft_results", work / "ft_accum"
     common = ["--data_dir", str(corpus), "--random_init", "--batch_size", str(batch_size),
-              "--max_length", str(max_length), "--device", device]
+              "--max_length", str(max_length), "--device", device, "--devices", "1"]
     watch = ("backbone.feature_encoder.layers.0.weight", "backbone.layers.0.attention.q_w",
              f"backbone.layers.{n_layers - 1}.feed_forward.w2", "head.layers.0.w")
 
@@ -1844,7 +1858,7 @@ def phase_downstream(torch, work: Path, card: str, device: str = "cuda",
     stages = {}
     t0 = time.perf_counter()
     rc = extract_cli.main(["--data_dir", str(corpus), "--output_dir", str(store / "wavlm"),
-                           "--random_init", "--device", device])
+                           "--random_init", "--device", device, "--devices", "1"])
     stages["extract"] = time.perf_counter() - t0
     check(rc == 0, f"cli.extract_wavlm returned {rc}")
 
@@ -2027,7 +2041,7 @@ def phase_stem(torch, card: str):
                       nrmse=f"{nrmse:.3e}", nrmse_tol=STEM_NRMSE, cosine_dist=f"{cos:.3e}",
                       cosine_tol=STEM_COSINE, vs_convfeature_nrmse=f"{lib_nrmse:.3e}",
                       vs_convfeature_cosine=f"{lib_cos:.3e}")
-        if timed:
+        if timing:
             ms, plain_ms, library_ms = time_turns(
                 torch, lambda: st.wavlm_fused_stem(wave, weights, table),
                 lambda: st.wavlm_fused_stem_reference(wave, weights, table),
@@ -2566,6 +2580,601 @@ def phase_serve(torch, extractor, store: Path, work: Path, card: str, durations=
     return dict(counts, batches=seen["batches"], stats=stats, audio_s_per_s=audio_s / wall)
 
 
+# ---------------------------------------------------------------------------
+# [parallel]: the port's process groups on the card
+# ---------------------------------------------------------------------------
+
+# two ranks' pooled rows (tensor-parallel cuts, data-parallel rows) against
+# the one-process run: the kernel-vs-plain bar on the card (Whisper's fast
+# decoder columns: WHISPER_FAST_DECODER_COSINE, as for any change of its
+# encoder input)
+PARALLEL_POOLED_COSINE = 1e-4
+# the tensor-parallel batches (clips, samples, bucket seconds): WavLM-Large
+# at L = 160 and 1504, Whisper-large at 30 s; the data-parallel corpus
+# (clips, seconds, bucket seconds, audio seconds a batch: two batches of 32)
+PARALLEL_SIZES = {"wavlm_3s": (16, 51_280, 3.0), "wavlm_30s": (2, 481_280, 30.0),
+                  "whisper_30s": (4, 480_000, 30.0), "dp": (64, (2.0, 3.0), 3.0, 96.0)}
+# data-parallel scaling over NCCL (two cards or more): [throughput]'s corpus,
+# 1280 clips of 2-3 s in batches of 128 (64 a rank at two), run this many
+# times on one card and on two
+SCALING_CLIPS = 1280
+SCALING_RUNS = 3
+# tensor parallelism's time over NCCL: timed calls of each warm batch
+TP_TIMED_CALLS = 5
+
+
+def parallel_inputs(work: Path, sizes: dict) -> dict:
+    """The tensor-parallel batches as host arrays (waves, lengths), ragged,
+    from a seed, written once to work/parallel_batches.npz."""
+    import numpy as np
+
+    path = work / "parallel_batches.npz"
+    names = ("wavlm_3s", "wavlm_30s", "whisper_30s")
+    if not path.exists():
+        rng = np.random.RandomState(21)
+        out = {}
+        for name in names:
+            B, T, _ = sizes[name]
+            lengths = rng.randint(T // 6, T + 1, size=B)
+            lengths[0] = T
+            t = np.arange(T) / 16000
+            tone = np.sin(2 * np.pi * rng.uniform(100, 600, (B, 1)) * t[None])
+            waves = (0.1 * rng.randn(B, T) + 0.2 * tone).astype(np.float32)
+            waves *= np.arange(T)[None] < lengths[:, None]
+            out[f"{name}_waves"], out[f"{name}_lengths"] = waves, lengths.astype(np.int64)
+        np.savez(path, **out)
+    z = np.load(path)
+    return {name: (z[f"{name}_waves"], z[f"{name}_lengths"]) for name in names}
+
+
+def host_batch(waves, lengths, bucket_s: float):
+    import numpy as np
+
+    from stutter_tpu_torch.extract.batcher import Batch
+
+    n = len(waves)
+    return Batch(paths=[f"clip{i}" for i in range(n)], rows=list(range(n)), waves=waves,
+                 lengths=lengths, ok=np.ones(n, bool), bucket_s=bucket_s)
+
+
+def load_fast(torch, work: Path, kind: str, device: str):
+    """The fast (bf16) WavLM-Large or Whisper-large the earlier phases ran,
+    from the state dict they left in ``work``."""
+    from stutter_tpu_torch.models.wavlm import WavLMConfig, WavLMModel
+    from stutter_tpu_torch.models.whisper import WhisperConfig, WhisperModel
+
+    cls, cfg = ((WavLMModel, WavLMConfig.large()) if kind == "wavlm"
+                else (WhisperModel, WhisperConfig.large()))
+    model = cls(cfg, device="meta", dtype=torch.bfloat16).to_empty(device=device)
+    model.load_state_dict(torch.load(work / f"{kind}_fast.pt", map_location=device, mmap=True))
+    return model
+
+
+def head_recorder(fn, seen: list):
+    """An attention function that records the heads, the length and the
+    bias plane (shape, contiguous) of each call it passes on to ``fn`` (the
+    kernel wrapper, which counts its launches)."""
+
+    def attention(q, k, v, *rest):
+        plane = [(list(r.shape), r.is_contiguous()) for r in rest[:1]]
+        seen.append([q.shape[1], q.shape[2], *plane])
+        return fn(q, k, v, *rest)
+
+    return attention
+
+
+def dp_batcher(frame_align, sizes: dict):
+    from stutter_tpu_torch.extract.batcher import BucketBatcher
+
+    _, _, bucket_s, budget = sizes["dp"]
+    return BucketBatcher(buckets_s=(bucket_s,), audio_budget_s=budget, batch_multiple=2,
+                         frame_align=frame_align)
+
+
+def scaling_batcher(frame_align):
+    from stutter_tpu_torch.extract.batcher import BucketBatcher
+
+    return BucketBatcher(buckets_s=(3.0,), batch_multiple=2, frame_align=frame_align)
+
+
+def sync(torch, device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def batch_ms(torch, ex, batch) -> dict:
+    """Wall ms of each of TP_TIMED_CALLS calls of an extractor on a warm
+    batch on the card (each returns its pooled rows on the host), the ms
+    the host took to enqueue each, and one more call under torch.profiler:
+    its kernels' summed device ms (as the profiler's table sums them), the
+    NCCL kernels' share (which includes a ring's wait for the other rank)
+    and the top kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {"ms": [], "enqueue_ms": []}
+    for _ in range(TP_TIMED_CALLS):
+        t0 = time.perf_counter()
+        handle = ex.submit(batch)
+        t1 = time.perf_counter()
+        ex.collect(handle)
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["enqueue_ms"].append((t1 - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ex(batch)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    out["device_ms"] = sum(e.self_device_time_total for e in kernels) / 1e3
+    out["nccl_device_ms"] = sum(e.self_device_time_total for e in kernels
+                                if e.key.startswith("ncclDevKernel")) / 1e3
+    out["top"] = events.table(sort_by="self_device_time_total", row_limit=8)
+    return out
+
+
+def all_reduce_ms(torch, rows: int, width: int, group) -> list:
+    """Wall ms of each of TP_TIMED_CALLS NCCL all-reduces of one block's
+    row-parallel output, [rows, width] f32, over the model group."""
+    import torch.distributed as dist
+
+    x = torch.ones(rows, width, device="cuda")
+    dist.all_reduce(x, group=group)  # the communicator is up already; a warm call
+    out = []
+    for _ in range(TP_TIMED_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(x, group=group)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def median(xs) -> float:
+    import numpy as np
+
+    return float(np.median(xs))
+
+
+def parallel_rank(work: str, tag: str, device: str, sizes: dict) -> None:
+    """One of two ranks (spawned by ``launch``): WavLM-Large at [1, 2] on
+    the 3 s and 30 s batches and Whisper-large at [1, 2] on the 30 s batch,
+    each rank's attention through the kernel at its local head count; then
+    a [2, 1] data-parallel extraction of the DP corpus. Rank 0 writes the
+    pooled rows, every rank its launch counts, heads and wall time. Over
+    NCCL (``tag`` "nccl", one card a rank) it also times the tensor-parallel
+    batches and runs the scaling corpus SCALING_RUNS times."""
+    import json
+
+    import numpy as np
+    import torch
+
+    from stutter_tpu_torch.extract.pipeline import (
+        ExtractionPipeline,
+        WavLMExtractor,
+        WhisperExtractor,
+    )
+    from stutter_tpu_torch.extract.scanner import create_metadata_from_files
+    from stutter_tpu_torch.models import whisper as whisper_module
+    from stutter_tpu_torch.ops.wavlm_attention import gated_relpos_attention
+    from stutter_tpu_torch.parallel.mesh import make_plan
+
+    work = Path(work)
+    if device == "cuda":
+        device = f"cuda:{torch.cuda.current_device()}"
+    tp, dp = make_plan(data=1, model=2), make_plan(data=2)
+    inputs = parallel_inputs(work, sizes)
+    report = {"device": device}
+    rows = {}
+    over_nccl = tag == "nccl"
+    ex = WavLMExtractor(load_fast(torch, work, "wavlm", device), device, preset="fast", plan=tp)
+    attention_fn = ex.attention_fn
+    for name in ("wavlm_3s", "wavlm_30s"):
+        seen = []
+        ex.attention_fn = head_recorder(gated_relpos_attention, seen)
+        batch = host_batch(*inputs[name], sizes[name][2])
+        zero_counts()
+        pooled = ex(batch)
+        report[name] = {"counts": read_counts(), "calls": seen}
+        rows.update({f"{name}/{c}": a for c, a in pooled.items()})
+        ex.attention_fn = attention_fn
+        if over_nccl:
+            report[name]["timing"] = batch_ms(torch, ex, batch)
+            report[name]["all_reduce_ms"] = all_reduce_ms(
+                torch, len(batch.waves) * seen[0][1], 1024, tp.model_group)
+            report[name]["all_reduce_bytes"] = len(batch.waves) * seen[0][1] * 1024 * 4
+    del ex
+    ex = WhisperExtractor(load_fast(torch, work, "whisper", device), device, preset="fast",
+                          plan=tp)
+    seen, mha_self = [], whisper_module.mha_self
+    whisper_module.mha_self = head_recorder(mha_self, seen)
+    batch = host_batch(*inputs["whisper_30s"], sizes["whisper_30s"][2])
+    try:
+        zero_counts()
+        pooled = ex(batch)
+    finally:
+        whisper_module.mha_self = mha_self
+    report["whisper_30s"] = {"counts": read_counts(), "calls": seen}
+    if over_nccl:
+        report["whisper_30s"]["timing"] = batch_ms(torch, ex, batch)
+        report["whisper_30s"]["all_reduce_ms"] = all_reduce_ms(
+            torch, len(batch.waves) * seen[0][1], 1280, tp.model_group)
+        report["whisper_30s"]["all_reduce_bytes"] = len(batch.waves) * seen[0][1] * 1280 * 4
+    rows.update({f"whisper_30s/{c}": a for c, a in pooled.items()})
+    del ex
+    if device != "cpu":
+        torch.cuda.empty_cache()
+
+    ex = WavLMExtractor(load_fast(torch, work, "wavlm", device), device, preset="fast", plan=dp)
+    batcher = dp_batcher(ex.frame_align, sizes)
+    ex.warmup(batcher)
+    meta = create_metadata_from_files(str(work / "dp_corpus"))
+    zero_counts()
+    t0 = time.perf_counter()
+    ExtractionPipeline(ex, batcher=batcher, checkpoint_interval=10_000).run(
+        meta, str(work / f"dp_store_{tag}"), splits=("train",))
+    sync(torch, "cpu" if device == "cpu" else "cuda")
+    report["dp"] = {"counts": read_counts(), "wall_s": time.perf_counter() - t0}
+    if over_nccl:  # the scaling corpus, after a warm batch of its shape
+        batcher = scaling_batcher(ex.frame_align)
+        ex.warmup(batcher)
+        meta = create_metadata_from_files(str(work / "timing_corpus"))
+        report["scaling_wall_s"] = scaling_walls(torch, ex, batcher, meta, work, "nccl")
+    if tp.rank == 0:
+        np.savez(work / f"parallel_rows_{tag}.npz", **rows)
+    (work / f"parallel_{tag}_rank{tp.rank}.json").write_text(json.dumps(report))
+
+
+def scaling_walls(torch, ex, batcher, meta, work: Path, tag: str) -> list:
+    """Wall seconds of SCALING_RUNS extractions of the scaling corpus, each
+    into a store of its own (a store that exists would be resumed)."""
+    from stutter_tpu_torch.extract.pipeline import ExtractionPipeline
+
+    walls = []
+    for run in range(SCALING_RUNS):
+        t0 = time.perf_counter()
+        ExtractionPipeline(ex, batcher=batcher, checkpoint_interval=10_000).run(
+            meta, str(work / f"scaling_store_{tag}_{run}"), splits=("train",))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """PyTorch's and cuDNN's deterministic algorithms, for a bit-for-bit
+    check of two training runs: without them the bucket table's index
+    backward and cuDNN's convolution backward add with atomics, in an order
+    that changes from run to run. cuBLAS gives the same bits on one active
+    stream, as the trainers run, whatever its workspace; the workspace
+    setting ``CUBLAS_WORKSPACE_CONFIG`` matters where several streams are
+    active, and PyTorch's deterministic mode refuses cuBLAS without it. It
+    is set for the block only: later phases and the ranks they spawn start
+    without it."""
+    workspace = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    before = torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before[0])
+        torch.backends.cudnn.deterministic = before[1]
+        if workspace is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = workspace
+
+
+def parallel_world1(torch, work: Path, card: str, device: str, sizes: dict) -> None:
+    """A one-rank group through ``make_plan`` (NCCL on the card): the [slice]
+    corpus's rows bit-equal to [slice]'s store, audio-s/s with the group and
+    without it in turns, and two data-parallel fine-tune steps of 8 x 3 s
+    whose parameters equal the plain trainer's bit for bit (each step the
+    summed path of one microbatch, its all-reduce over the group of one;
+    both under ``deterministic``)."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from stutter_tpu_torch.extract.batcher import BucketBatcher
+    from stutter_tpu_torch.extract.pipeline import ExtractionPipeline, WavLMExtractor
+    from stutter_tpu_torch.extract.scanner import create_metadata_from_files
+    from stutter_tpu_torch.models.wavlm import WavLMConfig
+    from stutter_tpu_torch.parallel.mesh import make_plan
+    from stutter_tpu_torch.train.finetune import (
+        FinetuneConfig,
+        FinetuneTrainer,
+        init_finetune_model,
+    )
+
+    backend = "nccl" if device == "cuda" else "gloo"
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(backend, store=dist.FileStore(str(work / "world1.store"), 1),
+                            rank=0, world_size=1)
+    try:
+        plan = make_plan(data=1, model=1)
+        model = load_fast(torch, work, "wavlm", device)
+        plain, grouped = (WavLMExtractor(model, device, preset="fast", plan=p)
+                          for p in (None, plan))
+        meta = create_metadata_from_files(str(work / "corpus"))
+        audio_s = _CORPORA[work / "corpus"]
+        walls = {"plain": [], "group": []}
+        for turn, ex in enumerate((plain, grouped, grouped, plain)):
+            pipe = ExtractionPipeline(ex, batcher=BucketBatcher(frame_align=ex.frame_align),
+                                      checkpoint_interval=5)
+            t0 = time.perf_counter()
+            pipe.run(meta, str(work / f"world1_{turn}"))
+            sync(torch, device)
+            walls["plain" if ex is plain else "group"].append(time.perf_counter() - t0)
+        for split in ("train", "test", "devel"):
+            ref = work / "slice_store" / split
+            for turn in range(4):
+                d = work / f"world1_{turn}" / split
+                check((d / "embedding_metadata.csv").read_bytes()
+                      == (ref / "embedding_metadata.csv").read_bytes(),
+                      f"world 1 {split}: the CSV differs from [slice]'s")
+                for c in plain.column_names:
+                    check(np.array_equal(np.load(d / f"{c}_embeddings.npy"),
+                                         np.load(ref / f"{c}_embeddings.npy")),
+                          f"world 1 run {turn} {split} {c}: rows differ from [slice]'s")
+        rates = {k: audio_s / float(np.mean(v)) for k, v in walls.items()}
+        say("parallel", step=f"{backend}_world1_extract", clips=len(meta),
+            audio_s=f"{audio_s:.2f}", rows="bit-equal to [slice]",
+            plain_audio_s_per_s=f"{rates['plain']:.1f}",
+            group_audio_s_per_s=f"{rates['group']:.1f}",
+            group_over_plain=f"{rates['group'] / rates['plain']:.3f}", card=f'"{card}"')
+        del plain, grouped, model
+
+        mcfg = dataclasses.replace(WavLMConfig.large(), apply_spec_augment=False)
+        cfg = FinetuneConfig(model=mcfg, n_classes=4, head_dropout=0.0)
+        state = init_finetune_model(cfg, device=device).state_dict()
+        plain = FinetuneTrainer(cfg, device=device, params=state)
+        grouped = FinetuneTrainer(cfg, device=device, params=state, plan=plan)
+        del state
+        rng = np.random.RandomState(5)
+        cw = np.array([1.0, 2.0, 0.5, 1.5], np.float32)
+        T = sizes["wavlm_3s"][1]
+        losses = {"plain": [], "group": []}
+        with deterministic(torch):
+            for _ in range(2):
+                lengths = rng.randint(T // 2, T + 1, size=8)
+                waves = (rng.randn(8, T) * 0.1 * (np.arange(T)[None] < lengths[:, None])
+                         ).astype(np.float32)
+                mb = (waves, lengths, rng.randint(0, 4, size=8), np.ones(8, np.float32))
+                losses["plain"].append(plain.step_accum([mb], cw)["loss"])
+                losses["group"].append(grouped.step(*mb[:3], cw, valid=mb[3])["loss"])
+        same = [n for n, p in plain.params.items() if torch.equal(p, grouped.params[n])]
+        if len(same) < len(plain.params):
+            print("differ:", [n for n in plain.params if n not in same][:8], flush=True)
+        say("parallel", step=f"{backend}_world1_finetune", batch="8x3s", steps=2,
+            losses=",".join(f"{x:.6f}" for x in losses["group"]),
+            params_bit_equal=f"{len(same)}/{len(plain.params)}")
+        check(losses["plain"] == losses["group"], f"world 1 losses {losses}")
+        check(len(same) == len(plain.params),
+              f"world 1 fine-tune: {len(plain.params) - len(same)} parameters differ")
+        del plain, grouped
+    finally:
+        dist.destroy_process_group()
+
+
+def check_parallel_ranks(torch, work: Path, tag: str, refs: dict, card: str,
+                         sizes: dict) -> dict:
+    """Hold the two ranks' rows against the one-process run, and check each
+    rank's kernel launches (one per layer of a batch) and its local heads,
+    lengths and contiguous bias planes; returns rank 0's report."""
+    import json
+
+    import numpy as np
+
+    from stutter_tpu_torch.models.wavlm import WavLMConfig, wavlm_feature_lengths
+    from stutter_tpu_torch.models.whisper import WhisperConfig
+
+    rows = np.load(work / f"parallel_rows_{tag}.npz")
+    reports = [json.loads((work / f"parallel_{tag}_rank{r}.json").read_text()) for r in range(2)]
+    worst, bars = {}, {}
+    for name, ref in refs.items():
+        for c in ref:
+            key = f"{name}_decoder" if c.startswith("decoder_") else name
+            bars[key] = (WHISPER_FAST_DECODER_COSINE if c.startswith("decoder_")
+                         else PARALLEL_POOLED_COSINE)
+            worst[key] = max([worst.get(key, 0.0)] + [
+                cosine_distance(torch.from_numpy(rows[f"{name}/{c}"][i]),
+                                torch.from_numpy(ref[c][i])) for i in range(len(ref[c]))])
+    d, ref_d = work / f"dp_store_{tag}" / "train", work / "dp_store_one" / "train"
+    check((d / "embedding_metadata.csv").read_bytes()
+          == (ref_d / "embedding_metadata.csv").read_bytes(), f"{tag}: the DP store's CSV differs")
+    worst["dp"] = max(cosine_distance(torch.from_numpy(a), torch.from_numpy(b))
+                      for p in ref_d.glob("*_embeddings.npy")
+                      for a, b in zip(np.load(d / p.name), np.load(p)))
+    bars["dp"] = PARALLEL_POOLED_COSINE
+    wcfg, scfg = WavLMConfig.large(), WhisperConfig.large()
+    on_card = reports[0]["device"] != "cpu"
+    expected = {  # kernel, launches a rank (one a layer), heads a rank, length
+        name: ("gated_relpos_attention", wcfg.num_hidden_layers, wcfg.num_attention_heads // 2,
+               int(wavlm_feature_lengths(wcfg, sizes[name][1])))
+        for name in ("wavlm_3s", "wavlm_30s")}
+    expected["whisper_30s"] = ("flash_mha", scfg.encoder_layers,
+                               scfg.encoder_attention_heads // 2, scfg.max_source_positions)
+    clips, _, bucket_s, budget = sizes["dp"]
+    dp_batches = -(-clips // int(budget / bucket_s))
+    for r, rep in enumerate(reports):
+        for name, (kernel, layers, heads, length) in expected.items():
+            got = rep[name]
+            check(got["counts"][kernel] == layers * on_card and len(got["calls"]) == layers,
+                  f"{tag} rank {r} {name}: {got['counts'][kernel]} {kernel} launches, "
+                  f"{len(got['calls'])} calls, expected {layers}")
+            want = [heads, length] + ([[[heads, length, length], True]]
+                                      if kernel == "gated_relpos_attention" else [])
+            check(all(c == want for c in got["calls"]),
+                  f"{tag} rank {r} {name}: calls {got['calls'][:2]}, expected {want}")
+        check(reports[r]["whisper_30s"]["counts"]["whisper_log_mel"] == on_card,
+              f"{tag} rank {r}: log-mel launches {rep['whisper_30s']['counts']}")
+        dp_launches = rep["dp"]["counts"]["gated_relpos_attention"]
+        check(dp_launches == wcfg.num_hidden_layers * dp_batches * on_card,
+              f"{tag} rank {r} dp: {dp_launches} launches for {dp_batches} batches")
+    say("parallel", step=f"{tag}_two_ranks", devices=",".join(r["device"] for r in reports),
+        wavlm_heads_per_rank=expected["wavlm_3s"][2],
+        whisper_heads_per_rank=expected["whisper_30s"][2],
+        **{f"{k}_worst_pooled_cosine_dist": f"{v:.3e}" for k, v in worst.items()},
+        tol=PARALLEL_POOLED_COSINE, whisper_decoder_tol=WHISPER_FAST_DECODER_COSINE,
+        gated_launches_per_rank_per_batch=reports[0]["wavlm_3s"]["counts"][
+            "gated_relpos_attention"],
+        flash_launches_per_rank=reports[0]["whisper_30s"]["counts"]["flash_mha"],
+        dp_batches=dp_batches, dp_wall_s=f"{max(r['dp']['wall_s'] for r in reports):.3f}",
+        card=f'"{card}"')
+    for k, v in worst.items():
+        check(v <= bars[k], f"{tag} {k}: pooled cosine distance {v:.3e} > {bars[k]}")
+    return reports[0]
+
+
+def phase_parallel(torch, work: Path, card: str, device: str = "cuda",
+                   sizes: dict = PARALLEL_SIZES) -> dict:
+    """The port's process groups at full width (WavLM-Large and
+    Whisper-large, seeded, fast): a group of one (parallel_world1); two
+    gloo ranks sharing the card for tensor-parallel WavLM and Whisper and a
+    data-parallel extraction, held to the one-process run
+    (check_parallel_ranks); the sharded fine-tune dryrun on two gloo ranks;
+    and, with two cards or more, the same over NCCL and the data-parallel
+    audio-s/s at 1 and 2 cards. Returns rank 0's launches and calls of the
+    tensor-parallel runs."""
+    import json
+
+    from stutter_tpu_torch.extract.pipeline import (
+        ExtractionPipeline,
+        WavLMExtractor,
+        WhisperExtractor,
+    )
+    from stutter_tpu_torch.extract.scanner import create_metadata_from_files
+    from stutter_tpu_torch.parallel.dryrun import dryrun_multichip
+    from stutter_tpu_torch.parallel.mesh import launch
+
+    on_card = device == "cuda"
+    cards = on_card and torch.cuda.device_count() >= 2
+    parallel_world1(torch, work, card, device, sizes)
+
+    clips, seconds, _, _ = sizes["dp"]
+    dp_audio_s = write_corpus(work / "dp_corpus", {"train": clips}, seconds, seed=13)
+    inputs = parallel_inputs(work, sizes)
+    ex = WavLMExtractor(load_fast(torch, work, "wavlm", device), device, preset="fast")
+    refs, one_ms = {}, {}
+    for name in ("wavlm_3s", "wavlm_30s"):
+        refs[name] = ex(host_batch(*inputs[name], sizes[name][2]))
+        if cards:
+            one_ms[name] = batch_ms(torch, ex, host_batch(*inputs[name], sizes[name][2]))
+    batcher = dp_batcher(ex.frame_align, sizes)
+    ex.warmup(batcher)
+    meta = create_metadata_from_files(str(work / "dp_corpus"))
+    t0 = time.perf_counter()
+    ExtractionPipeline(ex, batcher=batcher, checkpoint_interval=10_000).run(
+        meta, str(work / "dp_store_one"), splits=("train",))
+    sync(torch, device)
+    one_wall = time.perf_counter() - t0
+    del ex
+    ex = WhisperExtractor(load_fast(torch, work, "whisper", device), device, preset="fast")
+    refs["whisper_30s"] = ex(host_batch(*inputs["whisper_30s"], sizes["whisper_30s"][2]))
+    if cards:
+        one_ms["whisper_30s"] = batch_ms(torch, ex, host_batch(*inputs["whisper_30s"],
+                                                               sizes["whisper_30s"][2]))
+    del ex
+    if on_card:
+        torch.cuda.empty_cache()
+
+    launch(parallel_rank, 2, (str(work), "gloo", device, sizes), device_type=device,
+           backend="gloo", store_dir=str(work))
+    report = check_parallel_ranks(torch, work, "gloo", refs, card, sizes)
+    dryrun_multichip(2, device=device, backend="gloo")
+    say("parallel", step="dryrun_gloo", ranks=2, mesh="data=1 model=2", ok=True)
+
+    if not cards:
+        say("parallel", step="nccl_world2", result="not run (1 card)")
+        return report
+    scale_audio_s = write_corpus(work / "timing_corpus", {"train": SCALING_CLIPS}, (2.0, 3.0),
+                                 seed=2)
+    ex = WavLMExtractor(load_fast(torch, work, "wavlm", device), device, preset="fast")
+    batcher = scaling_batcher(ex.frame_align)
+    ex.warmup(batcher)
+    scale_one = scaling_walls(torch, ex, batcher,
+                              create_metadata_from_files(str(work / "timing_corpus")), work, "one")
+    del ex
+    torch.cuda.empty_cache()
+    launch(parallel_rank, 2, (str(work), "nccl", device, sizes), device_type=device,
+           backend="nccl", store_dir=str(work))
+    report = check_parallel_ranks(torch, work, "nccl", refs, card, sizes)
+    dryrun_multichip(2, device=device)
+    ranks = [json.loads((work / f"parallel_nccl_rank{r}.json").read_text()) for r in range(2)]
+    two_wall = max(r["dp"]["wall_s"] for r in ranks)
+    scale_two = [max(walls) for walls in zip(*(r["scaling_wall_s"] for r in ranks))]
+    say("parallel", step="nccl_world2", dp_clips=len(meta), dp_audio_s=f"{dp_audio_s:.1f}",
+        dp_one_card_audio_s_per_s=f"{dp_audio_s / one_wall:.1f}",
+        dp_two_cards_audio_s_per_s=f"{dp_audio_s / two_wall:.1f}",
+        scaling_clips=SCALING_CLIPS, scaling_audio_s=f"{scale_audio_s:.1f}",
+        one_card_audio_s_per_s=",".join(f"{scale_audio_s / w:.1f}" for w in scale_one),
+        two_cards_audio_s_per_s=",".join(f"{scale_audio_s / w:.1f}" for w in scale_two),
+        speedup_of_medians=f"{median(scale_one) / median(scale_two):.3f}",
+        speedup_range=f"{min(scale_one) / max(scale_two):.3f}-"
+                      f"{max(scale_one) / min(scale_two):.3f}", card=f'"{card}"')
+    # tensor parallelism's time: a batch's wall ms on one card against TP = 2
+    # over two, TP_TIMED_CALLS calls (the median; of two ranks the slower),
+    # the host's enqueue ms, a profiled call's device ms, and one block's
+    # all-reduce alone (two a layer)
+    fields = {}
+    for name, one in one_ms.items():
+        tp = {key: max(median(r[name]["timing"][key]) for r in ranks)
+              for key in ("ms", "enqueue_ms")}
+        tp_device = max(r[name]["timing"]["device_ms"] for r in ranks)
+        tp_nccl = max(r[name]["timing"]["nccl_device_ms"] for r in ranks)
+        ar_ms = max(median(r[name]["all_reduce_ms"]) for r in ranks)
+        fields.update({
+            f"{name}_one_card_ms": f"{median(one['ms']):.2f}",
+            f"{name}_tp2_ms": f"{tp['ms']:.2f}",
+            f"{name}_tp2_speedup": f"{median(one['ms']) / tp['ms']:.3f}",
+            f"{name}_one_card_enqueue_ms": f"{median(one['enqueue_ms']):.2f}",
+            f"{name}_tp2_enqueue_ms": f"{tp['enqueue_ms']:.2f}",
+            f"{name}_one_card_device_ms": f"{one['device_ms']:.2f}",
+            f"{name}_tp2_device_ms": f"{tp_device:.2f}",
+            f"{name}_tp2_nccl_device_ms": f"{tp_nccl:.2f}",
+            f"{name}_all_reduce_ms": f"{ar_ms:.3f}",
+            f"{name}_all_reduce_gb_per_s":
+                f"{ranks[0][name]['all_reduce_bytes'] / ar_ms / 1e6:.1f}"})
+    say("parallel", step="nccl_tp2_time", calls=TP_TIMED_CALLS, **fields, card=f'"{card}"')
+    for name, one in one_ms.items():
+        print(f"[parallel] top kernels, one card, {name}:\n{one['top']}", flush=True)
+        print(f"[parallel] top kernels, TP = 2, rank 0, {name}:\n"
+              f"{ranks[0][name]['timing']['top']}", flush=True)
+    return report
+
+
+def parallel_only(torch, card: str) -> None:
+    """``--only-parallel``: WavLM-Large fast through [slice] (its corpus and
+    store), the fast states of both models, then [parallel]."""
+    from stutter_tpu_torch.extract.pipeline import WavLMExtractor, WhisperExtractor
+    from stutter_tpu_torch.models.wavlm import WavLMConfig
+    from stutter_tpu_torch.models.whisper import WhisperConfig
+    from stutter_tpu_torch.weights.convert import init_wavlm, init_whisper
+
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        with timed("slice"):
+            ex = WavLMExtractor(init_wavlm(WavLMConfig.large(), torch.Generator().manual_seed(0)),
+                                "cuda", preset="fast")
+            phase_slice(torch, ex, work)
+            torch.save(ex.model.state_dict(), work / "wavlm_fast.pt")
+            del ex
+            ex = WhisperExtractor(init_whisper(WhisperConfig.large(),
+                                               torch.Generator().manual_seed(0)), "cuda",
+                                  preset="fast")
+            torch.save(ex.model.state_dict(), work / "whisper_fast.pt")
+            del ex
+            torch.cuda.empty_cache()
+        with timed("parallel"):
+            phase_parallel(torch, work, card)
+
+
 @contextlib.contextmanager
 def timed(phase: str):
     t0 = time.perf_counter()
@@ -2612,6 +3221,12 @@ def main() -> int:
     say("build", seconds=f"{build_s:.2f}", library=lib.relative_to(ROOT))
 
     try:
+        if "--only-parallel" in sys.argv[1:]:
+            parallel_only(torch, card)
+            print(json.dumps({"ok": True, "device": {
+                "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                "count": torch.cuda.device_count()}}), flush=True)
+            return 0
         with timed("kernel"):
             wavlm_err, wavlm_times = phase_kernel(torch, attn)
         with timed("attn_bwd"):
@@ -2669,6 +3284,7 @@ def main() -> int:
             say("turbo", model="wavlm-large", fast_audio_s_per_s=f"{fast_rate:.1f}",
                 turbo_audio_s_per_s=f"{turbo_rate:.1f}",
                 turbo_over_fast=f"{turbo_rate / fast_rate:.3f}", card=f'"{card}"')
+            torch.save(extractor.model.state_dict(), work / "wavlm_fast.pt")  # for [parallel]
             del extractor, turbo, base
             torch.cuda.empty_cache()
             with timed("stem_ab"):
@@ -2701,8 +3317,11 @@ def main() -> int:
             say("turbo", model="whisper-large", fast_clips_per_s=f"{fast_rate:.2f}",
                 turbo_clips_per_s=f"{turbo_rate:.2f}",
                 turbo_over_fast=f"{turbo_rate / fast_rate:.3f}", card=f'"{card}"')
+            torch.save(extractor.model.state_dict(), work / "whisper_fast.pt")  # for [parallel]
             del extractor, turbo
             torch.cuda.empty_cache()
+            with timed("parallel"):
+                tp_report = phase_parallel(torch, work, card)
 
             with timed("finetune_path"):
                 phase_finetune_path(torch, attn, WavLMConfig.large())
@@ -2756,6 +3375,12 @@ def main() -> int:
     line[0]["downstream_launches"] = ds_counts["gated_relpos_attention"]
     line[0]["chunk_launches"] = chunk_counts["gated_relpos_attention"]
     line[0]["serve_launches"] = serve_counts["gated_relpos_attention"]
+    # per tensor-parallel rank at the local head counts: 8 of WavLM-Large's 16
+    line[0]["tp2_launches_per_rank"] = {
+        "16x8x160": tp_report["wavlm_3s"]["counts"]["gated_relpos_attention"],
+        "2x8x1504": tp_report["wavlm_30s"]["counts"]["gated_relpos_attention"]}
+    line[3]["tp2_launches_per_rank"] = {  # 10 of Whisper-large's 20 heads
+        "4x10x1500": tp_report["whisper_30s"]["counts"]["flash_mha"]}
     line[1]["also_replaces"] = ["stutter_tpu/ops/wavlm_attention_vjp.py:68",
                                 "stutter_tpu/ops/wavlm_attention_vjp.py:115"]
     line[1]["max_rel_err"] = bwd_rel

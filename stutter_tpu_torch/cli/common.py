@@ -1,4 +1,4 @@
-"""What the port's CLIs share (counterpart of ``stutter_tpu/cli/common.py``, one device).
+"""What the port's CLIs share (counterpart of ``stutter_tpu/cli/common.py``).
 
 ``load_wavlm_model`` and ``load_whisper_model`` give (config, float32
 model): with ``random_init`` the architecture named by ``model_name`` with
@@ -6,13 +6,23 @@ seeded random weights (seed 0), else the local HF checkpoint directory
 ``model_name`` through ``weights.convert.load_wavlm`` / ``load_whisper``. A
 hub name raises ``OSError``: this package never downloads.
 ``make_bucket_batcher`` builds the serve and predict CLIs' batcher from the
-extractor's preferences; ``check_single_device`` refuses the multi-device
-flags.
+extractor's preferences.
+
+``add_mesh_args`` adds ``--devices N`` and ``--tp T`` (the extraction and
+fine-tune CLIs): ``run_on_devices`` spawns N worker processes, one per card,
+each running the CLI again in one process group, unless this process is
+already one of them (spawned here or by ``torchrun``); ``build_plan`` then
+gives the rank its [N / T, T] plan, or None on one device, where no group is
+started. ``check_single_device`` refuses those flags on the serving and
+downstream CLIs, whose multi-device runs are not ported yet.
 """
 
 from __future__ import annotations
 
+import argparse
 import logging
+import os
+import sys
 
 logger = logging.getLogger("stutter_tpu_torch.cli")
 
@@ -32,10 +42,84 @@ WHISPER_SIZES = (
 
 
 def check_single_device(args) -> None:
-    """``--devices``/``--tp`` above 1 raise: one card only for now."""
+    """``--devices``/``--tp`` above 1 raise: serve, predict, train and
+    train_grid run on one card for now."""
     if (getattr(args, "devices", None) or 1) != 1 or getattr(args, "tp", 1) != 1:
         raise NotImplementedError(
-            "multi-device runs are not ported yet (ROADMAP Queue 1, multi-GPU)")
+            "--devices/--tp above 1 are not ported for this CLI yet (ROADMAP Queue 1, "
+            "multi-GPU serving and training: the serving loop's followers)")
+
+
+def add_mesh_args(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--devices", type=int, nargs="?", default=None, const=None,
+                        help="Number of processes, one per card (default, or the flag "
+                             "alone: every visible card; 1 with --device cpu)")
+    parser.add_argument("--tp", type=int, default=1,
+                        help="Tensor-parallel size (model axis); devices/tp is the "
+                             "data-parallel size")
+
+
+def _in_group() -> bool:
+    import torch.distributed as dist
+
+    return dist.is_initialized() or "RANK" in os.environ
+
+
+def rank_count(args) -> int:
+    """The processes a run asks for: ``--devices``, else every visible card
+    (one with ``--device cpu``)."""
+    if args.devices is not None:
+        if args.devices < 1:
+            raise ValueError(f"--devices must be at least 1, got {args.devices}")
+        return args.devices
+    import torch
+
+    return max(1, torch.cuda.device_count()) if args.device.startswith("cuda") else 1
+
+
+def run_on_devices(module: str, argv, args, store_dir: str) -> int | None:
+    """Spawn the CLI's ranks when the run asks for more than one process and
+    this process is not already a rank: returns the exit code once they are
+    done, else None (the caller runs on). The layout is checked first, so a
+    bad ``--tp`` fails here and not in every worker."""
+    from stutter_tpu_torch.parallel.mesh import plan_shape, spawn_cli
+
+    if _in_group():
+        return None
+    n = rank_count(args)
+    plan_shape(n, model=args.tp)
+    if n == 1:
+        return None
+    logger.info("spawning %d ranks (data %d x model %d)", n, n // args.tp, args.tp)
+    return spawn_cli(module, sys.argv[1:] if argv is None else list(argv), n,
+                     "cuda" if args.device.startswith("cuda") else "cpu", store_dir)
+
+
+def build_plan(args):
+    """This rank's ``MeshPlan`` ([devices / tp, tp]), joining ``torchrun``'s
+    group if this process was started by it; None on one device."""
+    import torch.distributed as dist
+
+    from stutter_tpu_torch.parallel.mesh import init_distributed, make_plan
+
+    if "RANK" in os.environ and not dist.is_initialized():
+        init_distributed(backend="nccl" if args.device.startswith("cuda") else "gloo")
+    if not dist.is_initialized():
+        return None
+    return make_plan(model=args.tp)
+
+
+def rank_device(args, plan):
+    """The torch device of this rank: under a plan on cards, the card the
+    launcher gave it (``--device``'s index is for one device)."""
+    import torch
+
+    from stutter_tpu_torch.extract.pipeline import resolve_device
+
+    device = resolve_device(args.device)
+    if plan is not None and device.type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def default_model_name(model_type: str, model_name: str | None) -> str:

@@ -1,8 +1,9 @@
-"""WavLM embedding extraction CLI on one GPU (flags of ``stutter_tpu.cli.extract_wavlm``).
+"""WavLM embedding extraction CLI on one or many GPUs (flags of ``stutter_tpu.cli.extract_wavlm``).
 
     python -m stutter_tpu_torch.cli.extract_wavlm --data_dir <corpus> \\
         --output_dir <out> --model_path <local HF checkpoint dir> \\
-        [--preset fast|fidelity|turbo] [--long_files trim|chunk] [--verify_model] [--device cuda]
+        [--preset fast|fidelity|turbo] [--long_files trim|chunk] [--verify_model] \\
+        [--devices N [--tp T]] [--device cuda]
 
 ``--device`` names the torch device (default ``cuda``); with no card it
 fails rather than running on the CPU. The weights come from a local HF
@@ -10,8 +11,11 @@ checkpoint directory (``--model_path``, or ``--model_name`` naming one), or
 with ``--random_init`` from seed 0 in the architecture ``--model_name``
 names; a hub name raises ``OSError`` (no download). ``--verify_model`` runs
 the dummy-forward check first; ``--long_files chunk`` embeds files longer
-than the top bucket as length-weighted chunks; the multi-device flags
-raise. ``--preset`` takes the JAX CLI's three: fast (bf16), fidelity (f32,
+than the top bucket as length-weighted chunks. ``--devices N`` runs N
+processes, one per card (default: every visible card), ``--tp T`` cuts the
+model over T of them and splits the batches over N / T
+(``cli.common.run_on_devices``); under ``torchrun`` the CLI joins its group.
+``--preset`` takes the JAX CLI's three: fast (bf16), fidelity (f32,
 no TF32) and turbo (fast with int8 projections). The JAX package's
 environment switch for WavLM's long buckets is read here, once: a non-empty
 ``STUTTER_TPU_LONG_ATTENTION_FLASH`` sends bf16 attention from
@@ -27,7 +31,13 @@ import logging
 import os
 import sys
 
-from stutter_tpu_torch.cli.common import WAVLM_CONFIGS, check_single_device
+from stutter_tpu_torch.cli.common import (
+    WAVLM_CONFIGS,
+    add_mesh_args,
+    build_plan,
+    rank_device,
+    run_on_devices,
+)
 
 
 def long_attention_from_env(environ=None) -> dict:
@@ -73,10 +83,7 @@ def parse_args(argv=None):
                              "behavior) or chunk+weighted-average")
     parser.add_argument("--verify_model", action="store_true",
                         help="Dummy-forward model verification before extraction")
-    parser.add_argument("--devices", type=int, default=None,
-                        help="Number of devices (only 1 is supported)")
-    parser.add_argument("--tp", type=int, default=1,
-                        help="Tensor-parallel size (only 1 is supported)")
+    add_mesh_args(parser)
     parser.add_argument("--preset", type=str, default="fast",
                         choices=["fast", "fidelity", "turbo"],
                         help="Numerics preset: fast=bf16, fidelity=f32 without TF32, "
@@ -88,18 +95,20 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    check_single_device(args)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s - %(name)s - %(levelname)s - %(message)s")
     logger = logging.getLogger("stutter_tpu_torch.cli.extract_wavlm")
+    rc = run_on_devices("stutter_tpu_torch.cli.extract_wavlm", argv, args, args.output_dir)
+    if rc is not None:
+        return rc
 
     from stutter_tpu_torch.cli.common import load_wavlm_model
     from stutter_tpu_torch.extract.batcher import BucketBatcher
-    from stutter_tpu_torch.extract.pipeline import (
-        ExtractionPipeline, WavLMExtractor, resolve_device)
+    from stutter_tpu_torch.extract.pipeline import ExtractionPipeline, WavLMExtractor
     from stutter_tpu_torch.extract.scanner import create_metadata_from_files
 
-    device = resolve_device(args.device)
+    plan = build_plan(args)
+    device = rank_device(args, plan)
     cfg, model = load_wavlm_model(args.model_path or args.model_name, args.random_init)
     logger.info("model: %s (%d layers, hidden %d, stable_ln=%s) on %s, preset %s",
                 args.model_name, cfg.num_hidden_layers, cfg.hidden_size,
@@ -113,11 +122,13 @@ def main(argv=None) -> int:
         from stutter_tpu_torch.models.verify import verify_wavlm
 
         verify_wavlm(model.to(device), model_name=args.model_path or args.model_name)
-    extractor = WavLMExtractor(model, device, preset=args.preset, **long_attention_from_env())
+    extractor = WavLMExtractor(model, device, preset=args.preset, plan=plan,
+                               **long_attention_from_env())
     batcher = BucketBatcher(
         target_sr=args.sample_rate,
         audio_budget_s=args.audio_budget,
         max_batch=args.batch_size,
+        batch_multiple=plan.data_size if plan else 1,
         max_length_s=args.max_length,
         frame_align=extractor.frame_align,
     )

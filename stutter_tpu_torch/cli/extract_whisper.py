@@ -1,8 +1,9 @@
-"""Whisper embedding extraction CLI on one GPU (flags of ``stutter_tpu.cli.extract_whisper``).
+"""Whisper embedding extraction CLI, one or more GPUs (flags of ``stutter_tpu.cli.extract_whisper``).
 
     python -m stutter_tpu_torch.cli.extract_whisper --data_dir <corpus> \\
         --output_dir <out> --model_path <local HF checkpoint dir> \\
-        [--preset fast|fidelity|turbo] [--long_files trim|chunk] [--verify_model] [--device cuda]
+        [--preset fast|fidelity|turbo] [--long_files trim|chunk] [--verify_model] \\
+        [--devices N [--tp T]] [--device cuda]
 
 ``--device`` names the torch device (default ``cuda``); with no card it
 fails rather than running on the CPU. The weights come from a local HF
@@ -10,7 +11,10 @@ checkpoint directory (``--model_path``, or ``--model_name`` naming one), or
 with ``--random_init`` from seed 0 in the size ``--model_name`` names; a hub
 name raises ``OSError`` (no download). ``--verify_model`` runs the
 dummy-forward check first; ``--long_files chunk`` embeds files longer than
-30 s as length-weighted 30 s chunks; the multi-device flags raise.
+30 s as length-weighted 30 s chunks. ``--devices N`` runs N processes, one
+per card (default: every visible card), ``--tp T`` cuts encoder and decoder
+over T of them (T must divide the heads: 20 in Whisper-large) and splits the
+batches over N / T; under ``torchrun`` the CLI joins its group.
 ``--preset`` takes the JAX CLI's three: fast (bf16), fidelity (f32, no
 TF32) and turbo (fast with int8 projections). As in the reference, every
 clip is padded or trimmed to 30 s, the one decoder step uses token id 0, and
@@ -23,7 +27,7 @@ import argparse
 import logging
 import sys
 
-from stutter_tpu_torch.cli.common import check_single_device
+from stutter_tpu_torch.cli.common import add_mesh_args, build_plan, rank_device, run_on_devices
 
 
 def parse_args(argv=None):
@@ -48,10 +52,7 @@ def parse_args(argv=None):
                              "chunk+weighted-average")
     parser.add_argument("--verify_model", action="store_true",
                         help="Dummy-forward model verification before extraction")
-    parser.add_argument("--devices", type=int, default=None,
-                        help="Number of devices (only 1 is supported)")
-    parser.add_argument("--tp", type=int, default=1,
-                        help="Tensor-parallel size (only 1 is supported)")
+    add_mesh_args(parser)
     parser.add_argument("--preset", type=str, default="fast",
                         choices=["fast", "fidelity", "turbo"],
                         help="Numerics preset: fast=bf16, fidelity=f32 without TF32, "
@@ -63,18 +64,20 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    check_single_device(args)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s - %(name)s - %(levelname)s - %(message)s")
     logger = logging.getLogger("stutter_tpu_torch.cli.extract_whisper")
+    rc = run_on_devices("stutter_tpu_torch.cli.extract_whisper", argv, args, args.output_dir)
+    if rc is not None:
+        return rc
 
     from stutter_tpu_torch.cli.common import load_whisper_model
     from stutter_tpu_torch.extract.batcher import BucketBatcher
-    from stutter_tpu_torch.extract.pipeline import (
-        ExtractionPipeline, WhisperExtractor, resolve_device)
+    from stutter_tpu_torch.extract.pipeline import ExtractionPipeline, WhisperExtractor
     from stutter_tpu_torch.extract.scanner import create_metadata_from_files
 
-    device = resolve_device(args.device)
+    plan = build_plan(args)
+    device = rank_device(args, plan)
     cfg, model = load_whisper_model(args.model_path or args.model_name, args.random_init)
     logger.info("model: %s (%d enc / %d dec layers, d_model %d) on %s, preset %s",
                 args.model_name, cfg.encoder_layers, cfg.decoder_layers, cfg.d_model,
@@ -88,12 +91,13 @@ def main(argv=None) -> int:
         from stutter_tpu_torch.models.verify import verify_whisper
 
         verify_whisper(model.to(device), model_name=args.model_path or args.model_name)
-    extractor = WhisperExtractor(model, device, preset=args.preset)
+    extractor = WhisperExtractor(model, device, preset=args.preset, plan=plan)
     batcher = BucketBatcher(
         target_sr=args.sample_rate,
         buckets_s=(30.0,),  # whisper contract: 30 s pad/trim
         audio_budget_s=30.0 * args.batch_size,
         max_batch=args.batch_size,
+        batch_multiple=plan.data_size if plan else 1,
     )
     pipe = ExtractionPipeline(extractor, batcher=batcher,
                               checkpoint_interval=args.checkpoint_interval,

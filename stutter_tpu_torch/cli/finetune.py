@@ -1,8 +1,9 @@
-"""End-to-end WavLM fine-tuning on one GPU (flags of ``stutter_tpu.cli.finetune``).
+"""End-to-end WavLM fine-tuning on one or many GPUs (flags of ``stutter_tpu.cli.finetune``).
 
     python -m stutter_tpu_torch.cli.finetune --data_dir <corpus> \\
         --results_dir <out> --model_path <checkpoint dir> [--epochs 5] [--batch_size 32] \\
-        [--grad_accum K] [--checkpoint_dir <dir> [--resume]] [--device cuda]
+        [--grad_accum K] [--checkpoint_dir <dir> [--resume]] [--devices N [--tp T]] \\
+        [--device cuda]
 
 WavLM backbone + layer-weighted sum + MLP head, class-weighted cross-entropy,
 bf16 activations on f32 master weights. The train split is decoded once into
@@ -18,10 +19,16 @@ model (``.npz`` + ``_info.json``) go to ``--results_dir``.
 rather than running on the CPU). The backbone comes from a local HF
 checkpoint directory (``--model_path``, or ``--model_name`` naming one), or
 with ``--random_init`` from seed 0; a hub name raises ``OSError`` (no
-download). ``--int8_forward``, the remat policies ``layer_dots``,
-``layer_probs`` and ``dots``, ``--devices``/``--tp`` above 1, and the JAX
-package's ``STUTTER_TPU_LONG_ATTENTION_FLASH`` switch raise (the reference
-has no backward for that attention either).
+download). ``--devices N`` trains data-parallel on N processes, one per
+card (default: every visible card): each rank decodes and trains on its rows
+of every batch and the gradients are summed over the ranks before each
+update; ``--tp T`` keeps the weights whole on T ranks that share rows, as the
+JAX CLI replicates them over its model axis, so N / T ranks split the batch.
+Rank 0 writes the checkpoints, the results and the model; under ``torchrun``
+the CLI joins its group. ``--int8_forward``, the remat policies
+``layer_dots``, ``layer_probs`` and ``dots``, and the JAX package's
+``STUTTER_TPU_LONG_ATTENTION_FLASH`` switch raise (the reference has no
+backward for that attention either).
 ``--preset`` is accepted and ignored, as in the JAX CLI: fine-tuning always
 runs bf16 activations.
 """
@@ -34,7 +41,13 @@ import sys
 
 import numpy as np
 
-from stutter_tpu_torch.cli.common import WAVLM_CONFIGS, check_single_device
+from stutter_tpu_torch.cli.common import (
+    WAVLM_CONFIGS,
+    add_mesh_args,
+    build_plan,
+    rank_device,
+    run_on_devices,
+)
 from stutter_tpu_torch.cli.extract_wavlm import long_attention_from_env
 
 
@@ -79,10 +92,7 @@ def parse_args(argv=None):
                         help="int8 forward GEMMs (not ported yet)")
     parser.add_argument("--random_init", action="store_true",
                         help="Random weights from seed 0 (no checkpoint load)")
-    parser.add_argument("--devices", type=int, default=None,
-                        help="Number of devices (only 1 is supported)")
-    parser.add_argument("--tp", type=int, default=1,
-                        help="Tensor-parallel size (only 1 is supported)")
+    add_mesh_args(parser)
     parser.add_argument("--preset", type=str, default="fast",
                         choices=["fast", "fidelity", "turbo"],
                         help="Accepted and ignored: fine-tuning runs bf16 activations")
@@ -92,7 +102,6 @@ def parse_args(argv=None):
 
 
 def _check_supported(args) -> None:
-    check_single_device(args)
     if long_attention_from_env()["long_attention"] != "gated":
         raise NotImplementedError(
             "STUTTER_TPU_LONG_ATTENTION_FLASH is set: the materialised-bias attention has "
@@ -106,6 +115,9 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s - %(name)s - %(levelname)s - %(message)s")
     logger = logging.getLogger("stutter_tpu_torch.cli.finetune")
+    rc = run_on_devices("stutter_tpu_torch.cli.finetune", argv, args, args.results_dir)
+    if rc is not None:
+        return rc
 
     import dataclasses
 
@@ -113,8 +125,8 @@ def main(argv=None) -> int:
 
     from stutter_tpu_torch.cli.common import load_wavlm_model
     from stutter_tpu_torch.extract.batcher import BucketBatcher
-    from stutter_tpu_torch.extract.pipeline import resolve_device
     from stutter_tpu_torch.extract.scanner import create_metadata_from_files
+    from stutter_tpu_torch.parallel.mesh import gather_rows
     from stutter_tpu_torch.models.wavlm import WavLMConfig
     from stutter_tpu_torch.train.checkpointing import (
         latest_step, restore_train_state, save_train_state)
@@ -138,7 +150,9 @@ def main(argv=None) -> int:
     if args.resume and not args.checkpoint_dir:
         logger.error("--resume requires --checkpoint_dir")
         return 2
-    device = resolve_device(args.device)
+    plan = build_plan(args)
+    lead = plan is None or plan.rank == 0  # writes checkpoints, results, the model
+    device = rank_device(args, plan)
     cfg_model, backbone = load_wavlm_model(args.model_path or args.model_name,
                                            args.random_init)
     cfg = dataclasses.replace(cfg, model=cfg_model)
@@ -157,18 +171,19 @@ def main(argv=None) -> int:
 
     cfg = dataclasses.replace(cfg, n_classes=len(class_names))
     trainer = FinetuneTrainer(cfg, backbone=backbone, device=device,
-                              grad_accum=max(1, args.grad_accum))
+                              grad_accum=max(1, args.grad_accum), plan=plan)
+    shard = None if plan is None else (plan.data_rank, plan.data_size)
     batcher = BucketBatcher(
         audio_budget_s=args.batch_size * 3.0, max_batch=args.batch_size,
-        max_length_s=args.max_length,
+        batch_multiple=plan.data_size if plan else 1, max_length_s=args.max_length,
         # bucket lengths snapped to a multiple of 16 frames, as extraction does
         frame_align=(*cfg.model.stem_geometry, 16),
     )
 
     label_by_path = {r["path"]: int(label_to_idx[r["label"]]) for r in train_meta}
-    # decode once; epochs reuse the cached padded batches
+    # decode once (this rank's rows); epochs reuse the cached padded batches
     cached = []
-    for batch in batcher.batches([r["path"] for r in train_meta]):
+    for batch in batcher.batches([r["path"] for r in train_meta], shard=shard):
         n_pad = len(batch.waves) - len(batch.paths)
         labels = np.array([label_by_path.get(p, 0) for p in batch.paths] + [0] * n_pad,
                           np.int32)
@@ -212,7 +227,7 @@ def main(argv=None) -> int:
                     auxes.append(trainer.step_accum(group, class_weights, sync=False))
         losses = [float(a["loss"]) for a in auxes]
         logger.info("epoch %d: mean loss %.4f", epoch, float(np.mean(losses)))
-        if args.checkpoint_dir:
+        if args.checkpoint_dir and lead:
             # epoch index as the checkpoint step: resume restarts at epoch+1
             save_train_state(args.checkpoint_dir, epoch + 1, trainer.state_dict(),
                              trainer.opt.state_dict())
@@ -220,12 +235,16 @@ def main(argv=None) -> int:
     # evaluation
     y_true, y_pred = [], []
     eval_labels = {r["path"]: int(label_to_idx[r["label"]]) for r in eval_meta}
-    for batch in batcher.batches([r["path"] for r in eval_meta]):
+    for batch in batcher.batches([r["path"] for r in eval_meta], shard=shard):
         preds = trainer.predict(batch.waves, batch.lengths)
         for j, p in enumerate(batch.paths):
             if batch.ok[j] and p in eval_labels:
                 y_true.append(eval_labels[p])
                 y_pred.append(int(preds[j]))
+    parts = gather_rows(plan, (y_true, y_pred))
+    if not lead:
+        return 0
+    y_true, y_pred = [y for p in parts for y in p[0]], [y for p in parts for y in p[1]]
     results = classification_metrics(np.array(y_true, np.int64), np.array(y_pred, np.int64),
                                      len(class_names), class_names)
     logger.info("eval balanced_acc=%.4f weighted_f1=%.4f",

@@ -5,6 +5,11 @@ Clips are grouped into a small fixed set of length buckets and padded to the
 bucket length; batch sizes scale inversely with bucket length so that every
 batch carries about the same audio. A one-deep background thread decodes
 batch i+1 while the device runs batch i. Pad rows carry ok=False.
+
+Under data parallelism every rank runs the same batcher over the same paths,
+so every rank sees the same batch plan; ``batches(..., shard=(d, D))``
+yields data rank d's contiguous rows of each batch (``batch_multiple = D``
+makes every batch split evenly), decoding only those.
 """
 
 from __future__ import annotations
@@ -46,11 +51,13 @@ class BucketBatcher:
         buckets_s: Sequence[float] = DEFAULT_BUCKETS_S,
         audio_budget_s: float = 384.0,
         max_batch: int = 128,
+        batch_multiple: int = 1,
         max_length_s: float | None = None,
         frame_align: tuple[int, int, int] | None = None,
     ):
-        """audio_budget_s: target audio seconds per batch. max_length_s: clips
-        longer than the top bucket are trimmed to it.
+        """audio_budget_s: target audio seconds per batch. batch_multiple:
+        round batch sizes to a multiple of this (the data-parallel size).
+        max_length_s: clips longer than the top bucket are trimmed to it.
         frame_align=(kernel, stride, multiple): snap each bucket's sample
         count up so the conv stem's frame count is a multiple of `multiple`
         (WavLM: (400, 320, 16))."""
@@ -60,6 +67,7 @@ class BucketBatcher:
         self.buckets_s = tuple(sorted(buckets_s))
         self.audio_budget_s = audio_budget_s
         self.max_batch = max_batch
+        self.batch_multiple = batch_multiple
         self.frame_align = frame_align
 
     def bucket_samples(self, bucket_s: float) -> int:
@@ -73,7 +81,13 @@ class BucketBatcher:
         return (frames - 1) * s + k
 
     def batch_size_for(self, bucket_s: float) -> int:
-        return max(1, min(self.max_batch, int(self.audio_budget_s / bucket_s)))
+        b = max(1, min(self.max_batch, int(self.audio_budget_s / bucket_s)))
+        m = self.batch_multiple
+        # a multiple of m that does not pass max_batch (the memory cap) once
+        # clamped to it, but never under one multiple
+        if b >= self.max_batch:
+            return max(m, (b // m) * m)
+        return ((b + m - 1) // m) * m
 
     def assign_buckets(self, paths: Sequence[str],
                        durations: Sequence[float | None] | None = None,
@@ -99,8 +113,13 @@ class BucketBatcher:
             assignment[bucket].append(i)
         return {b: idxs for b, idxs in assignment.items() if idxs}
 
-    def _make_batch(self, paths: Sequence[str], rows: list[int], bucket_s: float) -> Batch:
+    def _make_batch(self, paths: Sequence[str], rows: list[int], bucket_s: float,
+                    shard: tuple[int, int] | None = None) -> Batch:
         bsz = self.batch_size_for(bucket_s)
+        if shard is not None:  # data rank d of D: its slice of the padded batch
+            d, n = shard
+            bsz //= n
+            rows = rows[d * bsz: (d + 1) * bsz]
         max_samples = self.bucket_samples(bucket_s)
         batch_paths = [paths[r] for r in rows]
         waves, lengths, ok = decode_batch(batch_paths, target_sr=self.target_sr,
@@ -113,8 +132,15 @@ class BucketBatcher:
         return Batch(paths=batch_paths, rows=list(rows), waves=waves, lengths=lengths,
                      ok=ok, bucket_s=bucket_s, sample_rate=self.target_sr)
 
-    def batches(self, paths: Sequence[str], prefetch: bool = True) -> Iterator[Batch]:
-        """Yield decoded batches, prefetching the next one on a host thread."""
+    def batches(self, paths: Sequence[str], prefetch: bool = True,
+                shard: tuple[int, int] | None = None) -> Iterator[Batch]:
+        """Yield decoded batches, prefetching the next one on a host thread.
+        ``shard=(d, D)``: yield data rank d's rows of each batch, ``bsz / D``
+        of them (``batch_multiple`` must be a multiple of D); a rank whose
+        slice of the last batch is empty gets an all-pad batch."""
+        if shard is not None and self.batch_multiple % shard[1]:
+            raise ValueError(f"batch_multiple {self.batch_multiple} does not split over "
+                             f"{shard[1]} data ranks")
         assignment = self.assign_buckets(paths)
         plan: list[tuple[float, list[int]]] = []
         for bucket_s, idxs in assignment.items():
@@ -127,13 +153,13 @@ class BucketBatcher:
             return
         if not prefetch:
             for bucket_s, rows in plan:
-                yield self._make_batch(paths, rows, bucket_s)
+                yield self._make_batch(paths, rows, bucket_s, shard)
             return
         with ThreadPoolExecutor(max_workers=1) as pool:
-            future = pool.submit(self._make_batch, paths, plan[0][1], plan[0][0])
+            future = pool.submit(self._make_batch, paths, plan[0][1], plan[0][0], shard)
             for nxt in plan[1:]:
                 batch = future.result()
-                future = pool.submit(self._make_batch, paths, nxt[1], nxt[0])
+                future = pool.submit(self._make_batch, paths, nxt[1], nxt[0], shard)
                 yield batch
             yield future.result()
 

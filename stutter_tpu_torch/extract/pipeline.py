@@ -1,4 +1,4 @@
-"""Batched, resumable WavLM and Whisper embedding extraction on one device.
+"""Batched, resumable WavLM and Whisper embedding extraction on one or many devices.
 
 Counterpart of ``stutter_tpu/extract/pipeline.py``: the split loop feeds
 length-bucketed batches through ``WavLMExtractor`` or ``WhisperExtractor``
@@ -14,6 +14,16 @@ pooled embeddings are combined, weighted by each chunk's true frame count
 (``"chunk"``): ``chunked_embeddings`` does one file (the server's long
 clips), ``ExtractionPipeline`` packs the chunks of all long files into the
 same full-size bucket batches.
+
+Given a ``parallel.mesh.MeshPlan`` (``plan=``), the extractors cut the model
+to the rank's tensor-parallel share (``parallel.sharding``), and the
+pipeline runs data-parallel: every rank runs the same batcher over the same
+file list, decodes and encodes only its rows of each batch
+(``parallel.mesh.shard_rows``), and rank 0 gathers the pooled rows over the
+host group and alone writes the store and the checkpoints. A resumed run
+reads the same checkpoint on every rank, after a barrier. Files to chunk are
+decoded on every rank (the chunks of a batch come from several files), each
+rank encoding its rows of each chunk batch.
 """
 
 from __future__ import annotations
@@ -54,6 +64,8 @@ from stutter_tpu_torch.ops.quant import (
     WHISPER_QUANT_KEYS,
     quantize_layer_stack,
 )
+from stutter_tpu_torch.parallel.mesh import MeshPlan, barrier, gather_rows, shard_rows
+from stutter_tpu_torch.parallel.sharding import shard_wavlm, shard_whisper
 
 logger = logging.getLogger("stutter_tpu_torch.extract.pipeline")
 
@@ -117,17 +129,21 @@ class _Extractor:
     """What both extractors share: the device, the preset's cast (and turbo's
     quantization) of the float32 model, and the batch loop's
     submit/collect/warmup. A subclass sets ``column_names`` (the order of
-    ``_encode``'s [S, B, D] result) and defines ``_encode``."""
+    ``_encode``'s [S, B, D] result) and defines ``_encode``. Under a
+    ``plan`` the model is cut to the rank's tensor-parallel share after the
+    cast (turbo quantizes the whole weights first, as the JAX package does),
+    and a batch is this rank's rows of the global batch."""
 
-    mesh = None  # single device: no data or model parallelism in this package
     column_names: list[str]
 
-    def __init__(self, model, device: torch.device | str, preset: str):
+    def __init__(self, model, device: torch.device | str, preset: str,
+                 plan: MeshPlan | None = None):
         if preset not in PRESETS:
             raise ValueError(f"unknown preset {preset!r}; choose from {sorted(PRESETS)}")
         self.cfg = model.cfg
         self.device = resolve_device(device)
         self.preset = preset
+        self.plan = plan
         self._transfer_i16 = PRESETS[preset]["transfer_i16"]
         self.model = cast_for_preset(model, self.device, preset)
 
@@ -176,11 +192,13 @@ class _Extractor:
         return self.collect(self.submit(batch))
 
     def warmup(self, batcher: BucketBatcher) -> int:
-        """Run one silent batch per bucket shape (builds the kernels, warms
-        cuDNN and the allocator); returns the number of buckets run."""
+        """Run one silent batch per bucket shape, at this rank's local batch
+        size (builds the kernels, warms cuDNN and the allocator); returns the
+        number of buckets run."""
         count = 0
+        data = self.plan.data_size if self.plan is not None else 1
         for bucket_s in batcher.buckets_s:
-            B, n = batcher.batch_size_for(bucket_s), batcher.bucket_samples(bucket_s)
+            B, n = batcher.batch_size_for(bucket_s) // data, batcher.bucket_samples(bucket_s)
             t0 = time.perf_counter()
             waves = np.zeros((B, n), np.int16 if self._transfer_i16 else np.float32)
             self._encode(waves, np.ones((B,), np.float32), np.full((B,), n, np.int64)).cpu()
@@ -205,11 +223,13 @@ class WavLMExtractor(_Extractor):
 
     def __init__(self, model: WavLMModel, device: torch.device | str,
                  layer_indices: Sequence[int] | None = None, preset: str = "fidelity",
-                 long_attention: str = "gated", long_min_l: int = LONG_ATTENTION_MIN_L):
+                 long_attention: str = "gated", long_min_l: int = LONG_ATTENTION_MIN_L,
+                 plan: MeshPlan | None = None):
         if long_attention not in self.LONG_ATTENTION:
             raise ValueError(f"long_attention must be one of {self.LONG_ATTENTION}, "
                              f"got {long_attention!r}")
-        super().__init__(model, device, preset)
+        super().__init__(model, device, preset, plan)
+        shard_wavlm(self.model, plan)
         # None: encode's default, the gated kernel wrapper
         self.attention_fn = (materialized_bias_attention(long_min_l)
                              if long_attention == "materialized_bias" else None)
@@ -247,8 +267,10 @@ class WhisperExtractor(_Extractor):
 
     def __init__(self, model: WhisperModel, device: torch.device | str,
                  encoder_indices: Sequence[int] | None = None,
-                 decoder_indices: Sequence[int] | None = None, preset: str = "fidelity"):
-        super().__init__(model, device, preset)
+                 decoder_indices: Sequence[int] | None = None, preset: str = "fidelity",
+                 plan: MeshPlan | None = None):
+        super().__init__(model, device, preset, plan)
+        shard_whisper(self.model, plan)
         cfg = self.cfg
         n_enc, n_dec = cfg.encoder_layers + 1, cfg.decoder_layers + 1
         # reference: the last three hidden states of each
@@ -282,8 +304,8 @@ def chunked_embeddings(extractor, batcher: BucketBatcher, path: str,
     chunk boundaries; for Whisper (its pool over the padding kept) it weighs
     each chunk's padded pool by its real audio.
 
-    The chunk count pads to a multiple of 4 (the JAX package's ``max(
-    batch_multiple, 4)`` on one device), so few batch shapes are seen.
+    The chunk count pads to a multiple of ``max(batch_multiple, 4)``, as in
+    the JAX package, so few batch shapes are seen.
     Returns (column -> combined [D] f32, n_chunks, audio seconds), or None
     when the file does not decode or no chunk has a frame."""
     sr = batcher.target_sr
@@ -293,7 +315,8 @@ def chunked_embeddings(extractor, batcher: BucketBatcher, path: str,
         logger.error("skipping %s (decode failed)", path)
         return None
     n_chunks = max(1, -(-len(wave) // chunk_samples))
-    n_padded = -(-n_chunks // 4) * 4
+    m = max(batcher.batch_multiple, 4)
+    n_padded = -(-n_chunks // m) * m
     waves = np.zeros((n_padded, chunk_samples), np.float32)
     lengths = np.zeros((n_padded,), np.int64)
     for c in range(n_chunks):
@@ -330,7 +353,12 @@ class ExtractionPipeline:
     ``long_file_policy``: files longer than the top bucket keep their first
     top-bucket seconds ("trim", the reference's behaviour) or are embedded
     as top-bucket chunks combined by true frame count ("chunk"; their rows
-    carry a ``chunks`` column)."""
+    carry a ``chunks`` column).
+
+    Under the extractor's ``plan`` the loop is data-parallel (see the
+    module's docstring): the batcher's ``batch_multiple`` must be a multiple
+    of the data size, and ``run_split`` returns the rows on rank 0 and an
+    empty list on the other ranks, once rank 0 has written the store."""
 
     def __init__(self, extractor, batcher: BucketBatcher | None = None,
                  checkpoint_interval: int = 50, long_file_policy: str = "trim"):
@@ -339,10 +367,15 @@ class ExtractionPipeline:
                              f"got {long_file_policy!r}")
         self.long_file_policy = long_file_policy
         self.extractor = extractor
+        self.plan = getattr(extractor, "plan", None)
+        data = self.plan.data_size if self.plan is not None else 1
         if batcher is None:
             batcher = BucketBatcher(
                 buckets_s=getattr(extractor, "preferred_buckets", None) or DEFAULT_BUCKETS_S,
-                frame_align=getattr(extractor, "frame_align", None))
+                batch_multiple=data, frame_align=getattr(extractor, "frame_align", None))
+        if batcher.batch_multiple % data:
+            raise ValueError(f"the batcher's batch_multiple {batcher.batch_multiple} does not "
+                             f"split over {data} data ranks")
         self.batcher = batcher
         self.checkpoint_interval = checkpoint_interval
 
@@ -354,9 +387,11 @@ class ExtractionPipeline:
             logger.warning("no files for split %s", split)
             return []
 
+        plan = self.plan
         results: list[dict] = []
         ckpt_num = 0
         if resume:
+            barrier(plan)  # every rank reads the checkpoint rank 0 wrote last
             latest = find_latest_checkpoint(output_dir, split)
             if latest is not None:
                 results = load_checkpoint(output_dir, split, latest)
@@ -390,24 +425,33 @@ class ExtractionPipeline:
                 since_ckpt = 0
 
         def drain(batch: Batch, handle) -> None:
+            """Store a batch's rows: on rank 0, every data rank's, in order."""
             nonlocal audio_s, since_ckpt
             embeddings = self.extractor.collect(handle)
-            audio_s += batch.audio_seconds
-            for j, row_idx in enumerate(batch.rows):
-                if not batch.ok[j]:
-                    logger.error("skipping %s (decode failed)", batch.paths[j])
-                    continue
-                entry = _store_row(todo[row_idx], split)
-                for col, arr in embeddings.items():
-                    entry[col] = np.asarray(arr[j], np.float32)
-                results.append(entry)
-                since_ckpt += 1
+            n = len(batch.rows)
+            parts = gather_rows(plan, (batch.rows, batch.paths, batch.ok[:n],
+                                       {c: a[:n] for c, a in embeddings.items()},
+                                       batch.audio_seconds))
+            if parts is None:  # not rank 0
+                return
+            for rows, paths, ok, embeddings, seconds in parts:
+                audio_s += seconds
+                for j, row_idx in enumerate(rows):
+                    if not ok[j]:
+                        logger.error("skipping %s (decode failed)", paths[j])
+                        continue
+                    entry = _store_row(todo[row_idx], split)
+                    for col, arr in embeddings.items():
+                        entry[col] = np.asarray(arr[j], np.float32)
+                    results.append(entry)
+                    since_ckpt += 1
             checkpoint_if_due()
 
         # 1-deep: batch i+1 is enqueued on the device before batch i's pooled
         # result is copied back and stored
+        shard = None if plan is None else (plan.data_rank, plan.data_size)
         pending = None
-        for batch in self.batcher.batches([todo[i]["path"] for i in short_rows]):
+        for batch in self.batcher.batches([todo[i]["path"] for i in short_rows], shard=shard):
             batch.rows = [short_rows[r] for r in batch.rows]
             handle = self.extractor.submit(batch)
             if pending is not None:
@@ -426,6 +470,9 @@ class ExtractionPipeline:
 
             self._extract_chunked_rows(todo, long_rows, split, file_done)
 
+        if plan is not None and plan.rank != 0:
+            barrier(plan)  # until rank 0 has written the store
+            return []
         wall = time.perf_counter() - t0
         if wall > 0 and audio_s > 0:
             logger.info("split %s: %d files, %.1f audio-s in %.1f s (%.1fx real-time)",
@@ -442,6 +489,7 @@ class ExtractionPipeline:
                     r["chunks"] = float(r["chunks"])
         save_embeddings(results, output_dir, split,
                         expected_dim=self.extractor.embedding_dim, columns=columns)
+        barrier(plan)
         return results
 
     def _extract_chunked_rows(self, todo: list[dict], long_rows: list[int], split: str,
@@ -451,7 +499,9 @@ class ExtractionPipeline:
         its smallest covering bucket), one batch in flight. Each file's
         pooled chunks are summed in float64, weighted by true frame count, as
         its batches drain; its row goes to ``on_file_done`` when its last
-        chunk lands. Files decode on two host threads, at most four ahead."""
+        chunk lands. Files decode on two host threads, at most four ahead.
+        Under a plan every rank builds the same chunk batches, encodes its
+        rows of each, and rank 0 gathers and combines them."""
         batcher = self.batcher
         sr = batcher.target_sr
         top_samples = batcher.bucket_samples(batcher.buckets_s[-1])
@@ -477,7 +527,10 @@ class ExtractionPipeline:
 
         def drain_one() -> None:
             slots, handle = inflight.pop(0)
-            embeddings = self.extractor.collect(handle)
+            parts = gather_rows(self.plan, self.extractor.collect(handle))
+            if parts is None:  # not rank 0
+                return
+            embeddings = {col: np.concatenate([p[col] for p in parts]) for col in parts[0]}
             for slot, (row_idx, w) in enumerate(slots):
                 a = acc[row_idx]
                 if w > 0:
@@ -502,8 +555,10 @@ class ExtractionPipeline:
                 waves[s, :n] = seg[:n]
                 lengths[s] = n
                 slots.append((row_idx, float(max(0, self.extractor.frame_count(n)))))
-            batch = Batch(paths=[todo[r]["path"] for r in rows], rows=list(rows), waves=waves,
-                          lengths=lengths, ok=np.arange(bsz) < len(segs), bucket_s=bucket_s,
+            mine = shard_rows(self.plan, bsz)  # this rank's rows of the batch
+            batch = Batch(paths=[todo[r]["path"] for r in rows][mine], rows=list(rows)[mine],
+                          waves=waves[mine], lengths=lengths[mine],
+                          ok=(np.arange(bsz) < len(segs))[mine], bucket_s=bucket_s,
                           sample_rate=sr)
             inflight.append((slots, self.extractor.submit(batch)))
             while len(inflight) > 1:  # 1-deep: drain the previous batch

@@ -59,6 +59,7 @@ from stutter_tpu_torch.ops.wavlm_stem import (
     pack_stem_weights,
     wavlm_fused_stem,
 )
+from stutter_tpu_torch.parallel.collectives import copy_to_model
 
 REMAT_MODES = (None, "layer", "nothing")
 LONG_ATTENTION_MIN_L = 1008  # the JAX package's STUTTER_TPU_LONG_ATTENTION_MIN_L default
@@ -314,12 +315,20 @@ class PosConvEmbedding(nn.Module):
 
 class GatedRelPosAttention(nn.Module):
     """One gated relative-position-bias MHA. Weights are [out, in]; the GRU
-    gate projects each head's input to 8 values summed 2x4."""
+    gate projects each head's input to 8 values summed 2x4.
+
+    Under tensor parallelism (``parallel.sharding.shard_wavlm``) the module
+    holds ``heads`` heads from ``head_offset`` on: q, k and v their rows, o
+    their columns, and ``tp_group`` is the model group. The gate weights and
+    ``gru_const`` stay whole: the rank gates its heads from their columns of
+    the layer input and their entries of ``gru_const``."""
 
     def __init__(self, cfg: WavLMConfig, device=None, dtype=torch.float32):
         super().__init__()
         self.heads = cfg.num_attention_heads
         self.head_dim = cfg.head_dim
+        self.head_offset = 0
+        self.tp_group = None
         D = cfg.hidden_size
         for name in ("q", "k", "v", "o"):
             setattr(self, f"{name}_w", param((D, D), device, dtype))
@@ -330,13 +339,16 @@ class GatedRelPosAttention(nn.Module):
 
     def forward(self, x, position_bias, key_mask_bias, attention_fn):
         B, L, D = x.shape
-        H, hd = self.heads, self.head_dim
-        # gate from the raw head inputs, projected in [B, L, H, hd] layout
-        proj = F.linear(x.view(B, L, H, hd), self.gru_w, self.gru_b)
+        H, hd, h0, group = self.heads, self.head_dim, self.head_offset, self.tp_group
+        x = copy_to_model(x, group)
+        gru_w, gru_b, gru_const = (copy_to_model(t, group)
+                                   for t in (self.gru_w, self.gru_b, self.gru_const))
+        # gate from this rank's heads' raw inputs, projected in [B, L, H, hd] layout
+        proj = F.linear(x.view(B, L, D // hd, hd)[:, :, h0:h0 + H], gru_w, gru_b)
         proj = proj.view(B, L, H, 2, 4).sum(-1)
         gates = torch.sigmoid(proj.float().permute(0, 2, 1, 3))
         gate_a, gate_b = gates[..., 0], gates[..., 1]  # [B, H, L]
-        const = self.gru_const.float().view(1, H, 1)
+        const = gru_const[h0:h0 + H].float().view(1, H, 1)
         gate = (gate_a * (gate_b * const - 1.0) + 2.0).contiguous()
 
         def heads(t):  # [B, L, D] -> a [B, H, L, hd] view
@@ -347,11 +359,14 @@ class GatedRelPosAttention(nn.Module):
         v = linear(x, self.v_w, self.v_b).to(x.dtype)
         out = attention_fn(heads(q), heads(k), heads(v), position_bias, gate,
                            key_mask_bias)
-        out = out.transpose(1, 2).reshape(B, L, D)
-        return linear(out, self.o_w, self.o_b).to(x.dtype)
+        out = out.transpose(1, 2).reshape(B, L, H * hd)
+        return linear(out, self.o_w, self.o_b, group).to(x.dtype)
 
 
 class FeedForward(nn.Module):
+    """GELU MLP; under tensor parallelism w1 keeps this rank's rows, w2 its
+    columns, and ``tp_group`` is the model group."""
+
     def __init__(self, cfg: WavLMConfig, device=None, dtype=torch.float32):
         super().__init__()
         D, Fd = cfg.hidden_size, cfg.intermediate_size
@@ -359,10 +374,12 @@ class FeedForward(nn.Module):
         self.b1 = param((Fd,), device, dtype)
         self.w2 = param((D, Fd), device, dtype)
         self.b2 = param((D,), device, dtype)
+        self.tp_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = copy_to_model(x, self.tp_group)
         h = gelu(linear(x, self.w1, self.b1).to(x.dtype))
-        return linear(h, self.w2, self.b2).to(x.dtype)
+        return linear(h, self.w2, self.b2, self.tp_group).to(x.dtype)
 
 
 class EncoderLayer(nn.Module):
@@ -420,11 +437,19 @@ class WavLMModel(nn.Module):
         # parameter tree converts without loss
         self.masked_spec_embed = param((D,), device, dtype)
         self._buckets: dict[tuple[int, torch.device], torch.Tensor] = {}
+        # under tensor parallelism: this rank's heads [start, stop) and the
+        # model group (parallel.sharding.shard_wavlm)
+        self.head_range = (0, H)
+        self.tp_group = None
 
     def position_bias(self, seq_len: int, table: torch.Tensor | None = None) -> torch.Tensor:
         """[H, L, L] f32 bias from the bucket embedding table (``table``
-        replaces ``rel_attn_embed``)."""
+        replaces ``rel_attn_embed``); under tensor parallelism the rank's
+        heads' planes, contiguous."""
         table = self.rel_attn_embed if table is None else table
+        if self.tp_group is not None:
+            start, stop = self.head_range
+            table = copy_to_model(table, self.tp_group)[:, start:stop]
         key = (seq_len, table.device)
         if key not in self._buckets:
             cfg = self.cfg

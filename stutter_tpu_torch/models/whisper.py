@@ -28,7 +28,9 @@ The activation dtype is the parameters' dtype: f32 for the fidelity preset,
 bf16 (the whole parameter set cast, embeddings included) for the fast preset.
 The projections go through ``ops.quant.linear``, which takes the turbo
 presets' int8 weights (the encoder's; the decoder stays in the activation
-dtype, as in JAX).
+dtype, as in JAX). Under tensor parallelism (``parallel.sharding``) the
+attention and FFN blocks hold their rank's heads and channels; Whisper is
+inference only here, so its blocks need only the forward's all-reduce.
 """
 
 from __future__ import annotations
@@ -131,11 +133,18 @@ def sinusoids(length: int, channels: int) -> np.ndarray:
 
 class WhisperAttention(nn.Module):
     """One MHA's projections ([out, in] weights; k_proj has no bias) and the
-    three ways Whisper uses them."""
+    three ways Whisper uses them.
+
+    Under tensor parallelism (``parallel.sharding.shard_whisper``) the module
+    holds ``heads`` of the heads: q, k and v their rows, o their columns,
+    and ``tp_group`` is the model group, over which the o product's partial
+    sums are added (its bias once, after the sum)."""
 
     def __init__(self, d_model: int, heads: int, device=None, dtype=torch.float32):
         super().__init__()
         self.heads = heads
+        self.head_dim = d_model // heads
+        self.tp_group = None
         D = d_model
         self.q_w, self.q_b = param((D, D), device, dtype), param((D,), device, dtype)
         self.k_w = param((D, D), device, dtype)
@@ -144,9 +153,8 @@ class WhisperAttention(nn.Module):
 
     def self_attention(self, x: torch.Tensor, attention_fn) -> torch.Tensor:
         """Non-causal self-attention over all of x [B, L, D] (the encoder's)."""
-        B, L, D = x.shape
-        H = self.heads
-        hd = D // H
+        B, L, _ = x.shape
+        H, hd = self.heads, self.head_dim
         q = (linear(x, self.q_w, self.q_b) * hd**-0.5).to(x.dtype)
         k = linear(x, self.k_w).to(x.dtype)
         v = linear(x, self.v_w, self.v_b).to(x.dtype)
@@ -155,14 +163,14 @@ class WhisperAttention(nn.Module):
             return t.view(B, L, H, hd).transpose(1, 2)
 
         out = attention_fn(heads(q), heads(k), heads(v))
-        out = out.transpose(1, 2).reshape(B, L, D)
-        return linear(out, self.o_w, self.o_b).to(x.dtype)
+        out = out.transpose(1, 2).reshape(B, L, H * hd)
+        return linear(out, self.o_w, self.o_b, self.tp_group).to(x.dtype)
 
     def single_token(self, x: torch.Tensor) -> torch.Tensor:
         """Causal self-attention of one token [B, 1, D]: the softmax over its
         only key is 1, so the context is its v exactly."""
         v = linear(x, self.v_w, self.v_b).to(x.dtype)
-        return linear(v, self.o_w, self.o_b).to(x.dtype)
+        return linear(v, self.o_w, self.o_b, self.tp_group).to(x.dtype)
 
     def cross_one_query(self, x: torch.Tensor, enc: torch.Tensor,
                         enc_f32: torch.Tensor) -> torch.Tensor:
@@ -175,8 +183,7 @@ class WhisperAttention(nn.Module):
         product is needed. The head-side products run in f32; the two
         L-wide products take the activation-dtype operands upcast to f32."""
         B, _, D = x.shape
-        H = self.heads
-        hd = D // H
+        H, hd = self.heads, self.head_dim
         q = (F.linear(x.float(), self.q_w.float()) + self.q_b.float()) * hd**-0.5
         qh = q.view(B, H, hd)
         # fold the key projection into the query: qt[b, h, :] = q_h Wk_h^T
@@ -186,20 +193,24 @@ class WhisperAttention(nn.Module):
         ctx = torch.matmul(probs.to(enc.dtype).float(), enc_f32)  # [B, H, D]
         out = torch.einsum("bhD,hdD->bhd", ctx, self.v_w.float().view(H, hd, D))
         out = out + self.v_b.float().view(H, hd)[None]
-        out = out.reshape(B, 1, D).to(x.dtype)
-        return linear(out, self.o_w, self.o_b).to(x.dtype)
+        out = out.reshape(B, 1, H * hd).to(x.dtype)
+        return linear(out, self.o_w, self.o_b, self.tp_group).to(x.dtype)
 
 
 class FeedForward(nn.Module):
+    """GELU MLP; under tensor parallelism fc1 keeps this rank's rows, fc2
+    its columns, and ``tp_group`` is the model group."""
+
     def __init__(self, cfg: WhisperConfig, device=None, dtype=torch.float32):
         super().__init__()
         D, Fd = cfg.d_model, cfg.ffn_dim
         self.fc1_w, self.fc1_b = param((Fd, D), device, dtype), param((Fd,), device, dtype)
         self.fc2_w, self.fc2_b = param((D, Fd), device, dtype), param((D,), device, dtype)
+        self.tp_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = gelu(linear(x, self.fc1_w, self.fc1_b).to(x.dtype))
-        return linear(h, self.fc2_w, self.fc2_b).to(x.dtype)
+        return linear(h, self.fc2_w, self.fc2_b, self.tp_group).to(x.dtype)
 
 
 def _norms(module: nn.Module, names, D: int, device, dtype) -> None:

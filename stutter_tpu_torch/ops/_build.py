@@ -124,13 +124,17 @@ def build() -> tuple[Path, float]:
             if proc.returncode != 0:
                 raise RuntimeError(f"kernel build failed ({' '.join(cmd)}):\n{out}")
             report.append(out)
-        resource_report_path(lib).write_text("".join(report))
+        report_tmp = tmp.with_name(f"{tmp.name}.ptxas.txt")
+        report_tmp.write_text("".join(report))
         cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
                 f"kernel link failed ({' '.join(cmd)}):\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, lib)  # atomic: a concurrent build sees a whole library
+        # atomic, the report first: a concurrent build or reader sees a whole
+        # report beside a whole library
+        os.replace(report_tmp, resource_report_path(lib))
+        os.replace(tmp, lib)
     finally:
         for _, proc in procs:  # on a failure, stop the compilers still running
             if proc.poll() is None:
@@ -138,6 +142,7 @@ def build() -> tuple[Path, float]:
                 proc.wait()
         for obj in objs:
             obj.unlink(missing_ok=True)
+        tmp.with_name(f"{tmp.name}.ptxas.txt").unlink(missing_ok=True)
     return lib, time.perf_counter() - t0
 
 

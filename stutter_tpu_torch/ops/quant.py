@@ -22,6 +22,12 @@ of 8 and, in some builds, more than 16 rows; fewer rows are padded with zero
 rows, which is exact, and sliced off. ``qdot.calls`` counts the int8
 products on every device.
 
+Under tensor parallelism (``group``) a row-parallel product holds a slice
+of the contraction axis on each rank: the per-token absmax is all-reduced
+(MAX) over the model group before quantising, and the int32 accumulators
+are summed over it, exactly, so they equal the whole product's, as under the
+JAX package's GSPMD.
+
 Not ported yet: ``qdot_asym``/``dense_asym`` (no production caller),
 ``qdot_ste`` (the fine-tuning ``int8_forward``) and ``quantize_conv_weight``
 (the int8-stem experiment).
@@ -29,11 +35,21 @@ Not ported yet: ``qdot_asym``/``dense_asym`` (no production caller),
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from stutter_tpu_torch.ops.precision import tf32
+from stutter_tpu_torch.parallel.collectives import (
+    all_reduce_max,
+    all_reduce_sum,
+    reduce_from_model,
+)
+
 _MIN_ROWS = 17  # torch._int_mm's row minimum on CUDA
+_HALF = (torch.bfloat16, torch.float16)
 
 # The per-layer weights turbo quantizes, under the port's parameter names:
 # WavLM's q_w, k_w, v_w, o_w, ff_w1, ff_w2, and the Whisper encoder's
@@ -73,14 +89,34 @@ def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a, b)[:M]
 
 
-def qdot(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """x [..., K] (bf16/f32) against an int8 weight q [N, K] with scales s
-    [N] -> f32 [..., N]."""
+def quantize_activations(x: torch.Tensor, group=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [..., K] -> (int8 [..., K], f32 per-token scale [..., 1]). Under
+    tensor parallelism (``group``) x is this rank's slice of the contraction
+    axis, and the absmax is taken over the whole axis: the slices' maxima are
+    all-reduced (MAX) over the group first."""
     xf = x.float()
-    st = (xf.abs().amax(dim=-1, keepdim=True) / 127.0).clamp_min(1e-8)
-    xq = torch.clamp(torch.round(xf / st), -127, 127).to(torch.int8)
+    amax = all_reduce_max(xf.abs().amax(dim=-1, keepdim=True), group)
+    st = (amax / 127.0).clamp_min(1e-8)
+    return torch.clamp(torch.round(xf / st), -127, 127).to(torch.int8), st
+
+
+def qdot_accumulators(x: torch.Tensor, q: torch.Tensor,
+                      group=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(int32 accumulators [..., N], per-token scale [..., 1]) of x against
+    q [N, K]. With ``group`` (a row-parallel product: x and q hold this
+    rank's slice of K) the int32 partial sums are all-reduced over the group,
+    which is exact: the accumulators equal the whole product's."""
+    xq, st = quantize_activations(x, group)
     K, N = q.shape[1], q.shape[0]
     acc = int_mm(xq.reshape(-1, K), q.t()).view(*x.shape[:-1], N)
+    return all_reduce_sum(acc, group), st
+
+
+def qdot(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, group=None) -> torch.Tensor:
+    """x [..., K] (bf16/f32) against an int8 weight q [N, K] with scales s
+    [N] -> f32 [..., N]; ``group`` as in ``qdot_accumulators`` (s is then
+    whole)."""
+    acc, st = qdot_accumulators(x, q, group)
     qdot.calls += 1
     return acc.float() * st * s
 
@@ -88,13 +124,28 @@ def qdot(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 qdot.calls = 0
 
 
-def linear(x: torch.Tensor, w, b: torch.Tensor | None = None) -> torch.Tensor:
+def linear(x: torch.Tensor, w, b: torch.Tensor | None = None, group=None) -> torch.Tensor:
     """x @ w^T (+ b): the int8 path for a ``QuantizedWeight`` (cast to x's
-    dtype, then the bias added), else ``F.linear``."""
+    dtype, then the bias added), else ``F.linear``.
+
+    ``group`` makes it a row-parallel product of tensor parallelism: x holds
+    this rank's slice of the features and w the matching columns. The
+    partial products are summed over the group before the bias, which is
+    whole and added once: the int8 path's int32 accumulators exactly, the
+    float path's f32 partials, then the bias in f32 and one cast to x's
+    dtype. The float partials are f32 products of the upcast operands; bf16
+    or f16 operands are exact in TF32, so that product takes the tensor
+    cores (``tf32``), where f32 operands keep full f32."""
     if isinstance(w, QuantizedWeight):
-        y = qdot(x, w.q, w.s).to(x.dtype)
+        y = qdot(x, w.q, w.s, group).to(x.dtype)
         return y if b is None else y + b
-    return F.linear(x, w, b)
+    if group is None:
+        return F.linear(x, w, b)
+    half = x.dtype in _HALF and w.dtype in _HALF
+    with tf32() if half else contextlib.nullcontext():
+        y = F.linear(x.float(), w.float())
+    y = reduce_from_model(y, group)
+    return (y if b is None else y + b.float()).to(x.dtype)
 
 
 def quantize_layer_stack(layers, keys: tuple[str, ...]) -> None:

@@ -46,11 +46,14 @@ class ServingClassifier:
         self.class_names = [str(c) for c in class_names] if class_names else None
 
     @classmethod
-    def load(cls, model_path: str, device="cpu") -> "ServingClassifier":
-        """Load a ``save_model`` file (a head onto ``device``); the sidecar
-        gives the layer and the labels."""
+    def load(cls, model_path: str, device="cuda") -> "ServingClassifier":
+        """Load a ``save_model`` file (a head onto ``device``, a card unless
+        the caller names the CPU); the sidecar gives the layer and the
+        labels."""
+        from stutter_tpu_torch.extract.pipeline import resolve_device
         from stutter_tpu_torch.train.persistence import load_model
 
+        device = resolve_device(device)
         if not model_path.endswith((".npz", ".pkl")):
             raise ValueError(
                 f"{model_path}: this package reads the models its trainer writes, "

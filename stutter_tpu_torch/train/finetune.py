@@ -15,6 +15,14 @@ f32 statistics, as in JAX. Every attention call goes forward through the CUDA
 kernel and backward through the backward kernels on the card
 (``ops.wavlm_attention.GatedRelPosAttentionFn``), and through their plain
 versions on the CPU.
+
+Data parallelism (``FinetuneTrainer(plan=...)``): each rank takes its rows of
+every batch, differentiates their un-normalised loss sum, and the gradient
+sums, the weight mass, the hits and the valid counts are all-reduced over
+the data group before the one division: the JAX package's global weighted
+mean, not a mean of per-rank means. Under a model axis the weights are
+replicated on it (the JAX CLI's layout), unless ``tensor_parallel`` cuts
+the backbone to the rank's Megatron share (``dryrun_multichip``).
 """
 
 from __future__ import annotations
@@ -26,12 +34,16 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
+from stutter_tpu_torch.extract.pipeline import resolve_device
 from stutter_tpu_torch.frontend.wavlm_frontend import wavlm_prepare_batch
 from stutter_tpu_torch.models.wavlm import WavLMConfig, WavLMModel
 from stutter_tpu_torch.ops.precision import no_tf32
 from stutter_tpu_torch.ops.specaugment import spec_augment
+from stutter_tpu_torch.parallel.mesh import MeshPlan
+from stutter_tpu_torch.parallel.sharding import shard_wavlm
 from stutter_tpu_torch.train.heads import (
     HeadConfig,
     MLPHead,
@@ -130,11 +142,13 @@ class FinetuneModel(nn.Module):
 
 
 def init_finetune_model(cfg: FinetuneConfig, backbone: WavLMModel | None = None,
-                        device: torch.device | str = "cpu") -> FinetuneModel:
+                        device: torch.device | str = "cuda") -> FinetuneModel:
     """Random backbone from ``init_wavlm`` (seed ``cfg.seed``) unless one is
-    given, zero layer weights, He-normal head (seed ``cfg.seed + 1``)."""
+    given, zero layer weights, He-normal head (seed ``cfg.seed + 1``), on
+    ``device`` (a card unless the caller names the CPU)."""
     from stutter_tpu_torch.weights.convert import init_wavlm
 
+    device = resolve_device(device)
     if backbone is None:
         backbone = init_wavlm(cfg.model, torch.Generator().manual_seed(cfg.seed))
     model = FinetuneModel(cfg, backbone.to(device=device, dtype=torch.float32))
@@ -182,37 +196,53 @@ def finetune_forward(model: FinetuneModel, waves: torch.Tensor, lengths: torch.T
 
 
 class FinetuneTrainer:
-    """Fine-tuning on one device over padded (waves, lengths, labels, valid)
-    batches: ``step`` (one batch), ``step_accum`` (K same-shape microbatches,
-    one update) and ``predict``.
+    """Fine-tuning over padded (waves, lengths, labels, valid) batches:
+    ``step`` (one batch), ``step_accum`` (K same-shape microbatches, one
+    update) and ``predict``, on ``device`` (a card unless the caller names
+    the CPU).
 
     ``params`` (a ``FinetuneModel`` state dict, e.g. from
     ``weights.convert.finetune_params_from_numpy``) sets every weight;
     otherwise ``backbone`` (an f32 ``WavLMModel``) or a seeded random one,
     with a seeded head. ``attention_fn`` replaces the attention core (the
-    on-card comparison with the plain path)."""
+    on-card comparison with the plain path).
+
+    ``plan`` makes it data-parallel: every rank calls ``step`` and
+    ``step_accum`` in the same order with its rows of each batch
+    (``parallel.mesh.shard_rows``), and takes the same update, from gradients
+    summed over the data group. ``tensor_parallel`` cuts the backbone to the
+    rank's share on the plan's model group; without it the model axis
+    replicates the weights. Dropout and SpecAugment draw from a generator
+    seeded per data rank."""
 
     def __init__(self, cfg: FinetuneConfig, backbone: WavLMModel | None = None,
-                 device: torch.device | str = "cpu", grad_accum: int = 1,
-                 params: dict[str, torch.Tensor] | None = None, attention_fn=None):
+                 device: torch.device | str = "cuda", grad_accum: int = 1,
+                 params: dict[str, torch.Tensor] | None = None, attention_fn=None,
+                 plan: MeshPlan | None = None, tensor_parallel: bool = False):
         cfg.check_supported()
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.grad_accum = int(grad_accum)
         self.attention_fn = attention_fn
+        self.plan = plan
         if params is not None:
             self.model = FinetuneModel(cfg, WavLMModel(cfg.model, device="meta"))
             self.model = self.model.to_empty(device=self.device)
             self.model.load_state_dict(params, strict=True)
         else:
             self.model = init_finetune_model(cfg, backbone, self.device)
+        if tensor_parallel:
+            shard_wavlm(self.model.backbone, plan)
         self.params = dict(self.model.named_parameters())
         self.opt = MultiAdamW(
             self.params, {n: param_label(n, cfg) for n in self.params},
             {"backbone": cfg.backbone_lr, "head": cfg.head_lr}, cfg.weight_decay,
             mu_dtype=cfg.mu_dtype)
-        # dropout and SpecAugment draw on the device they run on
-        self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
+        # dropout and SpecAugment draw on the device they run on, one stream
+        # per data rank (a model group's ranks draw alike)
+        data_rank = plan.data_rank if plan is not None else 0
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            cfg.seed + 1 + data_rank)
 
     def _precision(self):
         f32 = self.device.type == "cuda" and self.cfg.activation_dtype == torch.float32
@@ -245,7 +275,8 @@ class FinetuneTrainer:
         weighted mean, differentiated through the cast (``make_train_step``).
         Otherwise each microbatch's un-normalised loss sum is differentiated
         with respect to the step's cast, those gradients are summed in f32 and
-        normalised once by the total weight mass (``_make_accum_train_step``)."""
+        normalised once by the total weight mass (``_make_accum_train_step``);
+        under a plan the sums are first added up over the data group."""
         cfg = self.cfg
         cw = self._to_device(class_weights, np.float32)
         trained = self.opt.trained
@@ -282,9 +313,25 @@ class FinetuneTrainer:
                 h, nv = self._accuracy_parts(logits.detach(), y, v)
                 loss_sum, w_sum = loss_sum + ls.detach(), w_sum + ws.detach()
                 hits, n_valid = hits + h, n_valid + nv
+            if self.plan is not None:
+                g_sum, (loss_sum, w_sum, hits, n_valid) = self._sum_over_data(
+                    g_sum, (loss_sum, w_sum, hits, n_valid))
             denom = torch.clamp(w_sum, min=1e-9)
             return ({n: g / denom for n, g in g_sum.items()}, loss_sum / denom,
                     hits / torch.clamp(n_valid, min=1.0))
+
+    def _sum_over_data(self, grads: dict, scalars: tuple):
+        """Gradient sums and scalar sums added up over the data group, in one
+        all-reduce of one flat f32 buffer."""
+        names = list(grads)
+        flat = torch.cat([grads[n].reshape(-1) for n in names] + [torch.stack(scalars)])
+        dist.all_reduce(flat, group=self.plan.data_group)
+        out, at = {}, 0
+        for n in names:
+            size = grads[n].numel()
+            out[n] = flat[at: at + size].view_as(grads[n])
+            at += size
+        return out, tuple(flat[at:])
 
     def _finish(self, loss, acc, sync: bool):
         aux = {"loss": loss, "accuracy": acc}
@@ -292,9 +339,12 @@ class FinetuneTrainer:
 
     def step(self, waves, lengths, labels, class_weights, valid=None, sync: bool = True):
         """One training step on one batch. sync=True returns host floats;
-        sync=False returns the device tensors without waiting for them."""
+        sync=False returns the device tensors without waiting for them. Under
+        a plan the step takes the summed path of ``step_accum`` (one
+        microbatch), whose sums the data group adds up."""
         batch = self._tensors(waves, lengths, labels, valid)
-        grads, loss, acc = self.gradients([batch], class_weights, normalize_in_graph=True)
+        grads, loss, acc = self.gradients([batch], class_weights,
+                                          normalize_in_graph=self.plan is None)
         self.opt.step(self.params, grads)
         return self._finish(loss, acc, sync)
 

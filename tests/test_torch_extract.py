@@ -245,15 +245,17 @@ def test_cli_random_init_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [[], ["--random_init", "--long_files", "chunk"],
-                                   ["--random_init", "--devices", "2"],
+                                   ["--random_init", "--devices", "2", "--tp", "3"],
                                    ["--random_init", "--verify_model"]])
 def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, caplog, extra):
-    """The multi-device flags still raise. What used to raise now runs: a hub
-    name raises OSError naming a local checkpoint directory (no download),
-    --long_files chunk writes the long rows, --verify_model logs and runs."""
+    """A layout of the multi-device flags that does not divide raises. What
+    used to raise now runs: a hub name raises OSError naming a local
+    checkpoint directory (no download), --long_files chunk writes the long
+    rows, --verify_model logs and runs (--devices 2 runs in
+    tests/test_torch_parallel.py)."""
     out = str(tmp_path / "o")
     if "--devices" in extra:
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
+        with pytest.raises(ValueError, match="mesh"):
             cli.main(["--data_dir", str(tmp_path), "--output_dir", out, *extra])
         return
     if not extra:
@@ -319,6 +321,8 @@ def test_port_imports_neither_jax_nor_pandas():
         "import stutter_tpu_torch.serve.combined, stutter_tpu_torch.serve.http\n"
         "import stutter_tpu_torch.cli.serve, stutter_tpu_torch.cli.predict\n"
         "import stutter_tpu_torch.cli.train, stutter_tpu_torch.cli.train_grid\n"
+        "import stutter_tpu_torch.parallel.mesh, stutter_tpu_torch.parallel.sharding\n"
+        "import stutter_tpu_torch.parallel.collectives, stutter_tpu_torch.parallel.dryrun\n"
         "forbidden = ('jax', 'pandas', 'optax', 'orbax', 'joblib', 'stutter_tpu', 'sklearn',\n"
         "             'transformers', 'safetensors')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in forbidden]\n"

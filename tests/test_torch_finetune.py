@@ -89,7 +89,7 @@ def _pair(mcfg, dtype="f32", grad_accum=1, **kw):
     jcfg, tcfg = _configs(mcfg, dtype, **kw)
     jt = jft.FinetuneTrainer(jcfg, grad_accum=grad_accum)
     tree = jax.tree.map(np.asarray, jt.params)
-    tt = FinetuneTrainer(tcfg, params=finetune_params_from_numpy(tree, mcfg),
+    tt = FinetuneTrainer(tcfg, device="cpu", params=finetune_params_from_numpy(tree, mcfg),
                          grad_accum=grad_accum)
     return jt, tt, tree
 
@@ -139,8 +139,8 @@ def test_grad_accum_matches_big_batch(rng):
     cw = np.array([1.0, 2.0, 0.5], np.float32)
     mb1, mb2 = _batch(rng), _batch(rng)
     big = tuple(np.concatenate([a, b]) for a, b in zip(mb1, mb2))
-    accum = FinetuneTrainer(cfg, grad_accum=2)
-    ref = FinetuneTrainer(cfg)
+    accum = FinetuneTrainer(cfg, device="cpu", grad_accum=2)
+    ref = FinetuneTrainer(cfg, device="cpu")
     aux_a = accum.step_accum([mb1, mb2], cw)
     aux_r = ref.step(*big[:3], cw, valid=big[3])
     np.testing.assert_allclose(aux_a["loss"], aux_r["loss"], atol=1e-5)
@@ -150,8 +150,9 @@ def test_grad_accum_matches_big_batch(rng):
         tol = 2.1 * cfg.backbone_lr if k.endswith("attention.k_b") else 5e-5
         torch.testing.assert_close(a[k], r[k], rtol=0, atol=tol, msg=k)
 
-    padded = FinetuneTrainer(cfg, grad_accum=3)  # a short group, padded with valid=0
-    exact = FinetuneTrainer(cfg, grad_accum=2)
+    # a short group, padded with valid=0
+    padded = FinetuneTrainer(cfg, device="cpu", grad_accum=3)
+    exact = FinetuneTrainer(cfg, device="cpu", grad_accum=2)
     aux_p = padded.step_accum([mb1, mb2], cw)
     aux_e = exact.step_accum([mb1, mb2], cw)
     np.testing.assert_allclose(aux_p["loss"], aux_e["loss"], atol=1e-6)
@@ -164,7 +165,7 @@ def test_grad_accum_matches_big_batch(rng):
 
 def test_freeze_backbone_trains_only_the_head(rng):
     _, cfg = _configs(_tiny(), freeze_backbone=True)
-    trainer = FinetuneTrainer(cfg)
+    trainer = FinetuneTrainer(cfg, device="cpu")
     before = {k: v.clone() for k, v in trainer.state_dict().items()}
     waves, lengths, labels, valid = _batch(rng)
     trainer.step(waves, lengths, labels, np.ones(3, np.float32), valid=valid)
@@ -201,7 +202,7 @@ def large_two_layers():
                                             valid=jnp.asarray(valid))
 
     loss_j, grads_j = jax.value_and_grad(loss)(params)
-    trainer = FinetuneTrainer(tcfg, params=finetune_params_from_numpy(tree, mcfg))
+    trainer = FinetuneTrainer(tcfg, device="cpu", params=finetune_params_from_numpy(tree, mcfg))
     batch = trainer._tensors(waves, lengths, labels, valid)
     grads_t, loss_t, _ = trainer.gradients([batch], cw, normalize_in_graph=True)
     state = {n: torch.zeros_like(p) for n, p in trainer.state_dict().items()}
@@ -354,16 +355,16 @@ def test_checkpoint_round_trip_and_resume_equals_uninterrupted(rng, tmp_path):
     _, cfg = _configs(_tiny())
     cw = np.ones(3, np.float32)
     b1, b2 = _batch(rng), _batch(rng)
-    straight = FinetuneTrainer(cfg)
+    straight = FinetuneTrainer(cfg, device="cpu")
     for b in (b1, b2):
         straight.step(*b[:3], cw, valid=b[3])
 
-    first = FinetuneTrainer(cfg)
+    first = FinetuneTrainer(cfg, device="cpu")
     first.step(*b1[:3], cw, valid=b1[3])
     ckpt = str(tmp_path / "ckpt")
     save_train_state(ckpt, 1, first.state_dict(), first.opt.state_dict())
     assert latest_step(ckpt) == 1 and os.path.isdir(os.path.join(ckpt, "step_00000001"))
-    resumed = FinetuneTrainer(cfg)
+    resumed = FinetuneTrainer(cfg, device="cpu")
     params, opt_state, step = restore_train_state(ckpt, 1, resumed.state_dict(),
                                                   resumed.opt.state_dict())
     assert step == 1
@@ -421,11 +422,11 @@ def test_cli_on_cpu_with_checkpoint_resume_and_grad_accum(corpus, tmp_path, monk
 
 @pytest.mark.parametrize("extra", [[], ["--random_init", "--int8_forward"],
                                    ["--random_init", "--remat_policy", "layer_dots"],
-                                   ["--random_init", "--devices", "2"]])
+                                   ["--random_init", "--remat_policy", "dots"]])
 def test_cli_refuses_what_is_not_ported(tmp_path, extra):
-    """int8_forward, the unported remat policies and the multi-device flags
-    raise; without --random_init a hub name raises OSError naming a local
-    checkpoint directory (no download)."""
+    """int8_forward and the unported remat policies raise; without
+    --random_init a hub name raises OSError naming a local checkpoint
+    directory (no download). (--devices 2 runs: tests/test_torch_parallel.py.)"""
     argv = ["--data_dir", str(tmp_path), "--results_dir", str(tmp_path / "r"), *extra]
     if not extra:
         with pytest.raises(OSError, match="local checkpoint directory"):

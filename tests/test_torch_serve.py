@@ -337,18 +337,18 @@ def test_sidecar_contract_and_load(model_path, extractor, tmp_path):
     with open(sidecar_path(model_path)) as f:
         info = json.load(f)
     assert info["class_names"] == CLASS_NAMES and info["layer"] == extractor.column_names[0]
-    clf = ServingClassifier.load(model_path)
+    clf = ServingClassifier.load(model_path, device="cpu")
     assert clf.layer == extractor.column_names[0] and clf.class_names == CLASS_NAMES
     assert isinstance(clf.estimator, HeadClassifier)
     joblib_path = str(tmp_path / "wavlm_layer_2_svm_model.joblib")
     with pytest.raises(ValueError, match=r"_model\.npz .*_model\.pkl"):
-        ServingClassifier.load(joblib_path)
+        ServingClassifier.load(joblib_path, device="cpu")
 
 
 @pytest.mark.parametrize("kind", ["npz", "pkl"])
 def test_predict_rows_labels_and_probs(model_path, tmp_path, kind):
     path = model_path if kind == "npz" else _sklearn_artifact(tmp_path, "layer_2", 32)
-    clf = ServingClassifier.load(path)
+    clf = ServingClassifier.load(path, device="cpu")
     X = np.random.RandomState(1).randn(5, 32).astype(np.float32)
     labels, probs = clf.predict_rows(X)
     assert labels == [CLASS_NAMES[int(i)] for i in load_model(path, device="cpu").predict(X)]
@@ -358,7 +358,7 @@ def test_predict_rows_labels_and_probs(model_path, tmp_path, kind):
 
 
 def test_server_classifies_responses(corpus, extractor, model_path):
-    clf = ServingClassifier.load(model_path)
+    clf = ServingClassifier.load(model_path, device="cpu")
     _, responses = _serve(extractor, corpus, classifier=clf, max_wait_s=0.05)
     assert len(responses) == len(corpus)
     reference = load_model(model_path, device="cpu")
@@ -370,14 +370,14 @@ def test_server_classifies_responses(corpus, extractor, model_path):
 
 
 def test_server_rejects_mismatched_layer(extractor, model_path):
-    clf = ServingClassifier.load(model_path)
+    clf = ServingClassifier.load(model_path, device="cpu")
     clf.layer = "layer_does_not_exist"
     with pytest.raises(ValueError, match="trained on column"):
         EmbeddingServer(extractor, classifier=clf)
 
 
 def test_classification_failure_still_ships_embeddings(corpus, extractor, model_path, tmp_path):
-    clf = ServingClassifier.load(model_path)
+    clf = ServingClassifier.load(model_path, device="cpu")
     clf.estimator = None  # predict raises AttributeError
     long_path = _long_clip(corpus, tmp_path)
     _, responses = _serve(extractor, [corpus[0], long_path], ids=["a", "long"], classifier=clf)
@@ -387,7 +387,7 @@ def test_classification_failure_still_ships_embeddings(corpus, extractor, model_
 
 
 def test_server_classifies_chunked_long_clips(corpus, extractor, model_path, tmp_path):
-    clf = ServingClassifier.load(model_path)
+    clf = ServingClassifier.load(model_path, device="cpu")
     _, responses = _serve(extractor, [_long_clip(corpus, tmp_path)], ids=["long"],
                           classifier=clf, long_clip_policy="chunk")
     r = responses[0]
@@ -423,7 +423,7 @@ def test_label_encoded_backend_probs_align(tmp_path):
     model = make_classifier("xgb", 8, 4, device="cpu").fit(X, y)
     np.testing.assert_array_equal(np.asarray(model.classes_), [0, 1, 3])
     clf = ServingClassifier.load(save_model(model, str(tmp_path), "wavlm", "layer_2", "xgb",
-                                            class_names=names))
+                                            class_names=names), device="cpu")
     labels, probs = clf.predict_rows(rs.randn(6, 8).astype(np.float32))
     for lab, p in zip(labels, probs):
         assert set(p) == {"A", "B", "D"} and lab == max(p, key=p.get)
@@ -433,7 +433,7 @@ def test_mlp_head_served_predictions(corpus, extractor, tmp_path):
     """The port's MLP head (what cli.train writes) serves through the same path."""
     path = _head_artifact(tmp_path, extractor.column_names[-1], extractor.embedding_dim,
                           hidden=(16,), class_names=["NoStutter", "Stutter"])
-    clf = ServingClassifier.load(path)
+    clf = ServingClassifier.load(path, device="cpu")
     _, responses = _serve(extractor, [corpus[0]], ids=["a"], classifier=clf)
     r = responses[0]
     assert r.ok and r.prediction in ("NoStutter", "Stutter")
@@ -494,7 +494,7 @@ def test_combined_top_is_hstack_of_parts(combined_corpus, wavlm_pair, whisper_pa
 def test_combined_classifier_serves(combined_corpus, wavlm_pair, whisper_pair, tmp_path):
     combined = CombinedExtractor(wavlm_pair[1], whisper_pair[1])
     path = _head_artifact(tmp_path, "combined_top", 64, class_names=["Fluent", "Stutter"])
-    clf = ServingClassifier.load(path)
+    clf = ServingClassifier.load(path, device="cpu")
     paths = sorted(glob.glob(os.path.join(combined_corpus, "wav", "*.wav")))
     _, responses = _serve(combined, paths, classifier=clf)
     for r in responses:

@@ -348,18 +348,21 @@ def test_cli_random_init_on_cpu(tmp_path):
 @pytest.mark.parametrize("extra", [[], ["--random_init", "--long_files", "chunk"],
                                    ["--random_init", "--preset", "turbo", "--long_files",
                                     "chunk"],
-                                   ["--random_init", "--devices", "2"],
+                                   ["--random_init", "--devices", "2", "--tp", "3"],
                                    ["--random_init", "--tp", "2"],
                                    ["--random_init", "--verify_model"]])
 def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, caplog, extra):
-    """The multi-device flags still raise. What used to raise now runs: a hub
+    """Layouts of the multi-device flags that do not divide raise (--tp 2 on
+    the one process of --device cpu, --tp 3 of 2). What used to raise now
+    runs (--devices 2 in tests/test_torch_parallel.py): a hub
     name raises OSError naming a local checkpoint directory (no download),
     --long_files chunk writes the long rows (fidelity and turbo),
     --verify_model logs and runs."""
     out = str(tmp_path / "o")
     if "--devices" in extra or "--tp" in extra:
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
-            cli.main(["--data_dir", str(tmp_path), "--output_dir", out, *extra])
+        with pytest.raises(ValueError, match="mesh"):
+            cli.main(["--data_dir", str(tmp_path), "--output_dir", out, "--device", "cpu",
+                      *extra])
         return
     if not extra:
         with pytest.raises(OSError, match="local checkpoint directory"):
