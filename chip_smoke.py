@@ -7,8 +7,9 @@ process groups of data and tensor parallelism on one NVIDIA GPU and check
 them.
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
-    python3 chip_smoke.py --only-parallel   # [slice], then [parallel] alone
-                                 # (with two cards or more: NCCL world 2, DP scaling)
+    python3 chip_smoke.py --only-parallel   # [slice], [parallel], then [chunk] and
+                                 # [parallel_serve] (with two cards or more: NCCL
+                                 # world 2, DP scaling, serving over NCCL)
 
 Phases, one line each on stdout ([time] lines give each phase's seconds):
 1. device: the card's name and power limit (nvidia-smi);
@@ -142,7 +143,16 @@ Phases, one line each on stdout ([time] lines give each phase's seconds):
    contiguous bias planes), and a DP = 2 extraction of 64 clips, within the
    kernel-vs-plain bar of the one-process run; dryrun_multichip(2,
    backend="gloo"); with two cards or more, the same over NCCL and the
-   data-parallel audio-s/s at 1 and 2 cards.
+   data-parallel audio-s/s at 1 and 2 cards;
+21. parallel_serve (after serve): cli.serve, cli.predict and cli.train at
+   --devices 2 with WavLM-Large from the [checkpoint] directory and the
+   [serve] head, two gloo ranks sharing the card: serve over JSONL at DP = 2
+   and TP = 2 (48 requests, a 41 s clip, an undecodable file) against the
+   one-process EmbeddingServer, predict over the [chunk] corpus and train
+   with augmentation against --devices 1; each rank's launches (24 a
+   batch), rows and probabilities within 1e-4, rank 1 writing no file; with
+   two cards or more, serve over NCCL: p50/p95 and audio-s/s beside the
+   one-process server's.
 Each extraction, probe, stem A/B, fine-tune, downstream, chunk, serving and parallel path is driven with every kernel's
 launch count (and the int8 GEMM count) set to 0 just before it and read just
 after. Then one JSON line with the kernels' numbers (time, plain time,
@@ -1889,7 +1899,7 @@ def phase_downstream(torch, work: Path, card: str, device: str = "cuda",
         rc = train_cli.main(["--embeddings_dir", str(store), "--results_dir", str(results),
                              "--model_type", "wavlm", "--classifier", "mlp",
                              "--augmentation_factor", "2", "--minority_threshold", "20",
-                             "--random_init", "--device", device])
+                             "--random_init", "--device", device, "--devices", "1"])
         stages["train_cli"] = time.perf_counter() - t0
         counts = read_counts()
     finally:
@@ -2444,6 +2454,21 @@ def phase_chunk(torch, extractor, work: Path, card: str, short=(3.0, 8.0), long=
     return counts, store, rate
 
 
+def fit_serving_head(store: Path, work: Path, device: str, n_layers: int) -> Path:
+    """The served classifier: an MLP head run_balanced_training fits on the
+    store's top layer (20 epochs), under work/serve_head. Returns its file."""
+    from stutter_tpu_torch.train.trainer import TrainConfig, run_balanced_training
+
+    results = work / "serve_head"
+    best = run_balanced_training(TrainConfig(
+        embeddings_dir=str(store), results_dir=str(results), classifiers=("mlp",),
+        use_smote=False, make_plots=False, head_overrides={"epochs": 20}, device=device))
+    layer = f"layer_{n_layers}"
+    model_path = results / layer / f"wavlm_{layer}_mlp_model.npz"
+    check(layer in best and model_path.is_file(), f"serve: no head written at {model_path}")
+    return model_path
+
+
 def phase_serve(torch, extractor, store: Path, work: Path, card: str, durations=(1.0, 8.0),
                 long_s=41.0, buckets=None, http_posts: int = 8) -> dict:
     """EmbeddingServer over the loaded WavLM (max_clips 64, max_wait 0.1 s,
@@ -2467,20 +2492,13 @@ def phase_serve(torch, extractor, store: Path, work: Path, card: str, durations=
     from stutter_tpu_torch.serve.http import HttpEmbeddingFrontend
     from stutter_tpu_torch.serve.server import EmbeddingServer, jsonl_requests
     from stutter_tpu_torch.train.persistence import load_model
-    from stutter_tpu_torch.train.trainer import TrainConfig, run_balanced_training
 
     on_card = extractor.device.type == "cuda"
     device = str(extractor.device)
     n_layers = extractor.cfg.num_hidden_layers
-    results = work / "serve_head"
     t0 = time.perf_counter()
-    best = run_balanced_training(TrainConfig(
-        embeddings_dir=str(store), results_dir=str(results), classifiers=("mlp",),
-        use_smote=False, make_plots=False, head_overrides={"epochs": 20}, device=device))
+    model_path = fit_serving_head(store, work, device, n_layers)
     fit_s = time.perf_counter() - t0
-    layer = f"layer_{n_layers}"
-    model_path = results / layer / f"wavlm_{layer}_mlp_model.npz"
-    check(layer in best and model_path.is_file(), f"serve: no head written at {model_path}")
     clf = ServingClassifier.load(str(model_path), device=device)
 
     corpus = work / "serve_corpus"
@@ -2493,7 +2511,7 @@ def phase_serve(torch, extractor, store: Path, work: Path, card: str, durations=
     lines.insert(50, json.dumps({"id": "bad", "path": str(bad)}))
 
     def batcher():
-        return make_bucket_batcher(extractor, buckets_s=buckets, audio_budget_s=64 * 3.0,
+        return make_bucket_batcher(extractor, None, buckets_s=buckets, audio_budget_s=64 * 3.0,
                                    max_batch=64)
 
     # every file's row from the pipeline, the reference for the served vectors
@@ -2577,7 +2595,8 @@ def phase_serve(torch, extractor, store: Path, work: Path, card: str, durations=
     check(http_worst <= CHUNK_COSINE, f"serve: HTTP rows {http_worst:.3g} from the pipeline's")
     say("serve_http", posts=len(http_answers), worst_cosine_vs_pipeline=f"{http_worst:.3g}",
         healthz=health[0], stats_served=http_stats["served"], card=f'"{card}"')
-    return dict(counts, batches=seen["batches"], stats=stats, audio_s_per_s=audio_s / wall)
+    return dict(counts, batches=seen["batches"], stats=stats, audio_s_per_s=audio_s / wall,
+                head=model_path)
 
 
 # ---------------------------------------------------------------------------
@@ -3149,9 +3168,490 @@ def phase_parallel(torch, work: Path, card: str, device: str = "cuda",
     return report
 
 
+# ---------------------------------------------------------------------------
+# [parallel_serve]: the serving, prediction and trainer CLIs on two ranks
+# ---------------------------------------------------------------------------
+
+# the ranks a CLI spawns report to the directory this variable names: they
+# inherit it, and chip_smoke.py, their main module, installs rank_spy where
+# it is set (at the end of this file)
+RANK_SPY_ENV = "STUTTER_SMOKE_RANK_SPY"
+# two ranks' served, predicted and re-extracted rows against one process on
+# the card: bf16 batches of another size, or the model cut over two ranks
+# (PR 12's data-parallel bar). The predicted probabilities are not held to
+# one process's: rows 9.6e-7 apart in cosine moved the [serve] head's
+# probabilities by 7.35e-4 (H100 80GB HBM3); each run's CSV is held to the
+# head on its own store's rows instead, and the labels to one process's.
+PARALLEL_SERVE_COSINE = 1e-4
+PARALLEL_PROB_ATOL = 1e-6
+# a predicted label may differ from the one-process run's only where that
+# run's two likeliest classes lie closer than this
+PREDICTION_TIE = 1e-3
+# the served requests (clips of 1-8 s, one 41 s clip to chunk, and the
+# undecodable file: 48 in all), the server's max clips a round, and the
+# clips of the trainer's store (8 to train on, 3 and 3 to evaluate)
+PARALLEL_SERVE_SIZES = {"requests": 46, "seconds": (1.0, 8.0), "long_s": 41.0,
+                        "max_clips": 64, "train_seconds": (1.0, 3.0)}
+
+
+def capture_augmented(real, out: dict):
+    """``real`` (the trainer's apply_data_augmentation), putting into ``out``
+    the rows it appends (``rows``: each column's re-extracted rows, on rank 0
+    of a plan or in one process) and the SHA-256 of the copies this process
+    makes itself from the same draws on its own device (``copies_sha256``),
+    which tells whether ranks on other cards would make the same bits."""
+    import hashlib
+
+    import numpy as np
+
+    from stutter_tpu_torch.train import augment_extract
+
+    def capture(meta, embeddings, extractor, augmentation_factor=3, minority_threshold=100,
+                config=None, seed=0):
+        _, waves = augment_extract._augmented_copies(meta, extractor, augmentation_factor,
+                                                     minority_threshold, config, seed)
+        out["copies_sha256"] = hashlib.sha256(b"".join(
+            np.ascontiguousarray(w, np.float32).tobytes() for w in waves)).hexdigest()
+        out_meta, out_emb = real(meta, embeddings, extractor, augmentation_factor,
+                                 minority_threshold, config, seed)
+        if len(out_meta) > len(meta):
+            out["rows"] = {c: a[len(meta):] for c, a in out_emb.items()}
+        return out_meta, out_emb
+
+    return capture
+
+
+@contextlib.contextmanager
+def augmented_rows(out: dict):
+    """Inside, the trainer's re-extracted rows land in ``out``."""
+    from stutter_tpu_torch.train import trainer
+
+    real = trainer.apply_data_augmentation
+    trainer.apply_data_augmentation = capture_augmented(real, out)
+    try:
+        yield out
+    finally:
+        trainer.apply_data_augmentation = real
+
+
+def rank_spy(spy_dir: Path) -> None:
+    """Instrument a rank that a CLI spawned: each CLI's ``main`` sets every
+    kernel's launch count to 0 before it runs, and afterwards writes this
+    rank's report to spy_dir/rank{r}.json: the counts, the WavLM batches it
+    submitted and the heads its attention calls took, its exit code, the
+    files it wrote under the run's outputs (watched on the ranks other than
+    0), the server's stats and serving seconds, and cli.train's re-extracted
+    rows (spy_dir/augmented_rows.npz)."""
+    import builtins
+    import io
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from stutter_tpu_torch.cli import predict, serve, train
+    from stutter_tpu_torch.extract.pipeline import WavLMExtractor
+    from stutter_tpu_torch.ops.wavlm_attention import gated_relpos_attention
+    from stutter_tpu_torch.serve.server import EmbeddingServer
+    from stutter_tpu_torch.train import trainer
+
+    report, rows = {}, {}
+    submit, serve_loop, warmup = WavLMExtractor.submit, EmbeddingServer.serve, WavLMExtractor.warmup
+
+    def counted_warmup(self, batcher):
+        n = warmup(self, batcher)
+        report["warmup_batches"] += n
+        return n
+
+    def counted_submit(self, batch):
+        report["submits"] += 1
+        calls, attention_fn = [], self.attention_fn
+        self.attention_fn = head_recorder(attention_fn or gated_relpos_attention, calls)
+        try:
+            return submit(self, batch)
+        finally:
+            self.attention_fn = attention_fn
+            report["heads"] = sorted(set(report["heads"]) | {c[0] for c in calls})
+
+    def timed_serve(self, requests, emit):
+        t0 = time.perf_counter()
+        serve_loop(self, requests, emit)
+        report.update(serve_s=time.perf_counter() - t0, stats=self.stats())
+
+    def spied(real):
+        def main(argv):
+            rank = dist.get_rank()
+            roots = [os.path.abspath(argv[argv.index(f) + 1]) for f in
+                     ("--output_dir", "--results_dir", "--keep_embeddings_dir") if f in argv]
+            if "--output" in argv:
+                roots.append(os.path.dirname(os.path.abspath(argv[argv.index("--output") + 1])))
+            written, real_open, real_makedirs = [], builtins.open, os.makedirs
+
+            def under(path) -> bool:
+                return isinstance(path, (str, os.PathLike)) and any(
+                    os.path.abspath(path).startswith(root) for root in roots)
+
+            def watched_open(file, mode="r", *args, **kw):
+                if under(file) and any(c in mode for c in "wax+"):
+                    written.append(str(file))
+                return real_open(file, mode, *args, **kw)
+
+            def watched_makedirs(name, *args, **kw):
+                if under(name):
+                    written.append(str(name))
+                return real_makedirs(name, *args, **kw)
+
+            report.clear()
+            report.update(submits=0, warmup_batches=0, heads=[])
+            rows.clear()
+            if rank != 0:
+                builtins.open = io.open = watched_open
+                os.makedirs = watched_makedirs
+            zero_counts()
+            try:
+                rc = real(argv)
+            finally:
+                builtins.open = io.open = real_open
+                os.makedirs = real_makedirs
+            report.update(rank=rank, rc=rc, counts=read_counts(), written=written,
+                          copies_sha256=rows.get("copies_sha256"))
+            if "rows" in rows:
+                np.savez(spy_dir / "augmented_rows.npz", **rows["rows"])
+            (spy_dir / f"rank{rank}.json").write_text(json.dumps(report))
+            return rc
+
+        return main
+
+    WavLMExtractor.submit, WavLMExtractor.warmup = counted_submit, counted_warmup
+    EmbeddingServer.serve = timed_serve
+    trainer.apply_data_augmentation = capture_augmented(trainer.apply_data_augmentation, rows)
+    for module in (serve, predict, train):
+        module.main = spied(module.main)
+
+
+@contextlib.contextmanager
+def fds_to(stdout: Path, stderr: Path):
+    """File descriptors 1 and 2 into files for the block: the processes
+    spawned inside write there."""
+    sys.stdout.flush()
+    sys.stderr.flush()
+    saved = [os.dup(1), os.dup(2)]
+    with open(stdout, "w") as out, open(stderr, "w") as err:
+        os.dup2(out.fileno(), 1)
+        os.dup2(err.fileno(), 2)
+    try:
+        yield
+    finally:
+        sys.stdout.flush()
+        sys.stderr.flush()
+        for fd, old in zip((1, 2), saved):
+            os.dup2(old, fd)
+            os.close(old)
+
+
+def spawned_cli(module: str, argv: list, spy_dir: Path, work: Path, device: str,
+                backend: str | None) -> list:
+    """``module``'s main on two ranks that ``spawn_cli`` starts (gloo shares
+    one card; None: NCCL, one card a rank), with the rank spy. Their stdout
+    goes to spy_dir/stdout.txt and their stderr to spy_dir/ranks.log, whose
+    end is printed if a rank fails. Returns their reports, rank 0's first."""
+    from stutter_tpu_torch.parallel.mesh import spawn_cli
+
+    spy_dir.mkdir(parents=True)
+    log = spy_dir / "ranks.log"
+    os.environ[RANK_SPY_ENV] = str(spy_dir)
+    try:
+        with fds_to(spy_dir / "stdout.txt", log):
+            spawn_cli(module, argv, 2, "cuda" if device == "cuda" else "cpu", str(work),
+                      backend=backend)
+    except Exception:
+        print(log.read_text()[-6000:], file=sys.stderr, flush=True)
+        raise
+    finally:
+        os.environ.pop(RANK_SPY_ENV)
+    return [json.loads((spy_dir / f"rank{r}.json").read_text()) for r in range(2)]
+
+
+def check_rank_launches(what: str, reports: list, n_layers: int, heads: int,
+                        on_card: bool) -> list:
+    """Both ranks exited 0, submitted the same batches, and launched the
+    gated kernel once a layer a batch (warm-up batches too) at ``heads``
+    heads, and no other kernel. Returns the launches per rank."""
+    submits = [r["submits"] for r in reports]
+    batches = [r["submits"] + r["warmup_batches"] for r in reports]
+    launches = [r["counts"]["gated_relpos_attention"] for r in reports]
+    check([r["rc"] for r in reports] == [0, 0], f"{what}: ranks exited {reports}")
+    check(submits[0] == submits[1] > 0, f"{what}: ranks submitted {submits} batches")
+    check(launches == [n_layers * n * on_card for n in batches],
+          f"{what}: {launches} gated launches for {batches} batches (warm-up included)")
+    check(all(r["heads"] == [heads] for r in reports),
+          f"{what}: attention heads {[r['heads'] for r in reports]}, expected {heads}")
+    others = [{k: v for k, v in r["counts"].items() if v and k != "gated_relpos_attention"}
+              for r in reports]
+    check(others == [{}, {}], f"{what}: other kernels launched: {others}")
+    return launches
+
+
+def prediction_ties(reference, labels: list, margin: float = PREDICTION_TIE) -> list:
+    """Indices where ``labels`` differ from the reference responses' and the
+    reference's two likeliest classes lie ``margin`` or farther apart."""
+    out = []
+    for i, (r, label) in enumerate(zip(reference, labels)):
+        if label != r.prediction:
+            top = sorted(r.probs.values(), reverse=True)
+            if top[0] - top[1] >= margin:
+                out.append(i)
+    return out
+
+
+def phase_parallel_serve(torch, extractor, work: Path, card: str, ckpt: Path, clf_path: Path,
+                         device: str = "cuda", sizes: dict = PARALLEL_SERVE_SIZES,
+                         buckets=None, max_length=None) -> dict:
+    """The serving, prediction and trainer CLIs at --devices 2 against one
+    process, WavLM-Large at full width and depth from the [checkpoint]
+    directory, the [serve] classifier: with two gloo ranks sharing the card
+    (correctness and launches, not scaling), cli.serve over JSONL at DP = 2
+    and at TP = 2 (H = 8 a rank), 48 requests (a 41 s clip to chunk, an
+    undecodable file), against the one-process EmbeddingServer (rows within
+    1e-4 cosine, each request answered once, only the bad file failing, the
+    predictions); cli.predict at DP = 2 over the [chunk] corpus (chunk
+    policy) against --devices 1 (labels, the stores' rows within 1e-4, the
+    CSV's probabilities the head's on its own rows);
+    cli.train at DP = 2 with augmentation factor 1 on a 14-clip store
+    (re-extracted rows within 1e-4 of one process's, rank 1 writing no
+    file; whether each rank's own augmented copies, made from the same
+    draws, equal rank 0's bit for bit, which rank 0's broadcast makes moot).
+    Each rank's launches: 24 a batch, every other kernel 0. With two cards
+    or more, cli.serve again over NCCL at DP = 2 and TP = 2, one card a
+    rank, after a warm batch per bucket (p50/p95 and audio-s/s beside the
+    one-process server's), and cli.train over NCCL (the copies across two
+    cards). Returns each run's launches per rank."""
+    import numpy as np
+
+    from stutter_tpu_torch.cli import predict as predict_cli
+    from stutter_tpu_torch.cli import train as train_cli
+    from stutter_tpu_torch.cli.common import make_bucket_batcher
+    from stutter_tpu_torch.extract.batcher import DEFAULT_BUCKETS_S, BucketBatcher
+    from stutter_tpu_torch.extract.pipeline import ExtractionPipeline
+    from stutter_tpu_torch.extract.scanner import create_metadata_from_files
+    from stutter_tpu_torch.extract.store import load_embeddings
+    from stutter_tpu_torch.serve.classify import ServingClassifier
+    from stutter_tpu_torch.serve.server import EmbeddingServer, jsonl_requests
+
+    on_card = device == "cuda"
+    cards = on_card and torch.cuda.device_count() >= 2
+    cfg = extractor.cfg
+    n_layers, heads = cfg.num_hidden_layers, cfg.num_attention_heads
+    base = work / "parallel_serve"
+    corpus = base / "corpus"
+    audio_s = write_corpus(corpus, {"train": sizes["requests"]}, sizes["seconds"], seed=41,
+                           long_per_split={"train": 1},
+                           long_range=(sizes["long_s"], sizes["long_s"] + 0.5))
+    bad = corpus / "undecodable.wav"
+    bad.write_bytes(b"RIFF\x00\x00\x00\x00WAVEjunk")
+    paths = sorted(str(p) for p in (corpus / "wav").glob("*.wav")) + [str(bad)]
+    ids = [f"p{i:02d}" for i in range(len(paths) - 1)] + ["bad"]
+    reqs = base / "requests.jsonl"
+    reqs.write_text("".join(json.dumps({"id": i, "path": p}) + "\n" for i, p in zip(ids, paths)))
+
+    # the one-process server over the same weights: the reference
+    server = EmbeddingServer(
+        extractor, batcher=make_bucket_batcher(extractor, None, buckets_s=buckets,
+                                               audio_budget_s=sizes["max_clips"] * 3.0,
+                                               max_batch=sizes["max_clips"]),
+        max_wait_s=0.1, max_clips=sizes["max_clips"], long_clip_policy="chunk",
+        classifier=ServingClassifier.load(str(clf_path), device=device))
+    responses = []
+    t0 = time.perf_counter()
+    with open(reqs) as f:
+        server.serve(jsonl_requests(f), responses.append)
+    sync(torch, device)
+    one = {"wall_s": time.perf_counter() - t0, **server.stats()}
+    ref = {r.req_id: r for r in responses}
+    check(sorted(ref) == sorted(ids) and [r.req_id for r in responses if not r.ok] == ["bad"],
+          f"parallel_serve: one process answered {sorted(ref)}")
+
+    argv = ["--model_type", "wavlm", "--model_name", str(ckpt), "--input", str(reqs),
+            "--classifier_model", str(clf_path), "--max_wait_ms", "100",
+            "--max_clips", str(sizes["max_clips"]), "--preset", "fast", "--device", device,
+            "--devices", "2"] + (["--buckets", ",".join(map(str, buckets))] if buckets else [])
+    runs = [("gloo", "dp2", [], "gloo"), ("gloo", "tp2", ["--tp", "2"], "gloo")]
+    if cards:
+        runs += [("nccl", "dp2", ["--warmup"], None), ("nccl", "tp2", ["--tp", "2", "--warmup"],
+                                                       None)]
+    launches = {}
+    for backend, layout, extra, backend_arg in runs:
+        tag = f"serve_{backend}_{layout}"
+        spy = base / f"spy_{tag}"
+        t_step = time.perf_counter()
+        reports = spawned_cli("stutter_tpu_torch.cli.serve",
+                              argv + extra + ["--output_dir", str(base / tag)], spy, work,
+                              device, backend_arg)
+        lines = [json.loads(line) for line in (spy / "stdout.txt").read_text().splitlines()
+                 if line.startswith('{"id"')]
+        got = [o["id"] for o in lines]
+        check(sorted(got) == sorted(ids), f"{tag}: {len(got)} answers, {len(set(got))} "
+                                          f"distinct, for {len(ids)} requests")
+        failed = [o["id"] for o in lines if not o["ok"]]
+        check(failed == ["bad"], f"{tag}: failed requests {failed}, expected only 'bad'")
+        worst = 0.0
+        for o in lines:
+            if o["ok"]:
+                saved = np.load(o["file"])
+                worst = max([worst] + [cosine_distance(torch.from_numpy(saved[k]),
+                                                       torch.from_numpy(ref[o["id"]].embeddings[c]))
+                                       for k, c in enumerate(o["columns"])])
+        check(worst <= PARALLEL_SERVE_COSINE,
+              f"{tag}: rows {worst:.3g} from the one-process server's")
+        ok = [o for o in lines if o["ok"]]
+        flips = prediction_ties([ref[o["id"]] for o in ok], [o["prediction"] for o in ok])
+        check(not flips, f"{tag}: predictions differ from the one-process server's at "
+                         f"{[ok[i]['id'] for i in flips]}")
+        changed = sum(o["prediction"] != ref[o["id"]].prediction for o in ok)
+        launches[tag] = check_rank_launches(tag, reports, n_layers,
+                                            heads // (2 if layout == "tp2" else 1), on_card)
+        stats = reports[0]["stats"]
+        say("parallel_serve", step=tag, requests=len(ids), answered=len(got),
+            failed=",".join(failed), batches_per_rank=reports[0]["submits"],
+            gated_launches_per_rank=",".join(map(str, launches[tag])),
+            warmup_batches=reports[0]["warmup_batches"],
+            expected=f"{n_layers}x{reports[0]['submits'] + reports[0]['warmup_batches']}",
+            heads_per_rank=reports[0]["heads"][0], worst_cosine_vs_one_process=f"{worst:.3g}",
+            tol=PARALLEL_SERVE_COSINE, predictions_changed_within_tie=changed,
+            p50_ms=f"{stats['p50_s'] * 1e3:.1f}", p95_ms=f"{stats['p95_s'] * 1e3:.1f}",
+            audio_s_per_s=f"{stats['audio_s_served'] / reports[0]['serve_s']:.1f}",
+            one_process_p50_ms=f"{one['p50_s'] * 1e3:.1f}",
+            one_process_p95_ms=f"{one['p95_s'] * 1e3:.1f}",
+            one_process_audio_s_per_s=f"{one['audio_s_served'] / one['wall_s']:.1f}",
+            note=("two ranks on one card: correctness and launches, not scaling"
+                  if backend == "gloo" and not cards else
+                  "gloo: all-reduces and gathers through the host" if backend == "gloo"
+                  else "one card a rank, warm"), seconds=f"{time.perf_counter() - t_step:.1f}",
+            card=f'"{card}"')
+
+    # cli.predict over the [chunk] corpus, one process and two ranks
+    pred = ["--data_dir", str(work / "chunk_corpus"), "--classifier_model", str(clf_path),
+            "--model_type", "wavlm", "--model_name", str(ckpt), "--long_files", "chunk",
+            "--preset", "fast", "--device", device] + (
+        ["--max_length", str(max_length)] if max_length else [])
+    one_csv, two_csv = base / "predict_one.csv", base / "predict_two.csv"
+    t_step = time.perf_counter()
+    check(predict_cli.main(pred + ["--output", str(one_csv), "--devices", "1",
+                                   "--keep_embeddings_dir", str(base / "predict_one")]) == 0,
+          "parallel_serve: one-process predict failed")
+    reports = spawned_cli("stutter_tpu_torch.cli.predict",
+                          pred + ["--output", str(two_csv), "--devices", "2",
+                                  "--keep_embeddings_dir", str(base / "predict_two")],
+                          base / "spy_predict", work, device, "gloo")
+    launches["predict_gloo_dp2"] = check_rank_launches("predict", reports, n_layers, heads,
+                                                       on_card)
+    check(reports[1]["written"] == [], f"predict: rank 1 wrote {reports[1]['written']}")
+    with open(one_csv, newline="") as a, open(two_csv, newline="") as b:
+        rows_one, rows_two = list(csv.DictReader(a)), list(csv.DictReader(b))
+    check(len(rows_one) == len(rows_two) > 0 and
+          [r["path"] for r in rows_one] == [r["path"] for r in rows_two],
+          f"predict: {len(rows_one)} and {len(rows_two)} rows")
+    prob_cols = [c for c in rows_one[0] if c.startswith("prob_")]
+    prob_err = max(abs(float(a[c]) - float(b[c])) for a, b in zip(rows_one, rows_two)
+                   for c in prob_cols)
+    label_diff = [a["path"] for a, b in zip(rows_one, rows_two)
+                  if a["predicted_label"] != b["predicted_label"]]
+    # the stores the two runs kept, file by file and row by row
+    stores = [{str(p.relative_to(d)): np.load(p) for p in sorted(d.rglob("*_embeddings.npy"))}
+              for d in (base / "predict_one", base / "predict_two")]
+    check(sorted(stores[0]) == sorted(stores[1]) and stores[0],
+          f"predict: stores hold {sorted(stores[0])} and {sorted(stores[1])}")
+    row_worst = max(cosine_distance(torch.from_numpy(a), torch.from_numpy(b))
+                    for name in stores[0] for a, b in zip(stores[0][name], stores[1][name]))
+    row_abs = max(float(np.abs(stores[0][n] - stores[1][n]).max()) for n in stores[0])
+    bit_equal = sum(np.array_equal(stores[0][n], stores[1][n]) for n in stores[0])
+    # the two-rank CSV against the head on the two-rank store's rows
+    meta, layers = load_embeddings(str(base / "predict_two"), "wavlm",
+                                   splits=("train", "test", "devel"))
+    _, probs = server.classifier.predict_rows(layers[server.classifier.layer])
+    own = {m["path"]: p for m, p in zip(meta, probs)}
+    check(sorted(own) == sorted(r["path"] for r in rows_two),
+          "predict: the CSV's rows are not the store's")
+    own_err = max(abs(float(r[f"prob_{c}"]) - own[r["path"]][c]) for r in rows_two
+                  for c in own[r["path"]])
+    say("parallel_serve", step="predict_gloo_dp2", clips=len(rows_one),
+        batches_per_rank=reports[0]["submits"],
+        gated_launches_per_rank=",".join(map(str, launches["predict_gloo_dp2"])),
+        labels_equal=not label_diff, worst_row_cosine=f"{row_worst:.3g}",
+        tol=PARALLEL_SERVE_COSINE, worst_row_abs=f"{row_abs:.3g}",
+        files_bit_equal=f"{bit_equal}/{len(stores[0])}",
+        worst_prob_abs_vs_one_process=f"{prob_err:.3g}",
+        worst_prob_abs_vs_own_rows=f"{own_err:.3g}", prob_tol=PARALLEL_PROB_ATOL,
+        rank1_files=0, seconds=f"{time.perf_counter() - t_step:.1f}", card=f'"{card}"')
+    check(not label_diff and row_worst <= PARALLEL_SERVE_COSINE and own_err <= PARALLEL_PROB_ATOL,
+          f"predict: labels differ at {label_diff}, rows by {row_worst:.3g}, probabilities "
+          f"from the head on the store's rows by {own_err:.3g}")
+
+    # cli.train with augmentation on a small store, one process and two ranks
+    t_step = time.perf_counter()
+    train_corpus, store = base / "train_corpus", base / "train_store"
+    write_corpus(train_corpus, {"train": 8, "test": 3, "devel": 3}, sizes["train_seconds"],
+                 seed=43)
+    ExtractionPipeline(extractor, batcher=BucketBatcher(
+        buckets_s=buckets or DEFAULT_BUCKETS_S, frame_align=extractor.frame_align)).run(
+        create_metadata_from_files(str(train_corpus)), str(store / "wavlm"))
+    train = ["--embeddings_dir", str(store), "--model_type", "wavlm", "--model_name", str(ckpt),
+             "--classifier", "mlp", "--head_epochs", "5", "--augmentation_factor", "1",
+             "--minority_threshold", "100", "--no_smote", "--preset", "fast", "--device", device]
+    with augmented_rows({}) as one:
+        check(train_cli.main(train + ["--results_dir", str(base / "train_one"),
+                                      "--devices", "1"]) == 0,
+              "parallel_serve: one-process train failed")
+    rows_one = one["rows"]
+    for backend, backend_arg in [("gloo", "gloo")] + ([("nccl", None)] if cards else []):
+        tag = f"train_{backend}_dp2"
+        spy, out = base / f"spy_{tag}", base / f"{tag}_results"
+        reports = spawned_cli("stutter_tpu_torch.cli.train",
+                              train + ["--results_dir", str(out), "--devices", "2"],
+                              spy, work, device, backend_arg)
+        launches[tag] = check_rank_launches(tag, reports, n_layers, heads, on_card)
+        check(reports[1]["written"] == [], f"{tag}: rank 1 wrote {reports[1]['written']}")
+        tree = [sorted(str(p.relative_to(d)) for p in d.rglob("*") if p.is_file())
+                for d in (base / "train_one", out)]
+        check(tree[0] == tree[1] and tree[0], f"{tag}: output trees differ: {tree}")
+        with np.load(spy / "augmented_rows.npz") as z:
+            rows_two = {c: z[c] for c in z.files}
+        check(sorted(rows_two) == sorted(rows_one), f"{tag}: re-extracted {sorted(rows_two)}")
+        n_aug = len(next(iter(rows_one.values())))
+        worst = max(cosine_distance(torch.from_numpy(a), torch.from_numpy(b))
+                    for c in rows_one for a, b in zip(rows_one[c], rows_two[c]))
+        check(all(len(rows_two[c]) == n_aug for c in rows_two) and worst <= PARALLEL_SERVE_COSINE,
+              f"{tag}: re-extracted rows {worst:.3g} from one process's")
+        # rank 0 sends its copies; these say whether each rank's own would match
+        own = [r["copies_sha256"] for r in reports]
+        say("parallel_serve", step=tag, augmented_rows=n_aug,
+            batches_per_rank=reports[0]["submits"],
+            gated_launches_per_rank=",".join(map(str, launches[tag])),
+            worst_cosine_vs_one_process=f"{worst:.3g}", tol=PARALLEL_SERVE_COSINE,
+            files=len(tree[0]), rank1_files=0,
+            own_copies_bit_equal_across_ranks=own[0] == own[1],
+            own_copies_bit_equal_to_one_process=own == [one["copies_sha256"]] * 2,
+            cards="two" if cards else "one_shared",
+            seconds=f"{time.perf_counter() - t_step:.1f}", card=f'"{card}"')
+        t_step = time.perf_counter()
+    return launches
+
+
+def write_wavlm_checkpoint(torch, model, work: Path) -> Path:
+    """``model`` (f32) as [checkpoint]'s safetensors HF directory, its
+    positional conv folded first as the loader folds it, so that loading the
+    directory gives ``model``'s tensors."""
+    g, v = fold_pos_conv(model)
+    path = work / "ckpt_wavlm_safetensors" / "wavlm-large"
+    write_checkpoint(torch, path, model.cfg, wavlm_hf_state(model, g, v, weight_g_v=False),
+                     "safetensors", do_normalize=model.cfg.do_normalize)
+    return path
+
+
 def parallel_only(torch, card: str) -> None:
     """``--only-parallel``: WavLM-Large fast through [slice] (its corpus and
-    store), the fast states of both models, then [parallel]."""
+    store), the fast states of both models, then [parallel]; then the seeded
+    WavLM-Large as a checkpoint directory, [chunk] (its corpus and store), a
+    served head fitted on that store, and [parallel_serve]."""
     from stutter_tpu_torch.extract.pipeline import WavLMExtractor, WhisperExtractor
     from stutter_tpu_torch.models.wavlm import WavLMConfig
     from stutter_tpu_torch.models.whisper import WhisperConfig
@@ -3173,6 +3673,13 @@ def parallel_only(torch, card: str) -> None:
             torch.cuda.empty_cache()
         with timed("parallel"):
             phase_parallel(torch, work, card)
+        with timed("parallel_serve"):
+            seeded = init_wavlm(WavLMConfig.large(), torch.Generator().manual_seed(0))
+            ckpt = write_wavlm_checkpoint(torch, seeded, work)
+            ex = WavLMExtractor(seeded, "cuda", preset="fast")
+            _, store, _ = phase_chunk(torch, ex, work, card)
+            head = fit_serving_head(store, work, "cuda", seeded.cfg.num_hidden_layers)
+            phase_parallel_serve(torch, ex, work, card, ckpt, head)
 
 
 @contextlib.contextmanager
@@ -3343,6 +3850,10 @@ def main() -> int:
                 chunk_counts, chunk_store, chunk_rate = phase_chunk(torch, extractor, work, card)
             with timed("serve"):
                 serve_counts = phase_serve(torch, extractor, chunk_store, work, card)
+            with timed("parallel_serve"):
+                ps_launches = phase_parallel_serve(
+                    torch, extractor, work, card,
+                    work / "ckpt_wavlm_safetensors" / "wavlm-large", serve_counts["head"])
     except CheckFailed as e:
         print(f"FAILED: {e}", flush=True)
         return 1
@@ -3375,6 +3886,9 @@ def main() -> int:
     line[0]["downstream_launches"] = ds_counts["gated_relpos_attention"]
     line[0]["chunk_launches"] = chunk_counts["gated_relpos_attention"]
     line[0]["serve_launches"] = serve_counts["gated_relpos_attention"]
+    # per rank of the two-rank CLI runs: serve (DP and TP, each over gloo on
+    # one card and, with two cards, over NCCL), predict and train
+    line[0]["parallel_serve_launches_per_rank"] = ps_launches
     # per tensor-parallel rank at the local head counts: 8 of WavLM-Large's 16
     line[0]["tp2_launches_per_rank"] = {
         "16x8x160": tp_report["wavlm_3s"]["counts"]["gated_relpos_attention"],
@@ -3392,6 +3906,9 @@ def main() -> int:
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
+
+if os.environ.get(RANK_SPY_ENV):  # a rank that [parallel_serve]'s CLI spawned
+    rank_spy(Path(os.environ[RANK_SPY_ENV]))
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -6,15 +6,14 @@ seeded random weights (seed 0), else the local HF checkpoint directory
 ``model_name`` through ``weights.convert.load_wavlm`` / ``load_whisper``. A
 hub name raises ``OSError``: this package never downloads.
 ``make_bucket_batcher`` builds the serve and predict CLIs' batcher from the
-extractor's preferences.
+extractor's preferences and the plan's data size.
 
-``add_mesh_args`` adds ``--devices N`` and ``--tp T`` (the extraction and
-fine-tune CLIs): ``run_on_devices`` spawns N worker processes, one per card,
-each running the CLI again in one process group, unless this process is
-already one of them (spawned here or by ``torchrun``); ``build_plan`` then
-gives the rank its [N / T, T] plan, or None on one device, where no group is
-started. ``check_single_device`` refuses those flags on the serving and
-downstream CLIs, whose multi-device runs are not ported yet.
+``add_mesh_args`` adds ``--devices N`` and ``--tp T`` to every CLI that runs
+a model (extraction, fine-tuning, serving, prediction, the downstream
+trainers): ``run_on_devices`` spawns N worker processes, one per card, each
+running the CLI again in one process group, unless this process is already
+one of them (spawned here or by ``torchrun``); ``build_plan`` then gives the
+rank its [N / T, T] plan, or None on one device, where no group is started.
 """
 
 from __future__ import annotations
@@ -39,15 +38,6 @@ WHISPER_SIZES = (
     ("medium", "medium"), ("small", "small"), ("base", "base"),
     ("tiny", "tiny_official"),
 )
-
-
-def check_single_device(args) -> None:
-    """``--devices``/``--tp`` above 1 raise: serve, predict, train and
-    train_grid run on one card for now."""
-    if (getattr(args, "devices", None) or 1) != 1 or getattr(args, "tp", 1) != 1:
-        raise NotImplementedError(
-            "--devices/--tp above 1 are not ported for this CLI yet (ROADMAP Queue 1, "
-            "multi-GPU serving and training: the serving loop's followers)")
 
 
 def add_mesh_args(parser: argparse.ArgumentParser) -> None:
@@ -131,11 +121,13 @@ def default_model_name(model_type: str, model_name: str | None) -> str:
             else "openai/whisper-large")
 
 
-def make_bucket_batcher(extractor, *, buckets_s=None, audio_budget_s, max_batch,
+def make_bucket_batcher(extractor, plan, *, buckets_s=None, audio_budget_s, max_batch,
                         max_length_s=None):
     """A ``BucketBatcher`` honouring the extractor: its ``preferred_buckets``
     unless the caller names buckets (Whisper pads every clip to 30 s, so more
-    buckets would only repeat the same work), and its ``frame_align``."""
+    buckets would only repeat the same work), and its ``frame_align``; every
+    batch a multiple of the plan's data size, so that it splits over the
+    data ranks."""
     from stutter_tpu_torch.extract.batcher import DEFAULT_BUCKETS_S, BucketBatcher
 
     return BucketBatcher(
@@ -143,6 +135,7 @@ def make_bucket_batcher(extractor, *, buckets_s=None, audio_budget_s, max_batch,
         or DEFAULT_BUCKETS_S,
         audio_budget_s=audio_budget_s,
         max_batch=max_batch,
+        batch_multiple=plan.data_size if plan else 1,
         max_length_s=max_length_s,
         frame_align=getattr(extractor, "frame_align", None),
     )

@@ -1,5 +1,5 @@
-"""Batch prediction CLI on one GPU: audio corpus -> embeddings -> trained
-classifier -> CSV (flags of ``stutter_tpu.cli.predict``, plus ``--device``).
+"""Batch prediction CLI on one or many GPUs: audio corpus -> embeddings ->
+trained classifier -> CSV (flags of ``stutter_tpu.cli.predict``, plus ``--device``).
 
     python -m stutter_tpu_torch.cli.predict --audio_dir /data/new_clips \\
       --classifier_model results/layer_24/wavlm_layer_24_mlp_model.npz \\
@@ -18,6 +18,13 @@ class names; ``--model_type combined`` extracts both backbones and
 classifies the fusion store's columns (``combined_top`` among them).
 Metadata is a list of dict rows and the CSV is written with the ``csv``
 module, in the JAX CLI's columns.
+
+``--devices N --tp T`` extract on N cards (``cli.common.run_on_devices``;
+under ``torchrun`` the CLI joins its group) through the data-parallel
+``ExtractionPipeline``: every rank decodes and encodes its rows, rank 0
+writes the store, loads it, classifies and writes the CSV; the other ranks
+leave after the pipeline. Every rank must see the corpus at the same paths.
+``--embeddings_dir`` has no device work: rank 0 does it alone.
 """
 
 from __future__ import annotations
@@ -30,6 +37,8 @@ import sys
 import tempfile
 
 import numpy as np
+
+from stutter_tpu_torch.cli.common import add_mesh_args
 
 MODEL_TYPES = ["wavlm", "wavlm_large", "whisper", "whisper_large_fixed", "combined"]
 _SPLIT_DIRS = ("train", "test", "devel", "predict", "unknown")
@@ -70,10 +79,7 @@ def parse_args(argv=None):
     parser.add_argument("--long_files", type=str, default="trim", choices=["trim", "chunk"])
     parser.add_argument("--random_init", action="store_true",
                         help="Random backbone weights from seed 0 (no checkpoint load)")
-    parser.add_argument("--devices", type=int, default=None,
-                        help="Number of devices (only 1 is supported)")
-    parser.add_argument("--tp", type=int, default=1,
-                        help="Tensor-parallel size (only 1 is supported)")
+    add_mesh_args(parser)
     parser.add_argument("--preset", type=str, default="fast",
                         choices=["fast", "fidelity", "turbo"],
                         help="Numerics preset of the backbone")
@@ -129,9 +135,11 @@ def _load_store(embeddings_dir: str, model_type: str, logger, restrict=None):
     return load_embeddings(embeddings_dir, model_type, splits=splits)
 
 
-def _extract_corpus(args, metadata: list[dict], out_root: str, device, logger) -> bool:
+def _extract_corpus(args, metadata: list[dict], out_root: str, device, logger,
+                    plan=None) -> bool:
     """Run the extraction pipeline(s) into ``out_root``: one directory per
-    part for 'combined' (the fusion layout the train CLI reads)."""
+    part for 'combined' (the fusion layout the train CLI reads); under
+    ``plan`` on every rank, rank 0 writing."""
     from stutter_tpu_torch.cli import common
     from stutter_tpu_torch.cli.train import build_extractor_for
     from stutter_tpu_torch.extract.pipeline import ExtractionPipeline
@@ -151,11 +159,12 @@ def _extract_corpus(args, metadata: list[dict], out_root: str, device, logger) -
     splits = _splits_of(metadata)
     for part_type, part_name, part_max_len in parts:
         extractor = build_extractor_for(part_type, part_name, args.random_init, device,
-                                        args.preset)
+                                        args.preset, plan)
         if extractor is None:
             logger.error("unsupported model_type %s", part_type)
             return False
-        batcher = common.make_bucket_batcher(extractor, audio_budget_s=args.audio_budget,
+        batcher = common.make_bucket_batcher(extractor, plan=plan,
+                                             audio_budget_s=args.audio_budget,
                                              max_batch=args.batch_size,
                                              max_length_s=part_max_len)
         pipe = ExtractionPipeline(extractor, batcher=batcher, long_file_policy=args.long_files)
@@ -163,7 +172,7 @@ def _extract_corpus(args, metadata: list[dict], out_root: str, device, logger) -
                             else args.model_type)
         # a reused --keep_embeddings_dir may hold a split of the same name from
         # another corpus: drop its layer files before writing this one's
-        for split in splits:
+        for split in splits if plan is None or plan.rank == 0 else ():
             split_dir = os.path.join(dest, split)
             if os.path.isdir(split_dir):
                 for f in os.listdir(split_dir):
@@ -203,13 +212,21 @@ def main(argv=None) -> int:
                         format="%(asctime)s - %(name)s - %(levelname)s - %(message)s")
     logger = logging.getLogger("stutter_tpu_torch.cli.predict")
 
-    from stutter_tpu_torch.cli.common import check_single_device
-    from stutter_tpu_torch.extract.pipeline import resolve_device
+    from stutter_tpu_torch.cli.common import build_plan, rank_device, run_on_devices
+    from stutter_tpu_torch.parallel.mesh import broadcast_round
     from stutter_tpu_torch.serve.classify import ServingClassifier
 
-    check_single_device(args)
-    device = resolve_device(args.device)
-    clf = ServingClassifier.load(args.classifier_model, device=device)
+    rc = run_on_devices("stutter_tpu_torch.cli.predict", argv, args,
+                        os.path.dirname(os.path.abspath(args.output)))
+    if rc is not None:
+        return rc
+    plan = build_plan(args)
+    leads = plan is None or plan.rank == 0
+    if args.embeddings_dir and not leads:
+        return 0  # no device work: rank 0 classifies the store alone
+    device = rank_device(args, plan)
+    if leads:
+        clf = ServingClassifier.load(args.classifier_model, device=device)
 
     corpus_splits = None  # None: every split on disk (--embeddings_dir)
     if args.embeddings_dir:
@@ -224,10 +241,16 @@ def main(argv=None) -> int:
         if not metadata:
             logger.error("no audio files found")
             return 1
-        store_root = args.keep_embeddings_dir or tempfile.mkdtemp(prefix="stutter_predict_")
-        logger.info("extracting %d clips -> %s", len(metadata), store_root)
-        if not _extract_corpus(args, metadata, store_root, device, logger):
+        store_root = None
+        if leads:
+            store_root = args.keep_embeddings_dir or tempfile.mkdtemp(prefix="stutter_predict_")
+            logger.info("extracting %d clips -> %s", len(metadata), store_root)
+        if plan is not None:  # one store, rank 0's
+            store_root = broadcast_round(plan, store_root)
+        if not _extract_corpus(args, metadata, store_root, device, logger, plan):
             return 1
+        if not leads:
+            return 0
         corpus_splits = _splits_of(metadata)
 
     meta, layers = _load_store(store_root, args.model_type, logger, restrict=corpus_splits)

@@ -1,4 +1,4 @@
-"""Online embedding server CLI on one GPU (flags of ``stutter_tpu.cli.serve``, plus ``--device``).
+"""Online embedding server CLI on one or many GPUs (flags of ``stutter_tpu.cli.serve``, plus ``--device``).
 
 Reads JSONL requests (``{"id": ..., "path": ...}`` or bare WAV paths) from
 stdin or a file, batches them with a latency deadline onto the extraction
@@ -16,7 +16,17 @@ bytes; ``GET /stats``, ``GET /healthz``. ``--model_name`` (and, for
 directory, or with ``--random_init`` the architecture to build from seed 0;
 a hub name raises ``OSError``. ``--classifier_model`` takes a model the
 port's trainer wrote (``{base}_model.npz`` or ``.pkl``). ``--device`` names
-the torch device (default ``cuda``); ``--devices``/``--tp`` above 1 raise.
+the torch device (default ``cuda``).
+
+``--devices N`` runs N processes, one per card (default: every visible
+card), and ``--tp T`` cuts the model over T of them; under ``torchrun`` the
+CLI joins its group (``cli.common.run_on_devices``). Rank 0 reads the
+requests, runs the serving loop, classifies and writes every response (to
+stdout or ``--output_dir``; over HTTP it alone binds the address); the other
+ranks follow its rounds (``EmbeddingServer.follow``), each decoding its own
+rows of each batch from the paths rank 0 sends. So every rank must see the
+same files at the same paths, rank 0's temporary directory too, where raw
+HTTP bodies are spooled (``TMPDIR``).
 """
 
 from __future__ import annotations
@@ -26,8 +36,11 @@ import json
 import logging
 import os
 import sys
+import tempfile
 
 import numpy as np
+
+from stutter_tpu_torch.cli.common import add_mesh_args
 
 
 def parse_args(argv=None):
@@ -70,10 +83,7 @@ def parse_args(argv=None):
                         help="Run one silent batch per bucket before taking traffic")
     parser.add_argument("--random_init", action="store_true",
                         help="Random weights from seed 0 (no checkpoint load)")
-    parser.add_argument("--devices", type=int, default=None,
-                        help="Number of devices (only 1 is supported)")
-    parser.add_argument("--tp", type=int, default=1,
-                        help="Tensor-parallel size (only 1 is supported)")
+    add_mesh_args(parser)
     parser.add_argument("--preset", type=str, default="fast",
                         choices=["fast", "fidelity", "turbo"],
                         help="Numerics preset: fast=bf16, fidelity=f32 without TF32, "
@@ -83,19 +93,21 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def build_server_extractor(args, model_name: str, device):
-    """The extractor of ``--model_type`` (both parts for 'combined'), or None."""
+def build_server_extractor(args, model_name: str, device, plan=None):
+    """The extractor of ``--model_type`` (both parts for 'combined', on the
+    same plan), or None."""
     from stutter_tpu_torch.cli.train import build_extractor_for
 
     if args.model_type == "combined":
         from stutter_tpu_torch.serve.combined import CombinedExtractor
 
         return CombinedExtractor(
-            build_extractor_for("wavlm", model_name, args.random_init, device, args.preset),
+            build_extractor_for("wavlm", model_name, args.random_init, device, args.preset,
+                                plan),
             build_extractor_for("whisper", args.whisper_model_name, args.random_init, device,
-                                args.preset))
+                                args.preset, plan))
     return build_extractor_for(args.model_type, model_name, args.random_init, device,
-                               args.preset)
+                               args.preset, plan)
 
 
 def response_line(resp, output_dir: str | None) -> dict:
@@ -141,20 +153,32 @@ def main(argv=None) -> int:
         http_port = int(port_str)
 
     from stutter_tpu_torch.cli.common import (
-        check_single_device, default_model_name, make_bucket_batcher)
-    from stutter_tpu_torch.extract.pipeline import resolve_device
+        build_plan,
+        default_model_name,
+        make_bucket_batcher,
+        rank_device,
+        run_on_devices,
+    )
+
+    # a bad --tp fails here too, before any model is built or rank spawned
+    rc = run_on_devices("stutter_tpu_torch.cli.serve", argv, args,
+                        args.output_dir or tempfile.gettempdir())
+    if rc is not None:
+        return rc
+
     from stutter_tpu_torch.serve.server import EmbeddingServer, jsonl_requests
 
-    check_single_device(args)
-    device = resolve_device(args.device)
+    plan = build_plan(args)
+    leads = plan is None or plan.rank == 0
+    device = rank_device(args, plan)
     model_name = default_model_name(args.model_type, args.model_name)
-    extractor = build_server_extractor(args, model_name, device)
+    extractor = build_server_extractor(args, model_name, device, plan)
     if extractor is None:
         logger.error("unsupported model_type %s", args.model_type)
         return 1
 
     classifier = None
-    if args.classifier_model:
+    if args.classifier_model and leads:
         from stutter_tpu_torch.serve.classify import ServingClassifier
 
         classifier = ServingClassifier.load(args.classifier_model, device=device)
@@ -162,13 +186,17 @@ def main(argv=None) -> int:
     buckets = tuple(float(b) for b in args.buckets.split(",")) if args.buckets else None
     server = EmbeddingServer(
         extractor,
-        batcher=make_bucket_batcher(extractor, buckets_s=buckets,
+        batcher=make_bucket_batcher(extractor, plan=plan, buckets_s=buckets,
                                     audio_budget_s=args.max_clips * 3.0,
                                     max_batch=args.max_clips),
         max_wait_s=args.max_wait_ms / 1e3, max_clips=args.max_clips,
         long_clip_policy=args.long_clip_policy, classifier=classifier)
     if args.warmup:
         logger.info("warmup: %d bucket batches run", extractor.warmup(server.batcher))
+    if not leads:
+        logger.info("rank %d follows rank 0's rounds", plan.rank)
+        server.follow()
+        return 0
 
     if args.http:
         from stutter_tpu_torch.serve.http import HttpEmbeddingFrontend
@@ -191,7 +219,12 @@ def main(argv=None) -> int:
         sys.stdout.write(json.dumps(response_line(resp, args.output_dir)) + "\n")
         sys.stdout.flush()
 
-    source = sys.stdin if args.input == "-" else open(args.input)
+    if args.input != "-":
+        source = open(args.input)
+    elif plan is not None:  # a spawned rank's sys.stdin is /dev/null: fd 0 is the caller's
+        source = open(0, closefd=False)
+    else:
+        source = sys.stdin
     try:
         logger.info("serving (model=%s, max_wait=%.0f ms, max_clips=%d)", model_name,
                     args.max_wait_ms, args.max_clips)

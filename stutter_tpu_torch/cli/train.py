@@ -1,4 +1,4 @@
-"""Balanced downstream training CLI on one GPU (flags of ``stutter_tpu.cli.train``).
+"""Balanced downstream training CLI on one or many GPUs (flags of ``stutter_tpu.cli.train``).
 
     python -m stutter_tpu_torch.cli.train --embeddings_dir <store> \\
         --results_dir <out> --classifier mlp --random_init [--device cuda]
@@ -13,7 +13,11 @@ re-extraction model is loaded from the local HF checkpoint directory
 'bestrq' (accepted, never implemented
 by the reference) and ``--split all`` exit with 2, a missing store with 1.
 Plots need matplotlib: without it the run logs one warning and writes no
-plots.
+plots. ``--devices N --tp T`` run the augmentation's re-extraction on N
+cards (``cli.common.run_on_devices``; under ``torchrun`` the CLI joins its
+group): rank 0 makes the augmented copies, every rank encodes its rows of
+them, and rank 0 alone fits and writes (the other ranks leave once the
+rows are gathered). Every rank reads the store, so all must see it.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import logging
 import os
 import sys
 
-from stutter_tpu_torch.cli.common import check_single_device
+from stutter_tpu_torch.cli.common import add_mesh_args
 from stutter_tpu_torch.cli.extract_wavlm import long_attention_from_env
 
 MODEL_TYPES = ["whisper", "wavlm", "wavlm_large", "bestrq", "combined", "whisper_large_fixed"]
@@ -32,10 +36,7 @@ UNIMPLEMENTED = {"bestrq"}
 
 
 def add_device_args(parser: argparse.ArgumentParser) -> None:
-    parser.add_argument("--devices", type=int, default=None,
-                        help="Number of devices (only 1 is supported)")
-    parser.add_argument("--tp", type=int, default=1,
-                        help="Tensor-parallel size (only 1 is supported)")
+    add_mesh_args(parser)
     parser.add_argument("--preset", type=str, default="fast",
                         choices=["fast", "fidelity", "turbo"],
                         help="Numerics preset of the re-extraction model")
@@ -72,23 +73,24 @@ def parse_args(argv=None):
 
 
 def build_extractor_for(model_type: str, model_name: str, random_init: bool, device,
-                        preset: str):
+                        preset: str, plan=None):
     """The re-extraction model for augmentation (reference :735-758), or None
-    for a model type without one (combined)."""
+    for a model type without one (combined); cut and sharded by ``plan``."""
     from stutter_tpu_torch.cli.common import load_wavlm_model, load_whisper_model
     from stutter_tpu_torch.extract.pipeline import WavLMExtractor, WhisperExtractor
 
     kind = model_type.lower()
     if kind in ("wavlm", "wavlm_large"):
         _, model = load_wavlm_model(model_name, random_init)
-        return WavLMExtractor(model, device, preset=preset, **long_attention_from_env())
+        return WavLMExtractor(model, device, preset=preset, plan=plan,
+                              **long_attention_from_env())
     if kind in ("whisper", "whisper_large_fixed"):
         # the JAX CLI's rule (a WavLM name means the default Whisper), but a
         # local checkpoint directory is taken whatever its name
         local = os.path.isdir(model_name)
         name = model_name if local or "whisper" in model_name else "openai/whisper-large"
         _, model = load_whisper_model(name, random_init)
-        return WhisperExtractor(model, device, preset=preset)
+        return WhisperExtractor(model, device, preset=preset, plan=plan)
     return None
 
 
@@ -100,6 +102,19 @@ def plots_available(logger: logging.Logger) -> bool:
         logger.warning("matplotlib is not installed: writing no plots")
         return False
     return True
+
+
+def trainer_ranks(module: str, argv, args):
+    """(exit code, None) once spawned ranks are done, else (None, (plan,
+    this rank's device)); only the augmentation's re-extraction runs on
+    several cards."""
+    from stutter_tpu_torch.cli.common import build_plan, rank_device, run_on_devices
+
+    rc = run_on_devices(module, argv, args, args.results_dir)
+    if rc is not None:
+        return rc, None
+    plan = build_plan(args)
+    return None, (plan, rank_device(args, plan))
 
 
 def setup_logging() -> logging.Logger:
@@ -120,17 +135,20 @@ def main(argv=None) -> int:
         logger.error("--split must be 'predefined' or 'train_test' (the reference accepts "
                      "'all' but has no implementation)")
         return 2
-    check_single_device(args)
+    rc, ranks = trainer_ranks("stutter_tpu_torch.cli.train", argv, args)
+    if rc is not None:
+        return rc
 
-    from stutter_tpu_torch.extract.pipeline import resolve_device
     from stutter_tpu_torch.train.trainer import TrainConfig, run_balanced_training
 
-    device = resolve_device(args.device)
+    plan, device = ranks
     classifiers = ("svm", "rf", "xgb") if args.classifier == "all" else (args.classifier,)
     extractor = None
     if args.augmentation_factor > 0 and not args.no_augmentation:
         extractor = build_extractor_for(args.model_type, args.model_name, args.random_init,
-                                        device, args.preset)
+                                        device, args.preset, plan)
+    if plan is not None and plan.rank != 0 and extractor is None:
+        return 0  # no re-extraction for this model type: rank 0 fits alone
 
     cfg = TrainConfig(
         embeddings_dir=args.embeddings_dir, results_dir=args.results_dir,
@@ -145,6 +163,8 @@ def main(argv=None) -> int:
     except FileNotFoundError as e:
         logger.error("%s", e)
         return 1
+    if plan is not None and plan.rank != 0:
+        return 0
     best_layer = max(best, key=lambda k: best[k]["balanced_accuracy"])
     logger.info("BEST: %s balanced_acc=%.4f", best_layer, best[best_layer]["balanced_accuracy"])
     return 0

@@ -1,4 +1,4 @@
-"""Grid downstream training CLI on one GPU (flags of ``stutter_tpu.cli.train_grid``).
+"""Grid downstream training CLI on one or many GPUs (flags of ``stutter_tpu.cli.train_grid``).
 
     python -m stutter_tpu_torch.cli.train_grid --embeddings_dir <store> \\
         --results_dir <out> --include_jax_heads --random_init [--device cuda]
@@ -7,7 +7,8 @@ The reference's flags (``model_training_1.py:40-97``), its paired boolean
 flags parsed correctly (its ``type=bool`` took ``--use_smote False`` for
 True) beside the ``--no_*`` overrides. ``--include_jax_heads`` adds the
 linear and MLP heads to the grid (the name is the JAX CLI's). ``--device``,
-``--preset``, ``--random_init`` and the exit codes are ``cli.train``'s.
+``--preset``, ``--random_init``, ``--devices``/``--tp`` and the exit codes
+are ``cli.train``'s.
 """
 
 from __future__ import annotations
@@ -15,7 +16,6 @@ from __future__ import annotations
 import argparse
 import sys
 
-from stutter_tpu_torch.cli.common import check_single_device
 from stutter_tpu_torch.cli.train import (
     MODEL_TYPES,
     UNIMPLEMENTED,
@@ -23,6 +23,7 @@ from stutter_tpu_torch.cli.train import (
     build_extractor_for,
     plots_available,
     setup_logging,
+    trainer_ranks,
 )
 
 
@@ -85,13 +86,14 @@ def main(argv=None) -> int:
         logger.error("--split must be 'predefined' or 'train_test' (the reference accepts "
                      "'all' but has no implementation)")
         return 2
-    check_single_device(args)
+    rc, ranks = trainer_ranks("stutter_tpu_torch.cli.train_grid", argv, args)
+    if rc is not None:
+        return rc
 
-    from stutter_tpu_torch.extract.pipeline import resolve_device
     from stutter_tpu_torch.train.classifiers import GRID_MODELS, GRID_MODELS_JAX
     from stutter_tpu_torch.train.trainer import TrainConfig, run_grid_training
 
-    device = resolve_device(args.device)
+    plan, device = ranks
     model_names = list(GRID_MODELS)
     if not args.use_class_weights:
         model_names = [m for m in model_names if "Weighted" not in m]
@@ -101,7 +103,9 @@ def main(argv=None) -> int:
     extractor = None
     if args.use_augmentation and args.augmentation_factor > 0:
         extractor = build_extractor_for(args.model_type, args.model_name, args.random_init,
-                                        device, args.preset)
+                                        device, args.preset, plan)
+    if plan is not None and plan.rank != 0 and extractor is None:
+        return 0  # no re-extraction for this model type: rank 0 fits alone
 
     cfg = TrainConfig(
         embeddings_dir=args.embeddings_dir, results_dir=args.results_dir,
@@ -115,6 +119,8 @@ def main(argv=None) -> int:
     except FileNotFoundError as e:
         logger.error("%s", e)
         return 1
+    if plan is not None and plan.rank != 0:
+        return 0
     best_layer = max(best, key=lambda k: best[k]["balanced_accuracy"])
     logger.info("BEST: %s (%s) balanced_acc=%.4f", best_layer,
                 best[best_layer]["configuration"], best[best_layer]["balanced_accuracy"])

@@ -23,12 +23,17 @@ file list, decodes and encodes only its rows of each batch
 host group and alone writes the store and the checkpoints. A resumed run
 reads the same checkpoint on every rank, after a barrier. Files to chunk are
 decoded on every rank (the chunks of a batch come from several files), each
-rank encoding its rows of each chunk batch.
+rank encoding its rows of each chunk batch. ``submit_rows`` and
+``collect_rows`` are that step for every caller (the pipeline, the server,
+``chunked_embeddings``, the augmentation's re-extraction): enqueue this
+rank's rows of a global batch, then collect them and gather every data
+rank's rows to rank 0.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import itertools
 import logging
 import struct
@@ -64,7 +69,13 @@ from stutter_tpu_torch.ops.quant import (
     WHISPER_QUANT_KEYS,
     quantize_layer_stack,
 )
-from stutter_tpu_torch.parallel.mesh import MeshPlan, barrier, gather_rows, shard_rows
+from stutter_tpu_torch.parallel.mesh import (
+    MeshPlan,
+    barrier,
+    broadcast_round,
+    gather_rows,
+    shard_rows,
+)
 from stutter_tpu_torch.parallel.sharding import shard_wavlm, shard_whisper
 
 logger = logging.getLogger("stutter_tpu_torch.extract.pipeline")
@@ -296,6 +307,69 @@ class WhisperExtractor(_Extractor):
             return self.model.embed(mel, self.encoder_indices, self.decoder_indices)
 
 
+@dataclasses.dataclass
+class GatheredRows:
+    """The real rows (pad rows dropped) of one global batch: on rank 0 every
+    data rank's, in order."""
+
+    columns: dict[str, np.ndarray]  # column -> [n, D] f32
+    rows: list[int]
+    paths: list[str]
+    ok: np.ndarray  # [n] bool: False where the clip did not decode
+    audio_seconds: float
+
+
+def submit_rows(extractor, batch: Batch, *, sharded: bool = False):
+    """Enqueue this data rank's rows of the global ``batch`` on the device
+    without waiting (``shard_rows``: the ranks of a model group take the same
+    rows); ``sharded``: ``batch`` already is this rank's rows, as
+    ``BucketBatcher`` decodes them with ``shard=``. The real rows of a batch
+    come first, so each rank's real rows are the first of its slice. Returns
+    what ``collect_rows`` takes. An error while submitting is returned in
+    the handle's place, so that this rank still joins the gather."""
+    plan = getattr(extractor, "plan", None)
+    if plan is not None and not sharded:
+        mine = shard_rows(plan, len(batch.waves))
+        batch = Batch(paths=batch.paths[mine], rows=list(batch.rows)[mine],
+                      waves=batch.waves[mine], lengths=batch.lengths[mine], ok=batch.ok[mine],
+                      bucket_s=batch.bucket_s, sample_rate=batch.sample_rate)
+    try:
+        return batch, extractor.submit(batch)
+    except Exception as e:  # noqa: BLE001 — raised by collect_rows, after the gather
+        return batch, e
+
+
+def collect_rows(extractor, submitted) -> GatheredRows | None:
+    """Collect ``submit_rows``' batch and gather every data rank's real rows
+    to rank 0 over the host group: rank 0 gets them in global row order, the
+    other ranks None. Every rank joins the gather whatever its own outcome;
+    then a rank whose batch failed raises its error, and rank 0 raises one
+    for any rank's failure."""
+    batch, handle = submitted
+    n = len(batch.rows)
+    error = handle if isinstance(handle, Exception) else None
+    cols = None
+    if error is None:
+        try:
+            cols = {c: a[:n] for c, a in extractor.collect(handle).items()}
+        except Exception as e:  # noqa: BLE001 — raised below, after the gather
+            error = e
+    plan = getattr(extractor, "plan", None)
+    parts = gather_rows(plan, (cols, list(batch.rows), list(batch.paths), batch.ok[:n],
+                               batch.audio_seconds, None if error is None else repr(error)))
+    if error is not None:
+        raise error
+    if parts is None:
+        return None
+    failed = [(d, p[5]) for d, p in enumerate(parts) if p[5] is not None]
+    if failed:
+        raise RuntimeError("; ".join(f"data rank {d}: {e}" for d, e in failed))
+    return GatheredRows(
+        columns={c: np.concatenate([p[0][c] for p in parts]) for c in parts[0][0]},
+        rows=[r for p in parts for r in p[1]], paths=[q for p in parts for q in p[2]],
+        ok=np.concatenate([p[3] for p in parts]), audio_seconds=sum(p[4] for p in parts))
+
+
 def chunked_embeddings(extractor, batcher: BucketBatcher, path: str,
                        ) -> tuple[dict[str, np.ndarray], int, float] | None:
     """Embed one over-length file as top-bucket chunks and combine the pooled
@@ -305,31 +379,51 @@ def chunked_embeddings(extractor, batcher: BucketBatcher, path: str,
     each chunk's padded pool by its real audio.
 
     The chunk count pads to a multiple of ``max(batch_multiple, 4)``, as in
-    the JAX package, so few batch shapes are seen.
+    the JAX package, so few batch shapes are seen (and then to one of
+    ``batch_multiple``, which the JAX package's multiples of 1, 2, 4 and 8
+    already are). Under the extractor's plan every rank decodes the file and
+    takes the chunk count rank 0 decoded (``broadcast_round``), so that all
+    ranks submit the same chunk batch; each encodes its rows of it, and rank
+    0 alone combines them: the other ranks return None. A rank that decodes
+    another length fails the file.
     Returns (column -> combined [D] f32, n_chunks, audio seconds), or None
     when the file does not decode or no chunk has a frame."""
     sr = batcher.target_sr
     chunk_samples = batcher.bucket_samples(batcher.buckets_s[-1])
+    plan = getattr(extractor, "plan", None)
     wave = load_audio(path, target_sr=sr)
-    if wave is None:
+    n_samples = None if wave is None else len(wave)
+    if plan is not None:
+        n_samples = broadcast_round(plan, n_samples)
+    if n_samples is None:
         logger.error("skipping %s (decode failed)", path)
         return None
-    n_chunks = max(1, -(-len(wave) // chunk_samples))
+    decoded = wave is not None and len(wave) == n_samples
+    if not decoded:
+        wave = np.zeros((n_samples,), np.float32)
+    n_chunks = max(1, -(-n_samples // chunk_samples))
     m = max(batcher.batch_multiple, 4)
     n_padded = -(-n_chunks // m) * m
+    n_padded = -(-n_padded // batcher.batch_multiple) * batcher.batch_multiple
     waves = np.zeros((n_padded, chunk_samples), np.float32)
     lengths = np.zeros((n_padded,), np.int64)
     for c in range(n_chunks):
         seg = wave[c * chunk_samples: (c + 1) * chunk_samples]
         waves[c, : len(seg)] = seg
         lengths[c] = len(seg)
-    ok = np.arange(n_padded) < n_chunks
+    ok = (np.arange(n_padded) < n_chunks) & decoded
     batch = Batch(paths=[path] * n_chunks, rows=list(range(n_chunks)), waves=waves,
                   lengths=lengths, ok=ok, bucket_s=chunk_samples / sr, sample_rate=sr)
-    embeddings = extractor(batch)
+    got = collect_rows(extractor, submit_rows(extractor, batch))
+    if got is None:  # not rank 0
+        return None
+    if not got.ok.all():
+        logger.error("skipping %s (decode failed on a rank)", path)
+        return None
+    embeddings = got.columns
     # a tiny tail chunk can come out of the conv stem with <= 0 frames: clamp
-    weights = np.array([max(0, extractor.frame_count(int(n))) if ok[c] else 0
-                        for c, n in enumerate(lengths)], np.float64)
+    weights = np.array([max(0, extractor.frame_count(int(n))) for n in lengths[:n_chunks]],
+                       np.float64)
     if weights.sum() <= 0:
         logger.error("skipping %s (no usable chunks)", path)
         return None
@@ -337,7 +431,7 @@ def chunked_embeddings(extractor, batcher: BucketBatcher, path: str,
     combined = {col: np.asarray((np.asarray(arr, np.float64) * weights[:, None]).sum(axis=0),
                                 np.float32)
                 for col, arr in embeddings.items()}
-    return combined, n_chunks, float(len(wave)) / sr
+    return combined, n_chunks, float(n_samples) / sr
 
 
 def _store_row(meta_row: dict, split: str) -> dict:
@@ -424,27 +518,22 @@ class ExtractionPipeline:
                 save_checkpoint(results, output_dir, split, ckpt_num)
                 since_ckpt = 0
 
-        def drain(batch: Batch, handle) -> None:
+        def drain(submitted) -> None:
             """Store a batch's rows: on rank 0, every data rank's, in order."""
             nonlocal audio_s, since_ckpt
-            embeddings = self.extractor.collect(handle)
-            n = len(batch.rows)
-            parts = gather_rows(plan, (batch.rows, batch.paths, batch.ok[:n],
-                                       {c: a[:n] for c, a in embeddings.items()},
-                                       batch.audio_seconds))
-            if parts is None:  # not rank 0
+            got = collect_rows(self.extractor, submitted)
+            if got is None:  # not rank 0
                 return
-            for rows, paths, ok, embeddings, seconds in parts:
-                audio_s += seconds
-                for j, row_idx in enumerate(rows):
-                    if not ok[j]:
-                        logger.error("skipping %s (decode failed)", paths[j])
-                        continue
-                    entry = _store_row(todo[row_idx], split)
-                    for col, arr in embeddings.items():
-                        entry[col] = np.asarray(arr[j], np.float32)
-                    results.append(entry)
-                    since_ckpt += 1
+            audio_s += got.audio_seconds
+            for j, row_idx in enumerate(got.rows):
+                if not got.ok[j]:
+                    logger.error("skipping %s (decode failed)", got.paths[j])
+                    continue
+                entry = _store_row(todo[row_idx], split)
+                for col, arr in got.columns.items():
+                    entry[col] = np.asarray(arr[j], np.float32)
+                results.append(entry)
+                since_ckpt += 1
             checkpoint_if_due()
 
         # 1-deep: batch i+1 is enqueued on the device before batch i's pooled
@@ -453,12 +542,12 @@ class ExtractionPipeline:
         pending = None
         for batch in self.batcher.batches([todo[i]["path"] for i in short_rows], shard=shard):
             batch.rows = [short_rows[r] for r in batch.rows]
-            handle = self.extractor.submit(batch)
+            submitted = submit_rows(self.extractor, batch, sharded=True)
             if pending is not None:
-                drain(*pending)
-            pending = (batch, handle)
+                drain(pending)
+            pending = submitted
         if pending is not None:
-            drain(*pending)
+            drain(pending)
 
         if long_rows:
             def file_done(entry: dict) -> None:
@@ -526,11 +615,11 @@ class ExtractionPipeline:
             on_file_done(entry)
 
         def drain_one() -> None:
-            slots, handle = inflight.pop(0)
-            parts = gather_rows(self.plan, self.extractor.collect(handle))
-            if parts is None:  # not rank 0
+            slots, submitted = inflight.pop(0)
+            got = collect_rows(self.extractor, submitted)
+            if got is None:  # not rank 0
                 return
-            embeddings = {col: np.concatenate([p[col] for p in parts]) for col in parts[0]}
+            embeddings = got.columns
             for slot, (row_idx, w) in enumerate(slots):
                 a = acc[row_idx]
                 if w > 0:
@@ -555,12 +644,10 @@ class ExtractionPipeline:
                 waves[s, :n] = seg[:n]
                 lengths[s] = n
                 slots.append((row_idx, float(max(0, self.extractor.frame_count(n)))))
-            mine = shard_rows(self.plan, bsz)  # this rank's rows of the batch
-            batch = Batch(paths=[todo[r]["path"] for r in rows][mine], rows=list(rows)[mine],
-                          waves=waves[mine], lengths=lengths[mine],
-                          ok=(np.arange(bsz) < len(segs))[mine], bucket_s=bucket_s,
+            batch = Batch(paths=[todo[r]["path"] for r in rows], rows=list(rows), waves=waves,
+                          lengths=lengths, ok=np.arange(bsz) < len(segs), bucket_s=bucket_s,
                           sample_rate=sr)
-            inflight.append((slots, self.extractor.submit(batch)))
+            inflight.append((slots, submit_rows(self.extractor, batch)))
             while len(inflight) > 1:  # 1-deep: drain the previous batch
                 drain_one()
 

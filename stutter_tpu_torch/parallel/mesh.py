@@ -13,7 +13,9 @@ launcher numbering hosts in turn (``torchrun``, ``launch``) keeps on one host.
 - the model group (the ranks that share its data index): the Megatron
   all-reduces of ``parallel.collectives`` run over it;
 - the host group (every rank, gloo): small gathers of pooled rows and
-  metadata to rank 0, which writes the store, and barriers.
+  metadata to rank 0, which writes the store, barriers, and the messages
+  by which rank 0 leads the other ranks (``broadcast_round``: a server's
+  rounds, the chunk count of a long clip, the augmented copies).
 Device collectives take the default backend: NCCL on cards, gloo on the CPU.
 
 ``launch`` runs a function in N spawned worker processes, one per card, that
@@ -36,6 +38,9 @@ import torch
 import torch.distributed as dist
 
 TIMEOUT = datetime.timedelta(seconds=1800)  # a collective or a store wait, then the run fails
+# a leader with nothing to send sends an idle message this often (a share of
+# TIMEOUT), so that ranks waiting in broadcast_round never reach the timeout
+IDLE_SHARE = 0.1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,7 +100,7 @@ def make_plan(data: int | None = None, model: int = 1) -> MeshPlan:
         if rank in ranks:
             model_group = group
     host_group = (dist.group.WORLD if dist.get_backend() == "gloo"
-                  else dist.new_group(backend="gloo"))
+                  else dist.new_group(backend="gloo", timeout=TIMEOUT))
     return MeshPlan(rank=rank, world_size=world, data_size=data, model_size=model,
                     data_group=data_group, model_group=model_group, host_group=host_group)
 
@@ -122,6 +127,23 @@ def gather_rows(plan: MeshPlan | None, part: Any) -> list | None:
     if plan.rank != 0:
         return None
     return [parts[d * plan.model_size] for d in range(plan.data_size)]
+
+
+def broadcast_round(plan: MeshPlan, msg: Any = None) -> Any:
+    """Rank 0's picklable ``msg`` on every rank, over the host group (the
+    other ranks pass nothing). A rank waits here until rank 0 sends, at most
+    the group's timeout: a leader that may wait longer for its own input
+    sends an idle message every ``idle_interval_s()``."""
+    box = [msg if plan.rank == 0 else None]
+    dist.broadcast_object_list(box, src=0, group=plan.host_group)
+    return box[0]
+
+
+def idle_interval_s() -> float:
+    """How long a leader may leave its followers waiting in
+    ``broadcast_round``: a share of ``TIMEOUT``, read at the call, so that
+    shortening ``TIMEOUT`` shortens both."""
+    return TIMEOUT.total_seconds() * IDLE_SHARE
 
 
 def barrier(plan: MeshPlan | None) -> None:
@@ -223,8 +245,9 @@ def _cli_main(module: str, argv: list[str]) -> int:
 
 
 def spawn_cli(module: str, argv: list[str], nprocs: int, device_type: str,
-              store_dir: str) -> int:
-    """Run ``module.main(argv)`` on ``nprocs`` spawned ranks (``launch``)."""
+              store_dir: str, backend: str | None = None) -> int:
+    """Run ``module.main(argv)`` on ``nprocs`` spawned ranks (``launch``;
+    ``backend="gloo"`` lets several ranks share a card)."""
     launch(_cli_main, nprocs, (module, list(argv)), device_type=device_type,
-           store_dir=store_dir)
+           backend=backend, store_dir=store_dir)
     return 0

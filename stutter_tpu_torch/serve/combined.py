@@ -7,7 +7,10 @@ fusion store's column names (``wavlm_layer_24``, ``whisper_encoder_layer_32``,
 ``extract/store.py:load_embeddings_combined`` builds them), so that a model
 trained on ``--model_type combined`` classifies live audio through the
 ordinary ``EmbeddingServer`` and ``ServingClassifier``. Both parts' device
-work is enqueued before either is collected.
+work is enqueued before either is collected. Under a plan both parts take
+the same one; the server gathers each rank's rows, ``combined_top`` among
+them (the parts' rows side by side, the same bits on whichever rank they
+are joined), to rank 0.
 """
 
 from __future__ import annotations
@@ -27,6 +30,9 @@ class CombinedExtractor:
     preferred_buckets = (30.0,)
 
     def __init__(self, wavlm_extractor, whisper_extractor):
+        self.plan = getattr(wavlm_extractor, "plan", None)
+        if getattr(whisper_extractor, "plan", None) is not self.plan:
+            raise ValueError("both parts of a CombinedExtractor take the same plan")
         self.parts = (("wavlm", wavlm_extractor), ("whisper", whisper_extractor))
         self.column_names = [f"{name}_{col}" for name, part in self.parts
                              for col in part.column_names] + ["combined_top"]

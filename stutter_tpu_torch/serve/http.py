@@ -13,6 +13,12 @@ do.
   answer.
 - ``GET /stats``: the server's counters; ``GET /healthz``: liveness.
 
+Under a plan the frontend binds on rank 0 only; the other ranks run
+``EmbeddingServer.follow``. A spooled body stays on disk until rank 0 has
+answered its request, which is after every rank has decoded it (rank 0
+answers a batch once every rank's rows are gathered), but the followers
+must see rank 0's temporary directory (``TMPDIR``) at the same path.
+
 Answers are JSON: ``{"id", "ok": true, "embeddings": {column: [floats]}}``
 (with ``prediction`` and ``probs`` where the server classifies); 422 with
 ``{"id", "ok": false, "error"}`` when decoding or the batch failed; 400 for
@@ -56,6 +62,9 @@ class HttpEmbeddingFrontend:
 
     def __init__(self, server: EmbeddingServer, host: str = "127.0.0.1", port: int = 8000,
                  request_timeout_s: float = 120.0):
+        if server.plan is not None and server.plan.rank != 0:
+            raise ValueError("the HTTP frontend binds on rank 0 only; the other ranks "
+                             "call server.follow()")
         self.server = server
         self.request_timeout_s = request_timeout_s
         self._queue: queue.Queue = queue.Queue()
@@ -119,7 +128,9 @@ class HttpEmbeddingFrontend:
         self.httpd.server_close()
         self._queue.put(self._stop)
         if self._serve_thread is not None:
-            self._serve_thread.join(timeout=5.0)
+            # under a plan the loop must end its followers' rounds and stop
+            # them before this process leaves the group
+            self._serve_thread.join(timeout=5.0 if self.server.plan is None else None)
 
     def serve_forever(self) -> None:
         """The CLI's blocking entry; Ctrl-C shuts down cleanly."""

@@ -18,6 +18,22 @@ never waits for a full batch.
   trimmed to it (``long_clip_policy``).
 - A failed batch answers only its own requests, and no request is answered
   twice; a classifier error still ships the embeddings.
+
+Under the extractor's plan (``parallel.mesh.MeshPlan``, one process a card)
+rank 0 runs this loop and every other rank runs ``follow``. Rank 0 sends
+each round to the followers before it submits it (``broadcast_round``): the
+paths of each bucket batch, in submit order, and the long clips' paths.
+Each rank decodes and encodes its own rows of each batch
+(``extract.pipeline.submit_rows``), so every rank must see the same files at
+the same paths. Where rank 0 finishes a round it sends "finish", and every
+rank collects and gathers that round's rows to rank 0
+(``collect_rows``); a batch that fails on any rank fails its own requests
+on rank 0, and every rank goes on to the next. Rank 0 alone emits,
+classifies and keeps the stats. A rank 0 with no traffic sends "idle"
+every ``idle_interval_s()``, so that its followers never wait in a
+collective for the group's whole timeout, and "stop" when its source ends.
+The JAX server shards each batch over its mesh inside its one loop; this is
+that loop with one process per card.
 """
 
 from __future__ import annotations
@@ -35,8 +51,9 @@ from typing import Callable, Iterable, Iterator
 import numpy as np
 
 from stutter_tpu_torch.audio.wavio import audio_info
-from stutter_tpu_torch.extract.batcher import BucketBatcher
-from stutter_tpu_torch.extract.pipeline import chunked_embeddings
+from stutter_tpu_torch.extract.batcher import Batch, BucketBatcher
+from stutter_tpu_torch.extract.pipeline import chunked_embeddings, collect_rows, submit_rows
+from stutter_tpu_torch.parallel.mesh import broadcast_round, idle_interval_s
 
 logger = logging.getLogger("stutter_tpu_torch.serve.server")
 
@@ -71,6 +88,7 @@ class EmbeddingServer:
             raise ValueError(f"long_clip_policy must be 'trim' or 'chunk', "
                              f"got {long_clip_policy!r}")
         self.extractor = extractor
+        self.plan = getattr(extractor, "plan", None)
         # checked against the extractor's columns now, so that a layer
         # mismatch fails at startup rather than on every request
         self.classifier = classifier
@@ -78,8 +96,12 @@ class EmbeddingServer:
         if classifier is not None and cols and classifier.layer not in cols:
             raise ValueError(f"classifier was trained on column '{classifier.layer}' but the "
                              f"extractor serves columns {list(cols)}")
+        data = self.plan.data_size if self.plan is not None else 1
         self.batcher = batcher or BucketBatcher(audio_budget_s=max_clips * 3.0,
-                                                max_batch=max_clips)
+                                                max_batch=max_clips, batch_multiple=data)
+        if self.batcher.batch_multiple % data:
+            raise ValueError(f"the batcher's batch_multiple {self.batcher.batch_multiple} does "
+                             f"not split over {data} data ranks")
         self.max_wait_s = max_wait_s
         self.max_clips = max_clips
         self.long_clip_policy = long_clip_policy
@@ -115,10 +137,33 @@ class EmbeddingServer:
 
     # -- one gathered round ------------------------------------------------
 
+    def _send(self, *msg) -> None:
+        """Rank 0: one message to the followers (nothing without a plan)."""
+        if self.plan is not None:
+            broadcast_round(self.plan, msg)
+
+    def _submit_batch(self, bucket_s: float, paths: list[str]):
+        """Decode this rank's rows of one bucket batch of ``paths`` and
+        enqueue them (``submit_rows``); a decode or submit error comes back
+        in the handle's place, as ``collect_rows`` raises it."""
+        shard = None if self.plan is None else (self.plan.data_rank, self.plan.data_size)
+        try:
+            batch = self.batcher._make_batch(paths, list(range(len(paths))), bucket_s, shard)
+        except Exception as e:  # noqa: BLE001 — fails this batch's requests only
+            logger.exception("batch decode failed")
+            return Batch(paths=[], rows=[], waves=np.zeros((0, 0), np.float32),
+                         lengths=np.zeros((0,), np.int64), ok=np.zeros((0,), bool),
+                         bucket_s=bucket_s), e
+        submitted = submit_rows(self.extractor, batch, sharded=True)
+        if isinstance(submitted[1], Exception):
+            logger.error("batch submit failed: %r", submitted[1])
+        return submitted
+
     def _submit_round(self, reqs: list[Request]):
-        """The round's host half: probe and split off the long clips, decode,
-        and submit every bucket batch without waiting for the device.
-        Returns the work ``_finish_round`` takes."""
+        """The round's host half: probe and split off the long clips, assign
+        the buckets, send the round to the followers, then decode and submit
+        every bucket batch without waiting for the device. Returns the work
+        ``_finish_round`` takes."""
         long_reqs: list[Request] = []
         durations: list[float | None] | None = None
         if self.long_clip_policy == "chunk":
@@ -137,20 +182,16 @@ class EmbeddingServer:
                     short.append(r)
                     durations.append(dur)  # assign_buckets need not probe again
             reqs = short
-        paths = [r.path for r in reqs]
-        assignment = self.batcher.assign_buckets(paths, durations=durations)
-        pending = []  # (requests of the batch, batch, handle | exception)
+        assignment = self.batcher.assign_buckets([r.path for r in reqs], durations=durations)
+        batches = []  # (bucket, requests of the batch)
         for bucket_s, rows in assignment.items():
             bsz = self.batcher.batch_size_for(bucket_s)
-            for i in range(0, len(rows), bsz):
-                chunk = rows[i: i + bsz]
-                chunk_reqs = [reqs[r] for r in chunk]
-                try:
-                    batch = self.batcher._make_batch(paths, chunk, bucket_s)
-                    pending.append((chunk_reqs, batch, self.extractor.submit(batch)))
-                except Exception as e:  # noqa: BLE001 — fails this batch's requests only
-                    logger.exception("batch submit failed")
-                    pending.append((chunk_reqs, None, e))
+            batches.extend((bucket_s, [reqs[r] for r in rows[i: i + bsz]])
+                           for i in range(0, len(rows), bsz))
+        # from here on every step is taken on every rank
+        self._send("round", [(b, [r.path for r in rs]) for b, rs in batches],
+                   [r.path for r in long_reqs])
+        pending = [(rs, self._submit_batch(b, [r.path for r in rs])) for b, rs in batches]
         return pending, long_reqs
 
     def _finish_round(self, work, emit: Callable[[Response], None], emitted: set[str]):
@@ -158,25 +199,24 @@ class EmbeddingServer:
         recorded in ``emitted``, so that a failure part way through never
         answers a request twice; a failed batch fails its own requests."""
         pending, long_reqs = work
-        for chunk_reqs, batch, handle in pending:
+        for chunk_reqs, submitted in pending:
             try:
-                if batch is None:
-                    raise handle
                 t_c = time.monotonic()
-                cols = self.extractor.collect(handle)
+                got = collect_rows(self.extractor, submitted)
                 self._collect_s += time.monotonic() - t_c
-                self._audio_s += float(np.sum(batch.lengths[batch.ok])) / float(batch.sample_rate)
+                self._audio_s += got.audio_seconds
             except Exception as e:  # noqa: BLE001
                 logger.exception("batch failed")
                 for req in chunk_reqs:
                     emitted.add(req.req_id)
                     emit(Response(req.req_id, req.path, False, None, f"batch failed: {e}"))
                 continue
+            cols, ok = got.columns, got.ok
             # one classifier call for the whole batch
             preds: dict[int, tuple[str, dict | None]] = {}
             classify_err = None
             if self.classifier is not None:
-                valid = [j for j in range(len(chunk_reqs)) if batch.ok[j]]
+                valid = [j for j in range(len(chunk_reqs)) if ok[j]]
                 try:
                     rows = np.asarray(cols[self.classifier.layer], np.float32)[valid]
                     labels, probs = self.classifier.predict_rows(rows)
@@ -187,7 +227,7 @@ class EmbeddingServer:
                     classify_err = f"classification failed: {e}"
             for j, req in enumerate(chunk_reqs):
                 emitted.add(req.req_id)
-                if not batch.ok[j]:
+                if not ok[j]:
                     emit(Response(req.req_id, req.path, False, None, "decode failed"))
                     continue
                 label, probs_j = preds.get(j, (None, None))
@@ -223,8 +263,10 @@ class EmbeddingServer:
     # -- serving loop ------------------------------------------------------
 
     def _finish_pending(self, pending) -> None:
-        """Finish a submitted round: collect, emit, never answer twice."""
+        """Finish a submitted round (the followers theirs): collect, emit,
+        never answer twice."""
         work, gathered, tracked_emit, emitted, t0 = pending
+        self._send("finish")
         try:
             self._finish_round(work, tracked_emit, emitted)
         except Exception as e:  # noqa: BLE001 — a bad round must not end the server
@@ -243,7 +285,11 @@ class EmbeddingServer:
 
         One round is in flight: round k's device work runs while round k+1
         gathers and decodes. When the queue goes idle the round in flight is
-        finished at once, so light traffic never waits on a later round."""
+        finished at once, so light traffic never waits on a later round.
+        Under a plan this is rank 0's loop: it leads the followers' rounds
+        and ends them when ``requests`` is exhausted."""
+        if self.plan is not None and self.plan.rank != 0:
+            raise RuntimeError("serve runs on rank 0; the other ranks call follow()")
         q: queue.Queue = queue.Queue()
 
         def reader():
@@ -268,7 +314,7 @@ class EmbeddingServer:
                     in_flight = None
                     continue
             else:
-                first = q.get()
+                first = self._next_request(q)
             if first is _STOP:
                 break
             arrivals = {first.req_id: time.monotonic()}
@@ -315,7 +361,56 @@ class EmbeddingServer:
                 in_flight = (work, gathered, tracked_emit, emitted, t0)
         if in_flight is not None:
             self._finish_pending(in_flight)
+        self._send("stop")
         t.join(timeout=1.0)
+
+    def _next_request(self, q: queue.Queue):
+        """Wait for the next request; under a plan, tell the followers every
+        ``idle_interval_s()`` that the leader is idle."""
+        if self.plan is None:
+            return q.get()
+        while True:
+            try:
+                return q.get(timeout=idle_interval_s())
+            except queue.Empty:
+                self._send("idle")
+
+    # -- the other ranks of a plan -----------------------------------------
+
+    def follow(self) -> None:
+        """A follower's loop (a rank other than 0 of the plan): take part in
+        rank 0's rounds until it sends "stop". On "round" submit this rank's
+        rows of each bucket batch, in rank 0's order; on "finish" collect and
+        gather the oldest round in flight, then its long clips, as rank 0
+        finishes them."""
+        if self.plan is None or self.plan.rank == 0:
+            raise RuntimeError("follow runs on the ranks other than 0 of a plan")
+        in_flight: deque = deque()
+        while True:
+            op, *args = broadcast_round(self.plan)
+            if op == "round":
+                batches, long_paths = args
+                in_flight.append(([self._submit_batch(b, paths) for b, paths in batches],
+                                  long_paths))
+            elif op == "finish":
+                self._finish_following(*in_flight.popleft())
+            elif op == "stop":
+                return
+            # "idle": rank 0 is waiting for traffic
+
+    def _finish_following(self, pending: list, long_paths: list[str]) -> None:
+        """A follower's part of ``_finish_round``: the same collectives, in
+        the same order; rank 0 reports every failure."""
+        for submitted in pending:
+            try:
+                collect_rows(self.extractor, submitted)
+            except Exception:  # noqa: BLE001 — rank 0 fails the batch's requests
+                logger.exception("batch failed on this rank")
+        for path in long_paths:
+            try:
+                chunked_embeddings(self.extractor, self.batcher, path)
+            except Exception:  # noqa: BLE001 — rank 0 fails the request
+                logger.exception("chunked extraction failed for %s on this rank", path)
 
 
 def jsonl_requests(lines: Iterable[str]) -> Iterator[Request]:

@@ -11,6 +11,12 @@ batches of 64, one padded length for all, through the same ``submit`` and
 ``collect`` as the extraction pipeline: WavLM's batches go through the
 gated attention kernel, Whisper's through the log-mel and flash attention
 kernels.
+
+Under the extractor's plan (``parallel.mesh.MeshPlan``) rank 0 makes the
+copies and sends them to the other ranks (``broadcast_round``), so that
+every rank holds the same copies, bit for bit, whatever its card's DSP
+gives. The batches pad to the data size, every rank encodes its rows of
+each (``extract.pipeline.submit_rows``), and rank 0 alone gets the rows.
 """
 
 from __future__ import annotations
@@ -23,17 +29,26 @@ import numpy as np
 
 from stutter_tpu_torch.audio.wavio import load_audio
 from stutter_tpu_torch.extract.batcher import Batch
+from stutter_tpu_torch.extract.pipeline import collect_rows, submit_rows
+from stutter_tpu_torch.parallel.mesh import broadcast_round
 from stutter_tpu_torch.train.augment import AugmentConfig, augment_audio
 
 logger = logging.getLogger("stutter_tpu_torch.train.augment_extract")
 
 
-def _embed_waves(extractor, waves: list[np.ndarray], chunk: int = 64) -> dict[str, np.ndarray]:
+def _embed_waves(extractor, waves: list[np.ndarray],
+                 chunk: int = 64) -> dict[str, np.ndarray] | None:
     """{column: [n, D]} of the waves, one extractor call per chunk of
     ``chunk`` clips, all padded to one length (frame-aligned by the
-    extractor's ``frame_align`` where it has one)."""
+    extractor's ``frame_align`` where it has one). Under the extractor's
+    plan the chunk and each batch pad to a multiple of the data size (pad
+    rows not ok), as the JAX package pads to its mesh; every rank encodes
+    its rows, and rank 0 gets the result, the other ranks None."""
     sr = 16000
     out: dict[str, list] = {name: [] for name in extractor.column_names}
+    plan = getattr(extractor, "plan", None)
+    multiple = plan.data_size if plan is not None else 1
+    chunk = -(-chunk // multiple) * multiple
     max_len = max(len(w) for w in waves)
     align = getattr(extractor, "frame_align", None)
     if align is not None:
@@ -44,18 +59,22 @@ def _embed_waves(extractor, waves: list[np.ndarray], chunk: int = 64) -> dict[st
 
     for i in range(0, len(waves), chunk):
         group = waves[i: i + chunk]
-        padded = np.zeros((len(group), max_len), np.float32)
-        lengths = np.zeros((len(group),), np.int64)
+        bsz = -(-len(group) // multiple) * multiple
+        padded = np.zeros((bsz, max_len), np.float32)
+        lengths = np.zeros((bsz,), np.int64)
         for j, w in enumerate(group):
             w = w[:max_len]
             padded[j, : len(w)] = w
             lengths[j] = len(w)
         batch = Batch(paths=[f"<aug:{i + j}>" for j in range(len(group))],
                       rows=list(range(len(group))), waves=padded, lengths=lengths,
-                      ok=np.ones(len(group), bool), bucket_s=max_len / sr, sample_rate=sr)
-        embs = extractor(batch)
-        for name in out:
-            out[name].append(embs[name][: len(group)])
+                      ok=np.arange(bsz) < len(group), bucket_s=max_len / sr, sample_rate=sr)
+        got = collect_rows(extractor, submit_rows(extractor, batch))
+        if got is not None:
+            for name in out:
+                out[name].append(got.columns[name])
+    if plan is not None and plan.rank != 0:
+        return None
     return {name: np.concatenate(v) for name, v in out.items()}
 
 
@@ -71,26 +90,23 @@ def _minority_classes(labels: list, threshold: int) -> list:
     return [lab for lab in ordered if counts[lab] < threshold]
 
 
-def apply_data_augmentation(train_meta: list[dict], train_embeddings: dict[str, np.ndarray],
-                            extractor, augmentation_factor: int = 3,
-                            minority_threshold: int = 100, config: AugmentConfig | None = None,
-                            seed: int = 0) -> tuple[list[dict], dict[str, np.ndarray]]:
-    """Augment the minority classes and append their re-extracted embeddings.
-
-    A clip that cannot be augmented (``ValueError``) is skipped, as in the
-    reference; any other error, a CUDA error among them, ends the run."""
+def _augmented_copies(train_meta: list[dict], extractor, augmentation_factor: int,
+                      minority_threshold: int, config: AugmentConfig | None,
+                      seed: int) -> tuple[list[dict], list[np.ndarray]]:
+    """The minority classes' augmented copies and their metadata rows, in the
+    reference's order; empty where there is nothing to augment."""
     if not any("path" in row for row in train_meta):
         logger.warning("no audio file paths found; skipping data augmentation")
-        return train_meta, train_embeddings
+        return [], []
     if not any("label" in row for row in train_meta):
         logger.warning("no labels found; skipping data augmentation")
-        return train_meta, train_embeddings
+        return [], []
 
     minority = _minority_classes([row.get("label") for row in train_meta], minority_threshold)
     logger.info("classes to augment (< %d samples): %s", minority_threshold, minority)
     if not minority:
         logger.info("no minority classes found; skipping augmentation")
-        return train_meta, train_embeddings
+        return [], []
 
     rng = random.Random(seed)
     aug_rows: list[dict] = []
@@ -112,12 +128,36 @@ def apply_data_augmentation(train_meta: list[dict], train_embeddings: dict[str, 
                 aug_rows.append(dict(row, filename=f"{row['filename']}_aug_{aug_idx}",
                                      augmented=True, augmentation_type="mixed"))
                 aug_waves.append(wave)
-
     if not aug_rows:
         logger.warning("no augmented samples were created")
+    return aug_rows, aug_waves
+
+
+def apply_data_augmentation(train_meta: list[dict], train_embeddings: dict[str, np.ndarray],
+                            extractor, augmentation_factor: int = 3,
+                            minority_threshold: int = 100, config: AugmentConfig | None = None,
+                            seed: int = 0) -> tuple[list[dict], dict[str, np.ndarray]]:
+    """Augment the minority classes and append their re-extracted embeddings.
+
+    A clip that cannot be augmented (``ValueError``) is skipped, as in the
+    reference; any other error, a CUDA error among them, ends the run. Under
+    the extractor's plan rank 0 makes the copies and every rank encodes its
+    rows of them; the other ranks get ``train_meta`` and
+    ``train_embeddings`` back as they were."""
+    plan = getattr(extractor, "plan", None)
+    aug_rows: list[dict] = []
+    aug_waves: list[np.ndarray] = []
+    if plan is None or plan.rank == 0:
+        aug_rows, aug_waves = _augmented_copies(train_meta, extractor, augmentation_factor,
+                                                minority_threshold, config, seed)
+    if plan is not None:
+        aug_rows, aug_waves = broadcast_round(plan, (aug_rows, aug_waves))
+    if not aug_waves:
         return train_meta, train_embeddings
 
     aug_embeddings = _embed_waves(extractor, aug_waves)
+    if aug_embeddings is None:  # not rank 0
+        return train_meta, train_embeddings
     combined_meta = list(train_meta) + aug_rows
     combined = {}
     for layer_name, original in train_embeddings.items():

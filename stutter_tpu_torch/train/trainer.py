@@ -15,6 +15,11 @@ stages.
 The output tree is the JAX package's, but for the saved models' format
 (``train/persistence.py``). SMOTE, the heads and the re-extraction run on
 ``TrainConfig.device``.
+
+Given an extractor with a plan (``parallel.mesh.MeshPlan``), every rank
+loads the same store and takes part in the re-extraction; then every rank
+but rank 0 returns an empty dict. Rank 0 alone fits and writes, as the JAX
+package's fits do not use its mesh either.
 """
 
 from __future__ import annotations
@@ -93,6 +98,13 @@ def _load_store(cfg: TrainConfig):
     return load_embeddings(cfg.embeddings_dir, cfg.model_type)
 
 
+def _leads(extractor) -> bool:
+    """Whether this process fits and writes: rank 0 of the extractor's plan,
+    or the only process."""
+    plan = getattr(extractor, "plan", None)
+    return plan is None or plan.rank == 0
+
+
 def _prepare_run(cfg: TrainConfig, extractor):
     """What both trainers share: the store loaded and split, the label map
     over every split, and the augmentation. Returns (layer_names,
@@ -103,7 +115,8 @@ def _prepare_run(cfg: TrainConfig, extractor):
     if metadata is None or not embeddings:
         raise FileNotFoundError(
             f"no embeddings found for {cfg.model_type} under {cfg.embeddings_dir}")
-    os.makedirs(cfg.results_dir, exist_ok=True)
+    if _leads(extractor):
+        os.makedirs(cfg.results_dir, exist_ok=True)
 
     layer_names = sorted(embeddings, key=_layer_sort_key)
     train_meta, eval_meta, train_embeddings, eval_embeddings = _split_store(
@@ -152,9 +165,12 @@ def _result_row(layer: str, key: str, name: str, r: dict) -> dict:
 
 
 def run_balanced_training(cfg: TrainConfig, extractor=None) -> dict:
-    """The model_training_01 pipeline. Returns {layer: best-result dict}."""
+    """The model_training_01 pipeline. Returns {layer: best-result dict} (on
+    a rank other than 0 of the extractor's plan, {} after the re-extraction)."""
     layer_names, train_meta, eval_meta, train_emb, eval_emb, global_labels = _prepare_run(
         cfg, extractor)
+    if not _leads(extractor):
+        return {}
     all_rows: list[dict] = []
     best_per_layer: dict[str, dict] = {}
     for layer in layer_names:
@@ -190,9 +206,12 @@ def run_balanced_training(cfg: TrainConfig, extractor=None) -> dict:
 
 
 def run_grid_training(cfg: TrainConfig, extractor=None, model_names=GRID_MODELS) -> dict:
-    """The model_training_1 pipeline (grid trainer + quality stages)."""
+    """The model_training_1 pipeline (grid trainer + quality stages); {} on a
+    rank other than 0 of the extractor's plan, after the re-extraction."""
     layer_names, train_meta, eval_meta, train_emb, eval_emb, global_labels = _prepare_run(
         cfg, extractor)
+    if not _leads(extractor):
+        return {}
     all_rows: list[dict] = []
     best_per_layer: dict[str, dict] = {}
     for layer in layer_names:

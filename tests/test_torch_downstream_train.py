@@ -263,8 +263,9 @@ def test_train_cli_on_cpu(tmp_path, caplog):
                            "--device", "cpu", "--no_augmentation"]) == 1
     with pytest.raises(OSError, match="local checkpoint directory"):  # no download
         train_cli.main(base + ["--results_dir", out])
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        grid_cli.main(base + ["--results_dir", out, "--devices", "2"])
+    for cli in (train_cli, grid_cli):  # a bad mesh, before any model or rank
+        with pytest.raises(ValueError, match="mesh"):
+            cli.main(base + ["--results_dir", out, "--devices", "2", "--tp", "3"])
     args = grid_cli.parse_args(["--embeddings_dir", "x", "--results_dir", "y",
                                 "--use_smote", "False"])
     assert args.use_smote is False and args.device == "cuda"

@@ -320,13 +320,21 @@ def test_pipelined_round_drains_on_idle_queue(corpus, extractor):
     assert [r.req_id for r in responses] == ["a", "b"] and all(r.ok for r in responses)
 
 
-def test_serve_cli_refuses_multi_device_and_bad_address(tmp_path):
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        serve_cli.main(["--random_init", "--devices", "2", "--input", str(tmp_path / "x")])
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        serve_cli.main(["--random_init", "--tp", "2", "--input", str(tmp_path / "x")])
-    # checked before any model is built
-    assert serve_cli.main(["--model_type", "wavlm", "--random_init", "--http", "localhost"]) == 2
+def test_serve_cli_refuses_bad_mesh_and_bad_address(tmp_path, monkeypatch):
+    """A --tp that does not divide --devices, and a bad --http address, are
+    refused before any model is built or rank spawned."""
+    from stutter_tpu_torch.cli import train as train_cli
+
+    def no_model(*a, **k):
+        raise AssertionError("a model was built")
+
+    monkeypatch.setattr(train_cli, "build_extractor_for", no_model)
+    for mesh in (["--devices", "2", "--tp", "3"], ["--tp", "2"]):
+        with pytest.raises(ValueError, match="mesh"):
+            serve_cli.main(["--random_init", "--device", "cpu", "--input",
+                            str(tmp_path / "x"), *mesh])
+    assert serve_cli.main(["--model_type", "wavlm", "--random_init", "--http", "localhost",
+                           "--devices", "2", "--tp", "3"]) == 2
 
 
 # --- classification (tests/test_serve_classify.py) ---------------------------
