@@ -2,9 +2,10 @@
 """Run the PyTorch port's WavLM-Large and Whisper-large extraction (fidelity,
 fast, turbo), WavLM's long-bucket escape hatch, the two attention probes,
 the fused WavLM stem, WavLM-Large fine-tuning, the downstream classifier
-stack, HF checkpoint loading, the chunk long-file policy, serving and the
-process groups of data and tensor parallelism on one NVIDIA GPU and check
-them.
+stack, HF checkpoint loading, the chunk long-file policy, serving, the host
+audio runtime, fine-tuning's remat policies and int8_forward, Whisper's
+shifted-GEMM stem and the process groups of data and tensor parallelism on
+one NVIDIA GPU and check them.
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
     python3 chip_smoke.py --only-parallel   # [slice], [parallel], then [chunk] and
@@ -68,10 +69,19 @@ Phases, one line each on stdout ([time] lines give each phase's seconds):
    frames, and untimed at one clip, a one-frame clip (T = 400), an
    unaligned length and 1 s clips, whose last layers leave a CTA of a
    cluster with no rows;
+5e. decode: the host audio runtime (audio/csrc/wavio.cpp, ffdecode.cpp,
+   built with g++ into build/): its build seconds, whether libav was found,
+   os.cpu_count(); the native parser bit-equal to the numpy plain version on
+   every format of tests/test_audio_robustness.py; decode_batch (the C++
+   thread pool, 1 thread and the default) against decode_batch_plain on 128
+   x 3 s at 16 kHz and 44.1 kHz (resampled): median ms per batch of 5;
 6. slice: a synthetic 16 kHz corpus through ExtractionPipeline.run with
    WavLM-Large (random weights, seed 0) in the fast preset; checks the store,
    the checkpoints, that every attention call went through the kernel, and
    that a resumed run skips finished rows;
+6b. decode_flac: with libav, the slice's corpus and its FLAC copy through
+   ExtractionPipeline with one batcher's settings: store rows bit-equal, 24
+   gated launches a batch (without libav a line saying so);
 7. path: one 3 s bucket batch through WavLMModel.encode with the kernel and
    with the plain attention, in the fast and the fidelity preset;
 7a. long_slice: clips of the 3 s, 20 s and 30 s buckets through
@@ -90,6 +100,9 @@ Phases, one line each on stdout ([time] lines give each phase's seconds):
    launches per batch, and resume;
 10. whisper_path: one 16 x 30 s batch through the kernel path and the plain
    path (plain log-mel and attention), in both presets;
+10a. whisper_gemm_stem: the same fast batch with the stem as three shifted
+   GEMMs (gemm_stem) against the conv stem: pooled rows within 5e-4, the
+   stem's ms each way, one log-mel call and 32 attention launches;
 10b. whisper_turbo_slice: the Whisper slice in turbo (5 int8 GEMMs per
    encoder layer and batch, none in the decoder) and turbo's distance from
    the f32 path on the 16 x 30 s batch;
@@ -98,6 +111,12 @@ Phases, one line each on stdout ([time] lines give each phase's seconds):
 12. finetune_path: one fixed WavLM-Large training step at 8 x 3 s through
    the kernels and through the plain attention, bf16 and f32: the loss and
    the gradient cosine distance per group (encoder, layer weights, head);
+12b. finetune_policies: WavLM-Large 8 x 3 s bf16 from one state, for each
+   remat policy (layer, layer_dots, layer_probs, dots, nothing) and layer
+   with int8_forward: one gradient pass (launches, int8 products) and two
+   updates (ms, peak memory); gradients per group within 1e-3 of layer's;
+   int8_forward's cosine distance and norm ratio against the bf16 step, and
+   its kernel path within 1e-3 of its plain path;
 13. finetune: stutter_tpu_torch.cli.finetune.main on a synthetic labeled
    corpus (128 clips of 2-3 s and 6 of 8-10 s to train on) at WavLM-Large:
    2 epochs with checkpoints, a --resume run for a third, a --grad_accum 2
@@ -132,8 +151,9 @@ Phases, one line each on stdout ([time] lines give each phase's seconds):
    requests (two 41 s clips, one undecodable file), then 8 POSTs, /stats and
    /healthz on the HTTP frontend: each request answered once, only the bad
    file failing, rows within 1e-3 of the pipeline's, the predictions
-   load_model's, 24 gated launches per batch; p50/p95 latency,
-   device_s_per_audio_s, audio-s/s;
+   load_model's, 24 gated launches per batch; p50/p95 latency (beside PR
+   11's on the numpy decoder), device_s_per_audio_s, audio-s/s; with libav,
+   a FLAC POST answered 200 with the WAV POST's row;
 20. parallel (after the Whisper phases, from the fast states they leave):
    a one-rank NCCL group through make_plan ([slice]'s rows and two
    data-parallel fine-tune steps bit-equal to the plain runs; audio-s/s with
@@ -643,6 +663,206 @@ def phase_slice(torch, extractor, work: Path, phase: str = "slice") -> dict:
 
     check_resume(torch, pipe, extractor, meta, out, results)
     return dict(counts, batches=seen["batches"])
+
+
+# ---------------------------------------------------------------------------
+# [decode]: the native host audio runtime (audio/csrc/wavio.cpp, ffdecode.cpp)
+# ---------------------------------------------------------------------------
+
+# every format of tests/test_audio_robustness.py's parametrisation: (format
+# tag, bits, channels). The native parser is bit-equal to the numpy one on
+# each: both round a stereo mean once (the f32 sum of two such samples is
+# exact, or rounds as the double sum does before its halving).
+DECODE_FORMATS = ((1, 8, 1), (1, 16, 2), (1, 24, 2), (1, 32, 1), (3, 32, 2), (3, 64, 1))
+# the native resampler (windowed sinc, double sums) against the plain
+# version's f32 conv1d: the JAX test's bar (tests/test_resample.py)
+RESAMPLE_MAX_ABS = 1e-4
+DECODE_RUNS = 5
+# the chunk path's decode: one long 44.1 kHz file through load_audio
+LONG_DECODE_S = 600.0
+# [serve]'s 96-request burst on the numpy decoder (PR 11, H100 80GB HBM3, 700 W)
+PR11_SERVE_P50_P95_MS = "616.6-710.8"
+
+
+def wav_bytes(x, fmt_tag: int, bits: int, rate: int) -> bytes:
+    """x [frames, channels] in [-1, 1] as a RIFF/WAVE file: integer PCM
+    (fmt_tag 1) of 8, 16, 24 or 32 bits, or IEEE float (3) of 32 or 64."""
+    import struct
+
+    import numpy as np
+
+    flat = x.reshape(-1)
+    if fmt_tag == 3:
+        payload = flat.astype(np.float32 if bits == 32 else np.float64).tobytes()
+    elif bits == 8:
+        payload = np.clip(np.round(flat * 128) + 128, 0, 255).astype(np.uint8).tobytes()
+    else:
+        scale = float(1 << (bits - 1))
+        q = np.clip(np.round(flat * scale), -scale, scale - 1).astype("<i4")
+        width = bits // 8  # little-endian: the low bytes of each int32
+        payload = q.view(np.uint8).reshape(-1, 4)[:, :width].tobytes()
+    channels = x.shape[1]
+    block = channels * bits // 8
+    fmt = struct.pack("<HHIIHH", fmt_tag, channels, rate, rate * block, block, bits)
+    body = (b"fmt " + struct.pack("<I", len(fmt)) + fmt
+            + b"data" + struct.pack("<I", len(payload)) + payload)
+    return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WAVE" + body
+
+
+def phase_decode(work: Path, card: str, clips: int = 128, seconds: float = 3.0) -> None:
+    """The host audio runtime: its build (seconds, libav or not), the native
+    parser bit-equal to the numpy one on every format, and ``decode_batch``
+    (the C++ thread pool, 1 thread and the default) against
+    ``decode_batch_plain`` (numpy, one file after another, torch resampling)
+    on ``clips`` x ``seconds`` of 16-bit WAV at 16 kHz and at 44.1 kHz
+    (resampled to 16 kHz): median ms per batch of DECODE_RUNS, in turns,
+    after a warm call (the files then in the page cache); rows bit-equal at
+    16 kHz, within RESAMPLE_MAX_ABS at 44.1 kHz. Then the chunk path's
+    ``load_audio`` of one LONG_DECODE_S file at 44.1 kHz against its plain
+    version, each of DECODE_RUNS calls."""
+    import numpy as np
+
+    from stutter_tpu_torch.audio import build as audio_build
+    from stutter_tpu_torch.audio import wavio
+    from stutter_tpu_torch.extract.batcher import BucketBatcher
+
+    info = audio_build.build()
+    threads = wavio.default_threads()
+    say("decode_build", seconds=f"{info['seconds']:.2f}", libav=info["libav"],
+        compressed='"libav"' if info["libav"] else '"no libav headers"',
+        cpu_count=os.cpu_count(), default_threads=threads,
+        library=info["wavio"].relative_to(ROOT), card=f'"{card}"')
+
+    rng = np.random.RandomState(3)
+    formats = work / "decode_formats"
+    formats.mkdir()
+    for tag, bits, channels in DECODE_FORMATS:
+        path = formats / f"tag{tag}_{bits}bit_{channels}ch.wav"
+        path.write_bytes(wav_bytes(np.clip(rng.randn(4000, channels) * 0.3, -0.99, 0.99),
+                                   tag, bits, 16000))
+        (x, sr), (y, sr_plain) = wavio.read_wav(str(path)), wavio.read_wav_plain(str(path))
+        check(sr == sr_plain == 16000 and x.dtype == y.dtype == np.float32
+              and np.array_equal(x, y), f"decode: native parser differs on {path.name}")
+    say("decode_parse", formats=len(DECODE_FORMATS), native_vs_plain="bit-equal")
+
+    max_samples = BucketBatcher(frame_align=(400, 320, 16)).bucket_samples(seconds)
+    for rate in (16000, 44100):
+        folder = work / f"decode_{rate}"
+        folder.mkdir()
+        paths, n = [], int(seconds * rate)
+        for i in range(clips):
+            t = np.arange(n) / rate
+            x = 0.3 * np.sin(2 * np.pi * rng.uniform(100, 600) * t) + 0.05 * rng.randn(n)
+            paths.append(str(folder / f"clip{i:03d}.wav"))
+            wavio.write_wav(paths[-1], x, rate)
+        fns = {"one": lambda: wavio.decode_batch(paths, 16000, max_samples, n_threads=1),
+               "default": lambda: wavio.decode_batch(paths, 16000, max_samples, threads),
+               "plain": lambda: wavio.decode_batch_plain(paths, 16000, max_samples)}
+        outs = {k: fn() for k, fn in fns.items()}
+        times = {k: [] for k in fns}
+        for _ in range(DECODE_RUNS):
+            for k, fn in fns.items():
+                t0 = time.perf_counter()
+                fn()
+                times[k].append((time.perf_counter() - t0) * 1e3)
+        ms = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+        (w1, l1, ok1), (wn, ln, okn), (wp, lp, okp) = outs["one"], outs["default"], outs["plain"]
+        check(ok1.all() and okn.all() and okp.all(), f"decode: a {rate} Hz clip failed")
+        check(np.array_equal(w1, wn) and np.array_equal(l1, ln) and np.array_equal(l1, lp),
+              f"decode: {rate} Hz rows or lengths differ between thread counts or the plain run")
+        err = float(np.abs(wn - wp).max())
+        check(err == 0.0 if rate == 16000 else err <= RESAMPLE_MAX_ABS,
+              f"decode: {rate} Hz native rows {err:.3g} from the plain version's")
+        say("decode", rate=rate, batch=f"{clips}x{seconds:g}s", samples=max_samples,
+            ms_1_thread=f"{ms['one']:.1f}", threads=threads,
+            ms_threads=f"{ms['default']:.1f}", plain_ms=f"{ms['plain']:.1f}",
+            plain_over_threads=f"{ms['plain'] / ms['default']:.2f}",
+            max_abs_vs_plain=f"{err:.3g}", tol=0.0 if rate == 16000 else RESAMPLE_MAX_ABS,
+            runs=DECODE_RUNS, card=f'"{card}"')
+
+    # the chunk path's decode: load_audio of one long file (the native
+    # resampler on the default threads) against the plain version (the numpy
+    # parser, then ops.resample in torch on the host)
+    import torch
+
+    from stutter_tpu_torch.ops.resample import resample
+
+    long_path = str(work / "decode_long_44100.wav")
+    wavio.write_wav(long_path, 0.1 * rng.randn(int(LONG_DECODE_S * 44100)), 44100)
+
+    def load_plain():
+        x, sr = wavio.read_wav_plain(long_path)
+        return resample(torch.from_numpy(x), sr, 16000).numpy()
+
+    fns = {"native": lambda: wavio.load_audio(long_path), "plain": load_plain}
+    outs = {k: fn() for k, fn in fns.items()}
+    times = {k: [] for k in fns}
+    for _ in range(DECODE_RUNS):
+        for k, fn in fns.items():
+            t0 = time.perf_counter()
+            fn()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    check(outs["native"] is not None and outs["native"].shape == outs["plain"].shape,
+          "decode: load_audio failed on the long file or its length differs")
+    err = float(np.abs(outs["native"] - outs["plain"]).max())
+    check(err <= RESAMPLE_MAX_ABS, f"decode: load_audio {err:.3g} from the plain version's")
+    say("decode_long", rate=44100, seconds=f"{LONG_DECODE_S:g}", threads=threads,
+        torch_threads=torch.get_num_threads(),
+        load_audio_ms=",".join(f"{t:.1f}" for t in times["native"]),
+        plain_ms=",".join(f"{t:.1f}" for t in times["plain"]),
+        max_abs_vs_plain=f"{err:.3g}", tol=RESAMPLE_MAX_ABS, card=f'"{card}"')
+
+
+def phase_decode_flac(torch, extractor, work: Path, card: str) -> None:
+    """With libav: [slice]'s corpus and its FLAC copy (``flac_copy``: each
+    clip decodes to the WAV's samples) through ExtractionPipeline with one
+    batcher's settings, so that both take the same batches: every store row
+    bit-equal, the gated kernel launched once a layer a batch. Without libav
+    the line says so and nothing is checked."""
+    from stutter_tpu_torch.audio.build import get_ff_lib
+
+    if get_ff_lib() is None:
+        say("decode_flac", compressed='"no libav headers"', card=f'"{card}"')
+        return
+    import numpy as np
+
+    from stutter_tpu_torch.audio.synthetic import flac_copy
+    from stutter_tpu_torch.extract.batcher import BucketBatcher
+    from stutter_tpu_torch.extract.pipeline import ExtractionPipeline
+    from stutter_tpu_torch.extract.scanner import create_metadata_from_files
+
+    on_card = extractor.device.type == "cuda"
+    n_layers = extractor.cfg.num_hidden_layers
+    flac_copy(str(work / "corpus"), str(work / "flac_corpus"))
+    runs = {}
+    for name in ("corpus", "flac_corpus"):
+        meta = create_metadata_from_files(str(work / name))
+        pipe = ExtractionPipeline(extractor,
+                                  batcher=BucketBatcher(frame_align=extractor.frame_align))
+        seen = count_submits(extractor)
+        zero_counts()
+        pipe.run(meta, str(work / f"{name}_decode_store"))
+        if on_card:
+            torch.cuda.synchronize()
+        counts = read_counts()
+        del extractor.submit
+        launches = counts["gated_relpos_attention"]
+        check(launches == n_layers * seen["batches"] * on_card,
+              f"decode_flac: {launches} gated launches for {seen['batches']} {name} batches")
+        runs[name] = (len(meta), seen["batches"], launches)
+    check(runs["corpus"] == runs["flac_corpus"], f"decode_flac: runs differ {runs}")
+    rows = 0
+    for split in ("train", "test", "devel"):
+        for layer in extractor.layer_indices:
+            f = f"{split}/layer_{layer}_embeddings.npy"
+            a = np.load(work / "corpus_decode_store" / f)
+            b = np.load(work / "flac_corpus_decode_store" / f)
+            check(a.shape == b.shape and np.array_equal(a, b),
+                  f"decode_flac: {f} differs between the WAV and the FLAC corpus")
+        rows += len(a)
+    clips, batches, launches = runs["flac_corpus"]
+    say("decode_flac", clips=clips, rows=rows, batches=batches, launches=launches,
+        expected=f"{n_layers}x{batches}", rows_vs_wav="bit-equal", card=f'"{card}"')
 
 
 def wavlm_test_batch(torch, cfg):
@@ -1326,6 +1546,45 @@ def phase_whisper_path(torch, fast_model, fid_model):
           f"fidelity: kernel vs plain path cosine {d['fid']:.3e}")
 
 
+def phase_whisper_gemm_stem(torch, model, card: str) -> None:
+    """Whisper-large fast at 16 x 30 s with the stem as three shifted GEMMs
+    (``gemm_stem``) against the conv stem: every pooled column within
+    WHISPER_FAST_DECODER_COSINE (the fast decoder's bar, as for any change of
+    the encoder's input), the stem's ms each way (CUDA events, in turns), and
+    the gemm_stem run's launches: one log-mel call, one flash attention a
+    layer."""
+    from stutter_tpu_torch.frontend.whisper_frontend import whisper_features
+
+    wave = whisper_test_clips(torch, 16, seed=5)
+    n = model.cfg.encoder_layers
+    idx = (n, n - 1, n - 2)
+    rows, counts = {}, {}
+    for gemm in (False, True):
+        zero_counts()
+        rows[gemm] = model.embed(whisper_features(wave), idx, idx, gemm_stem=gemm)
+        torch.cuda.synchronize()
+        counts[gemm] = read_counts()
+        check(rows[gemm].shape == (6, 16, model.cfg.d_model)
+              and bool(torch.isfinite(rows[gemm]).all()),
+              f"whisper_gemm_stem: rows non-finite or of the wrong shape (gemm_stem={gemm})")
+    on_card = wave.device.type == "cuda"
+    check(counts[True]["flash_mha"] == n * on_card
+          and counts[True]["whisper_log_mel"] == on_card,
+          f"whisper_gemm_stem: launches {counts[True]}")
+    worst = max(cosine_distance(rows[True][s, i], rows[False][s, i])
+                for s in range(6) for i in range(16))
+    mel = whisper_features(wave)
+    with torch.inference_mode():
+        conv_ms, gemm_ms = time_turns(torch, lambda: model.encoder.stem(mel),
+                                      lambda: model.encoder.stem(mel, gemm_stem=True))
+    say("whisper_gemm_stem", batch="16x30s", worst_pooled_cosine_vs_conv=f"{worst:.3e}",
+        tol=WHISPER_FAST_DECODER_COSINE, conv_stem_ms=f"{conv_ms:.4f}",
+        gemm_stem_ms=f"{gemm_ms:.4f}", flash_mha_launches=counts[True]["flash_mha"],
+        log_mel_calls=counts[True]["whisper_log_mel"], card=f'"{card}"')
+    check(worst <= WHISPER_FAST_DECODER_COSINE,
+          f"whisper_gemm_stem: pooled rows {worst:.3e} from the conv stem's")
+
+
 def phase_whisper_throughput(torch, extractor, work: Path, card: str) -> float:
     """The Whisper pipeline in the extractor's preset over 64 clips of 2-3 s
     in batches of 16 (the CLI's batch), after a warm batch, and one batch's
@@ -1372,16 +1631,19 @@ def phase_whisper_throughput(torch, extractor, work: Path, card: str) -> float:
     return len(meta) / wall
 
 
+# the gradient groups: encoder (the backbone above the frozen stem), layer
+# weights, head
+GRAD_GROUPS = {"encoder": lambda n: n.startswith("backbone."),
+               "layer_weights": lambda n: n == "layer_weights",
+               "head": lambda n: n.startswith("head.")}
+
+
 def group_cosines(grads_a: dict, grads_b: dict) -> dict:
-    """Gradient cosine distance per group: encoder (the backbone above the
-    frozen stem), layer weights, head."""
+    """Gradient cosine distance per group (GRAD_GROUPS)."""
     import torch
 
-    groups = {"encoder": lambda n: n.startswith("backbone."),
-              "layer_weights": lambda n: n == "layer_weights",
-              "head": lambda n: n.startswith("head.")}
     out = {}
-    for group, member in groups.items():
+    for group, member in GRAD_GROUPS.items():
         names = sorted(n for n in grads_b if member(n) and grads_b[n] is not None)
         check(bool(names) and all(grads_a.get(n) is not None for n in names),
               f"no or missing {group} gradients")
@@ -1448,6 +1710,115 @@ def phase_finetune_path(torch, attn, cfg_model, device: str = "cuda", T: int = 5
         for group, d in cos.items():
             check(d <= cos_bar, f"{name}: {group} gradient cosine {d:.3e} > {cos_bar}")
         del trainer, runs, g_k, g_p
+
+
+# the remat policies of [finetune_policies]: each against "layer"; then
+# "layer" with int8_forward against the bf16 "layer" step
+FT_POLICIES = ("layer", "layer_dots", "layer_probs", "dots", "nothing")
+
+
+def group_norms(grads: dict) -> dict:
+    """Each group's gradient norm (GRAD_GROUPS)."""
+    import torch
+
+    return {g: float(torch.cat([grads[n].float().flatten() for n in sorted(grads)
+                                if member(n) and grads[n] is not None]).norm())
+            for g, member in GRAD_GROUPS.items()}
+
+
+def phase_finetune_policies(torch, attn, cfg_model, card: str, device: str = "cuda",
+                            T: int = 51_280, B: int = 8):
+    """WavLM-Large at B x 3 s, bf16, one fixed batch (no SpecAugment, no
+    dropout), from one state: for each remat policy and for "layer" with
+    int8_forward, one gradient pass (launches: 2 forwards and 1 backward a
+    layer, 12 int8 products a layer with int8_forward) and two updates (ms
+    each, peak memory). Each policy's gradients within FT_BF16_GRAD_COSINE
+    of "layer"'s per group; int8_forward's per-group cosine distance and
+    norm ratio against the bf16 step printed as
+    scripts/finetune_int8_grad_check.py reports them and held finite, and its
+    kernel path within FT_BF16_GRAD_COSINE of its plain path."""
+    import dataclasses
+
+    import numpy as np
+
+    from stutter_tpu_torch.train.finetune import (
+        FinetuneConfig,
+        FinetuneTrainer,
+        init_finetune_model,
+    )
+
+    mcfg = dataclasses.replace(cfg_model, apply_spec_augment=False)
+    rng = np.random.RandomState(13)
+    lengths = rng.randint(T * 5 // 8, T + 1, size=B)
+    lengths[0] = T
+    waves = (rng.randn(B, T) * 0.1 * (np.arange(T)[None] < lengths[:, None])).astype(np.float32)
+    labels, cw = rng.randint(0, 4, size=B), np.array([1.0, 2.0, 0.5, 1.5], np.float32)
+    batch = [torch.from_numpy(waves).to(device), torch.from_numpy(lengths).long().to(device),
+             torch.from_numpy(labels).long().to(device), torch.ones(B, device=device)]
+    state = init_finetune_model(FinetuneConfig(model=mcfg, n_classes=4), device=device).state_dict()
+    n_layers = mcfg.num_hidden_layers
+    on_card = device == "cuda"
+    ref = None
+    for policy, int8 in [(p, False) for p in FT_POLICIES] + [("layer", True)]:
+        name = policy + ("+int8_forward" if int8 else "")
+        cfg = FinetuneConfig(model=mcfg, n_classes=4, head_dropout=0.0,
+                             activation_dtype=torch.bfloat16, remat_policy=policy,
+                             int8_forward=int8)
+        trainer = FinetuneTrainer(cfg, device=device, params=state)
+        zero_counts()
+        grads, loss, _ = trainer.gradients([batch], cw, normalize_in_graph=True)
+        counts = read_counts()
+        check(counts["gated_relpos_attention"] == 2 * n_layers * on_card
+              and counts["gated_relpos_attention_bwd"] == n_layers * on_card
+              and counts["int8_gemm"] == 12 * n_layers * int8,
+              f"finetune_policies {name}: launches {counts}")
+        fields = {}
+        if ref is None:
+            ref = (grads, float(loss))
+        else:
+            cos = group_cosines(grads, ref[0])
+            fields.update({f"{k}_grad_cosine_dist": f"{v:.3e}" for k, v in cos.items()})
+            if int8:
+                base, mine = group_norms(ref[0]), group_norms(grads)
+                fields.update({f"{k}_rel_norm": f"{mine[k] / base[k]:.4f}" for k in base})
+                check(np.isfinite(float(loss)) and all(np.isfinite(v) for v in cos.values()),
+                      f"finetune_policies {name}: non-finite loss or gradients")
+                trainer.attention_fn = attn.gated_relpos_attention_reference
+                zero_counts()
+                plain, plain_loss, _ = trainer.gradients([batch], cw, normalize_in_graph=True)
+                check(not read_counts()["gated_relpos_attention"],
+                      "finetune_policies: the plain path launched the kernel")
+                trainer.attention_fn = None
+                vs_plain = group_cosines(grads, plain)
+                fields.update({f"{k}_kernel_vs_plain": f"{v:.3e}" for k, v in vs_plain.items()})
+                for group, d in vs_plain.items():
+                    check(d <= FT_BF16_GRAD_COSINE,
+                          f"finetune_policies {name}: {group} kernel vs plain {d:.3e}")
+            else:
+                for group, d in cos.items():
+                    check(d <= FT_BF16_GRAD_COSINE,
+                          f"finetune_policies {name}: {group} gradient cosine {d:.3e} vs layer")
+        del grads
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            aux = trainer.step(waves, lengths, labels, cw)
+            if on_card:
+                torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            check(np.isfinite(aux["loss"]), f"finetune_policies {name}: update loss {aux}")
+        peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+        say("finetune_policies", policy=name, batch=f"{B}x3s", loss=f"{float(loss):.6f}",
+            layer_loss=f"{ref[1]:.6f}", update_ms=f"{ms[0]:.1f},{ms[1]:.1f}",
+            peak_gib=f"{peak:.2f}", fwd_launches=counts["gated_relpos_attention"],
+            bwd_launches=counts["gated_relpos_attention_bwd"], int8_gemms=counts["int8_gemm"],
+            grad_cosine_tol=FT_BF16_GRAD_COSINE, **fields, card=f'"{card}"')
+        del trainer
+        if on_card:
+            torch.cuda.empty_cache()
 
 
 class TrainerSpy:
@@ -2144,6 +2515,9 @@ def phase_turbo_fidelity(torch, name: str, embed, turbo_model, fast_model, fid_m
 
 # the pooled rows of another batching of the same clips in bf16: the repo's bar
 CHUNK_COSINE = 1e-3
+# a FLAC body holding a WAV body's samples: one clip of the same bucket, so
+# the same batch shape and the same row
+FLAC_POST_COSINE = 1e-6
 
 
 def write_safetensors(path: Path, tensors: dict) -> None:
@@ -2485,6 +2859,8 @@ def phase_serve(torch, extractor, store: Path, work: Path, card: str, durations=
 
     import numpy as np
 
+    from stutter_tpu_torch.audio.build import get_ff_lib
+    from stutter_tpu_torch.audio.wavio import encode_audio, read_wav
     from stutter_tpu_torch.cli.common import make_bucket_batcher
     from stutter_tpu_torch.extract.pipeline import ExtractionPipeline
     from stutter_tpu_torch.extract.scanner import create_metadata_from_files
@@ -2557,7 +2933,7 @@ def phase_serve(torch, extractor, store: Path, work: Path, card: str, durations=
         expected=f"{n_layers}x{seen['batches']}", worst_cosine_vs_pipeline=f"{worst:.3g}",
         head_fit_s=f"{fit_s:.2f}", card=f'"{card}"')
     say("serve", p50_ms=f"{stats['p50_s'] * 1e3:.1f}", p95_ms=f"{stats['p95_s'] * 1e3:.1f}",
-        max_ms=f"{stats['max_s'] * 1e3:.1f}",
+        pr11_p50_p95_ms=PR11_SERVE_P50_P95_MS, max_ms=f"{stats['max_s'] * 1e3:.1f}",
         device_s_per_audio_s=stats["device_s_per_audio_s"], audio_s=f"{audio_s:.1f}",
         wall_s=f"{wall:.2f}", audio_s_per_s=f"{audio_s / wall:.1f}", card=f'"{card}"')
 
@@ -2577,6 +2953,15 @@ def phase_serve(torch, extractor, store: Path, work: Path, card: str, durations=
             with urllib.request.urlopen(req, timeout=120) as r:
                 obj = json.loads(r.read())
                 http_answers.append((r.status, path, obj))
+        flac_answer = None
+        if get_ff_lib() is not None:  # paths[1] went up as WAV bytes above
+            x, sr = read_wav(paths[1])
+            flac = work / "serve_post.flac"
+            encode_audio(str(flac), x * np.float32(32768 / 32767), sr)  # the same samples
+            req = urllib.request.Request(base + "/embed", data=flac.read_bytes(), method="POST",
+                                         headers={"Content-Type": "audio/flac"})
+            with urllib.request.urlopen(req, timeout=120) as r:
+                flac_answer = (r.status, json.loads(r.read()))
         with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
             health = (r.status, json.loads(r.read()))
         with urllib.request.urlopen(base + "/stats", timeout=30) as r:
@@ -2593,8 +2978,19 @@ def phase_serve(torch, extractor, store: Path, work: Path, card: str, durations=
             cosine_distance(torch.tensor(obj["embeddings"][c]), torch.from_numpy(by_path[path][c]))
             for c in extractor.column_names])
     check(http_worst <= CHUNK_COSINE, f"serve: HTTP rows {http_worst:.3g} from the pipeline's")
+    flac_fields = {"flac_post": '"no libav headers"'}
+    if flac_answer is not None:
+        status, obj = flac_answer
+        wav_obj = http_answers[1][2]
+        check(status == 200 and obj["ok"], f"serve: the FLAC POST got {status} {obj.get('error')}")
+        flac_worst = max(cosine_distance(torch.tensor(obj["embeddings"][c]),
+                                         torch.tensor(wav_obj["embeddings"][c]))
+                         for c in extractor.column_names)
+        check(flac_worst <= FLAC_POST_COSINE,
+              f"serve: the FLAC POST's rows {flac_worst:.3g} from the WAV POST's")
+        flac_fields = {"flac_post": status, "flac_vs_wav_cosine": f"{flac_worst:.3g}"}
     say("serve_http", posts=len(http_answers), worst_cosine_vs_pipeline=f"{http_worst:.3g}",
-        healthz=health[0], stats_served=http_stats["served"], card=f'"{card}"')
+        healthz=health[0], stats_served=http_stats["served"], **flac_fields, card=f'"{card}"')
     return dict(counts, batches=seen["batches"], stats=stats, audio_s_per_s=audio_s / wall,
                 head=model_path)
 
@@ -3762,6 +4158,8 @@ def main() -> int:
 
         with tempfile.TemporaryDirectory() as tmp:
             work = Path(tmp)
+            with timed("decode"):
+                phase_decode(work, card)
             with timed("wavlm_init"):
                 cfg = WavLMConfig.large()
                 base = init_wavlm(cfg, torch.Generator().manual_seed(0))
@@ -3772,6 +4170,8 @@ def main() -> int:
                 turbo = WavLMExtractor(copy.deepcopy(fid_model), "cuda", preset="turbo")
             with timed("slice"):
                 wavlm_counts = phase_slice(torch, extractor, work)
+            with timed("decode_flac"):
+                phase_decode_flac(torch, extractor, work, card)
             with timed("path"):
                 phase_kernel_path_vs_plain(torch, attn, extractor.layer_indices,
                                            extractor.model, fid_model)
@@ -3808,6 +4208,8 @@ def main() -> int:
                 whisper_counts = phase_whisper_slice(torch, extractor, work)
             with timed("whisper_path"):
                 phase_whisper_path(torch, extractor.model, fid_model)
+            with timed("whisper_gemm_stem"):
+                phase_whisper_gemm_stem(torch, extractor.model, card)
             with timed("whisper_turbo_slice"):
                 turbo = WhisperExtractor(copy.deepcopy(fid_model), "cuda", preset="turbo")
                 phase_whisper_slice(torch, turbo, work, phase="whisper_turbo_slice")
@@ -3832,6 +4234,9 @@ def main() -> int:
 
             with timed("finetune_path"):
                 phase_finetune_path(torch, attn, WavLMConfig.large())
+            torch.cuda.empty_cache()
+            with timed("finetune_policies"):
+                phase_finetune_policies(torch, attn, WavLMConfig.large(), card)
             torch.cuda.empty_cache()
             with timed("finetune"):
                 ft_counts = phase_finetune(torch, work, card)

@@ -25,9 +25,11 @@ of every batch and the gradients are summed over the ranks before each
 update; ``--tp T`` keeps the weights whole on T ranks that share rows, as the
 JAX CLI replicates them over its model axis, so N / T ranks split the batch.
 Rank 0 writes the checkpoints, the results and the model; under ``torchrun``
-the CLI joins its group. ``--int8_forward``, the remat policies
-``layer_dots``, ``layer_probs`` and ``dots``, and the JAX package's
-``STUTTER_TPU_LONG_ATTENTION_FLASH`` switch raise (the reference has no
+the CLI joins its group. ``--int8_forward`` runs each layer's six
+projections in int8 with the plain products' backward (``ops.quant.qdot_ste``);
+``--remat_policy`` takes ``layer``, ``layer_dots``, ``layer_probs``,
+``nothing`` and ``dots``. The JAX package's
+``STUTTER_TPU_LONG_ATTENTION_FLASH`` switch raises (the reference has no
 backward for that attention either).
 ``--preset`` is accepted and ignored, as in the JAX CLI: fine-tuning always
 runs bf16 activations.
@@ -78,9 +80,10 @@ def parse_args(argv=None):
                         choices=["layer", "layer_probs", "layer_dots", "nothing", "dots"],
                         default="layer",
                         help="'layer' (default) recomputes each encoder layer in "
-                             "its backward; 'nothing' recomputes the whole "
-                             "encoder; 'layer_probs', 'layer_dots' and 'dots' "
-                             "are not ported yet")
+                             "its backward; 'layer_dots' keeps its GEMMs' outputs; "
+                             "'layer_probs' keeps all but its attention core; "
+                             "'nothing' recomputes the whole encoder; 'dots' "
+                             "keeps its GEMMs' outputs")
     parser.add_argument("--checkpoint_dir", type=str, default=None,
                         help="Save the full train state (params + optimizer "
                              "state) here after every epoch; off when unset")
@@ -89,7 +92,7 @@ def parse_args(argv=None):
                              "and continue from its epoch (the dropout and "
                              "SpecAugment generator is not part of the checkpoint)")
     parser.add_argument("--int8_forward", action="store_true",
-                        help="int8 forward GEMMs (not ported yet)")
+                        help="int8 forward GEMMs with straight-through gradients")
     parser.add_argument("--random_init", action="store_true",
                         help="Random weights from seed 0 (no checkpoint load)")
     add_mesh_args(parser)
@@ -146,7 +149,7 @@ def main(argv=None) -> int:
         int8_forward=args.int8_forward,
         activation_dtype=torch.bfloat16,
     )
-    cfg.check_supported()  # int8_forward and the unported remat policies raise
+    cfg.check_supported()  # an unknown remat policy raises
     if args.resume and not args.checkpoint_dir:
         logger.error("--resume requires --checkpoint_dir")
         return 2

@@ -1,6 +1,6 @@
 """Online embedding server CLI on one or many GPUs (flags of ``stutter_tpu.cli.serve``, plus ``--device``).
 
-Reads JSONL requests (``{"id": ..., "path": ...}`` or bare WAV paths) from
+Reads JSONL requests (``{"id": ..., "path": ...}`` or bare audio paths) from
 stdin or a file, batches them with a latency deadline onto the extraction
 pipeline's extractors, and writes JSONL responses to stdout (embeddings
 inline) or ``.npy`` files under ``--output_dir`` (responses then carry the
@@ -10,8 +10,9 @@ file's path):
       python -m stutter_tpu_torch.cli.serve --model_type wavlm --model_name <checkpoint dir>
 
 With ``--http HOST:PORT`` the same loop serves a network endpoint instead
-(``serve/http.py``): ``POST /embed`` with ``{"path": ...}`` JSON or raw WAV
-bytes; ``GET /stats``, ``GET /healthz``. ``--model_name`` (and, for
+(``serve/http.py``): ``POST /embed`` with ``{"path": ...}`` JSON or raw audio
+bytes (WAV; FLAC, MP3, OGG where the host has libav); ``GET /stats``,
+``GET /healthz``. ``--model_name`` (and, for
 ``combined``, ``--whisper_model_name``) names a local HF checkpoint
 directory, or with ``--random_init`` the architecture to build from seed 0;
 a hub name raises ``OSError``. ``--classifier_model`` takes a model the

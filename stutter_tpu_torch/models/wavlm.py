@@ -10,7 +10,10 @@ packages compare like with like; inside, the stem runs PyTorch's [B, C, T].
 ``forward``/``encode(use_fused_stem=True)`` run the stem through the fused
 kernel of ``ops.wavlm_stem`` instead, where it applies (off by default, as
 in the JAX package). The projections go through ``ops.quant.linear``, which
-takes the turbo presets' int8 weights. ``materialized_bias_attention`` is the
+takes the turbo presets' int8 weights, or with ``int8_forward`` set on a
+layer's modules (fine-tuning) ``qdot_ste``. ``pooled_states`` takes the JAX
+package's remat policies through ``torch.utils.checkpoint``'s selective
+checkpointing (``save_only``, ``SaveAllButAttention``). ``materialized_bias_attention`` is the
 JAX package's escape hatch for the long buckets (``wavlm.py:462-469`` there,
 set by ``STUTTER_TPU_LONG_ATTENTION_FLASH``): an ``attention_fn`` for
 ``encode`` that builds the [B, H, L, L] bias and runs ``flash_mha_bias``.
@@ -43,7 +46,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from stutter_tpu_torch.models.common import gelu, layer_norm, param
 from stutter_tpu_torch.ops.flash_mha import flash_mha_bias, flash_mha_bias_reference
@@ -61,7 +69,44 @@ from stutter_tpu_torch.ops.wavlm_stem import (
 )
 from stutter_tpu_torch.parallel.collectives import copy_to_model
 
-REMAT_MODES = (None, "layer", "nothing")
+REMAT_MODES = (None, "layer", "layer_dots", "layer_probs", "nothing", "dots")
+# The products the "dots" policies keep: every GEMM under "layer_dots" (JAX's
+# dots_saveable), those without batch dimensions under "dots"
+# (dots_with_no_batch_dims_saveable). The int8 products of int8_forward count.
+_aten = torch.ops.aten
+UNBATCHED_GEMMS = (_aten.mm.default, _aten.addmm.default, _aten._int_mm.default)
+GEMMS = (*UNBATCHED_GEMMS, _aten.bmm.default)
+
+
+class SaveAllButAttention:
+    """``layer_probs``' policy: inside a layer's checkpoint every operation's
+    output is kept except the attention core's, which the backward recomputes
+    (JAX saves everything but the [B, H, L, L] chain). The core is a
+    ``GatedRelPosAttentionFn``, whose own residuals (q, k, v, the output and
+    the row statistics; never the [B, H, L, L] chain) stand in for JAX's
+    probabilities: the core's forward runs again in the backward, on the card
+    a launch of the forward kernel."""
+
+    def __init__(self, attention_fn):
+        self.attention_fn = attention_fn
+        self.inside = False
+
+    def attention(self, *args):
+        self.inside = True
+        try:
+            return self.attention_fn(*args)
+        finally:
+            self.inside = False
+
+    def policy(self, ctx, func, *args, **kwargs):
+        return CheckpointPolicy.PREFER_RECOMPUTE if self.inside else CheckpointPolicy.MUST_SAVE
+
+
+def save_only(ops):
+    """A checkpoint ``context_fn`` that keeps the outputs of ``ops`` and
+    recomputes everything else. An opaque kernel (a ctypes call inside an
+    autograd Function) is not an aten product, so it is recomputed."""
+    return functools.partial(create_selective_checkpoint_contexts, list(ops))
 LONG_ATTENTION_MIN_L = 1008  # the JAX package's STUTTER_TPU_LONG_ATTENTION_MIN_L default
 
 
@@ -336,6 +381,7 @@ class GatedRelPosAttention(nn.Module):
         self.gru_w = param((8, self.head_dim), device, dtype)
         self.gru_b = param((8,), device, dtype)
         self.gru_const = param((self.heads,), device, dtype)
+        self.int8_forward = False  # q, k, v, o through qdot_ste (fine-tuning)
 
     def forward(self, x, position_bias, key_mask_bias, attention_fn):
         B, L, D = x.shape
@@ -354,13 +400,14 @@ class GatedRelPosAttention(nn.Module):
         def heads(t):  # [B, L, D] -> a [B, H, L, hd] view
             return t.view(B, L, H, hd).transpose(1, 2)
 
-        q = linear(x, self.q_w, self.q_b).to(x.dtype) * hd**-0.5
-        k = linear(x, self.k_w, self.k_b).to(x.dtype)
-        v = linear(x, self.v_w, self.v_b).to(x.dtype)
+        ste = self.int8_forward
+        q = linear(x, self.q_w, self.q_b, ste=ste).to(x.dtype) * hd**-0.5
+        k = linear(x, self.k_w, self.k_b, ste=ste).to(x.dtype)
+        v = linear(x, self.v_w, self.v_b, ste=ste).to(x.dtype)
         out = attention_fn(heads(q), heads(k), heads(v), position_bias, gate,
                            key_mask_bias)
         out = out.transpose(1, 2).reshape(B, L, H * hd)
-        return linear(out, self.o_w, self.o_b, group).to(x.dtype)
+        return linear(out, self.o_w, self.o_b, group, ste=ste).to(x.dtype)
 
 
 class FeedForward(nn.Module):
@@ -375,11 +422,13 @@ class FeedForward(nn.Module):
         self.w2 = param((D, Fd), device, dtype)
         self.b2 = param((D,), device, dtype)
         self.tp_group = None
+        self.int8_forward = False  # w1, w2 through qdot_ste (fine-tuning)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = copy_to_model(x, self.tp_group)
-        h = gelu(linear(x, self.w1, self.b1).to(x.dtype))
-        return linear(h, self.w2, self.b2, self.tp_group).to(x.dtype)
+        h = gelu(linear(x, self.w1, self.b1, ste=self.int8_forward).to(x.dtype))
+        return linear(h, self.w2, self.b2, self.tp_group,
+                      ste=self.int8_forward).to(x.dtype)
 
 
 class EncoderLayer(nn.Module):
@@ -512,6 +561,15 @@ class WavLMModel(nn.Module):
                                 cfg.layer_norm_eps)
         position_bias = self.position_bias(L, weight("rel_attn_embed"))
 
+        layer_context = noop_context_fn
+        if remat == "layer_dots":
+            layer_context = save_only(GEMMS)
+        elif remat == "layer_probs":
+            probs = SaveAllButAttention(attention_fn)
+            attention_fn = probs.attention
+            layer_context = functools.partial(create_selective_checkpoint_contexts,
+                                              probs.policy)
+
         def encoder(hidden):
             collected = []
             for i, layer in enumerate(self.layers):
@@ -521,16 +579,22 @@ class WavLMModel(nn.Module):
                     return call(layer, prefix, h, position_bias, key_mask_bias,
                                 attention_fn).to(h.dtype)
 
-                hidden = (checkpoint(run_layer, hidden, use_reentrant=False)
-                          if remat == "layer" else run_layer(hidden))
+                hidden = (checkpoint(run_layer, hidden, use_reentrant=False,
+                                     context_fn=layer_context)
+                          if remat in ("layer", "layer_dots", "layer_probs")
+                          else run_layer(hidden))
             if cfg.do_stable_layer_norm:
                 hidden = layer_norm(hidden, weight("ln_scale"), weight("ln_bias"),
                                     cfg.layer_norm_eps)
             collected.append(collect(len(self.layers), hidden, frame_lengths))
             return hidden, collected
 
-        hidden, collected = (checkpoint(encoder, hidden, use_reentrant=False)
-                             if remat == "nothing" else encoder(hidden))
+        if remat in ("nothing", "dots"):
+            hidden, collected = checkpoint(
+                encoder, hidden, use_reentrant=False,
+                context_fn=save_only(UNBATCHED_GEMMS) if remat == "dots" else noop_context_fn)
+        else:
+            hidden, collected = encoder(hidden)
         return hidden, collected, frame_lengths
 
     @torch.inference_mode()
@@ -577,7 +641,10 @@ class WavLMModel(nn.Module):
           applied after the feature projection, before the frame mask and
           the positional conv;
         - ``remat``: "layer" checkpoints each layer, "nothing" the whole
-          encoder, None neither;
+          encoder, None neither; "layer_dots" and "dots" do the same but keep
+          the GEMMs' outputs (``save_only``), and "layer_probs" checkpoints
+          each layer keeping everything but the attention core
+          (``SaveAllButAttention``);
         - ``attention_fn``: the attention core, by default the kernel's
           autograd Function."""
         _, pooled, _ = self._run(

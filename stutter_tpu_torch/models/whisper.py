@@ -263,6 +263,22 @@ class DecoderLayer(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+def stem_shifted_gemm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                      stride: int) -> torch.Tensor:
+    """A k = 3, padding 1 convolution as three shifted GEMMs, then its bias
+    and GELU: y[i] = sum_t x_pad[stride * i + t] @ w[:, :, t]^T.
+
+    x [B, L, C_in], w [C_out, C_in, 3] (as the checkpoint stores it) ->
+    [B, L // stride, C_out], in [B, L, C] layout throughout: the JAX
+    package's ``_stem_shifted_gemm``, whose products run outside any kernel
+    of its own."""
+    Lo = x.shape[1] // stride
+    xp = F.pad(x, (0, 0, 1, 1))
+    y = sum(torch.matmul(xp[:, t:stride * (Lo - 1) + t + 1:stride], w[:, :, t].t())
+            for t in range(3))
+    return gelu(y + b.to(y.dtype))
+
+
 class WhisperEncoder(nn.Module):
     """[B, n_mels, 3000] log-mel -> [B, 1500, D]: the conv stem, sinusoidal
     positions, the pre-LN layers and the final norm."""
@@ -280,25 +296,34 @@ class WhisperEncoder(nn.Module):
         self.layers = nn.ModuleList(EncoderLayer(cfg, device, dtype)
                                     for _ in range(cfg.encoder_layers))
 
-    def stem(self, mel: torch.Tensor) -> torch.Tensor:
+    def stem(self, mel: torch.Tensor, gemm_stem: bool = False) -> torch.Tensor:
         """[B, n_mels, 3000] -> [B, 1500, D]: both convolutions with their
-        bias and GELU in the activation dtype, the positions added in f32."""
+        bias and GELU in the activation dtype, the positions added in f32.
+        ``gemm_stem`` computes each convolution as three shifted GEMMs in
+        [B, L, C] layout (``stem_shifted_gemm``) instead of ``conv1d``."""
         dtype = self.conv1_w.dtype
-        x = gelu(F.conv1d(mel.to(dtype), self.conv1_w, padding=1)
-                 + self.conv1_b[None, :, None])
-        x = gelu(F.conv1d(x, self.conv2_w, stride=2, padding=1) + self.conv2_b[None, :, None])
-        x = x.transpose(1, 2).contiguous()
+        if gemm_stem:
+            x = mel.to(dtype).transpose(1, 2)  # [B, 3000, n_mels]
+            x = stem_shifted_gemm(x, self.conv1_w, self.conv1_b, 1)
+            x = stem_shifted_gemm(x, self.conv2_w, self.conv2_b, 2)
+        else:
+            x = gelu(F.conv1d(mel.to(dtype), self.conv1_w, padding=1)
+                     + self.conv1_b[None, :, None])
+            x = gelu(F.conv1d(x, self.conv2_w, stride=2, padding=1)
+                     + self.conv2_b[None, :, None])
+            x = x.transpose(1, 2).contiguous()
         return (x.float() + self.pos_embed.float()[None]).to(dtype)
 
     def forward(self, mel: torch.Tensor,
                 reducer: Callable[[int, torch.Tensor], torch.Tensor | None] | None = None,
-                attention_fn=None):
+                attention_fn=None, gemm_stem: bool = False):
         """Returns (last hidden state [B, 1500, D], [reducer(i, h_i) for the
         N + 1 hidden states]); with no reducer, the states themselves.
-        ``attention_fn`` replaces the attention core (default ``mha_self``)."""
+        ``attention_fn`` replaces the attention core (default ``mha_self``);
+        ``gemm_stem`` is ``stem``'s (off by default, as in JAX)."""
         attention_fn = attention_fn or mha_self
         reducer = reducer or (lambda i, h: h)
-        x = self.stem(mel)
+        x = self.stem(mel, gemm_stem)
         eps = self.cfg.layer_norm_eps
         collected = []
         for i, layer in enumerate(self.layers):
@@ -365,17 +390,18 @@ class WhisperModel(nn.Module):
 
     @torch.inference_mode()
     def embed(self, mel: torch.Tensor, encoder_indices, decoder_indices,
-              attention_fn=None) -> torch.Tensor:
+              attention_fn=None, gemm_stem: bool = False) -> torch.Tensor:
         """The extraction path: encoder states at ``encoder_indices``, each
         mean-pooled in f32 over all 1500 frames (padding included, as the
         reference pools), then decoder states at ``decoder_indices`` at the
-        single token: [len(encoder_indices) + len(decoder_indices), B, D] f32."""
+        single token: [len(encoder_indices) + len(decoder_indices), B, D] f32.
+        ``gemm_stem`` is the encoder's."""
         wanted = set(encoder_indices)
 
         def pool(i, h):
             return h.float().mean(dim=1) if i in wanted else None
 
-        enc_last, pooled = self.encoder(mel, pool, attention_fn)
+        enc_last, pooled = self.encoder(mel, pool, attention_fn, gemm_stem)
         _, dec_states = whisper_decoder_step(self.decoder, enc_last, 0)
         return torch.stack([pooled[i] for i in encoder_indices]
                            + [dec_states[i][:, 0].float() for i in decoder_indices])

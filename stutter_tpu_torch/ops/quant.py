@@ -28,9 +28,15 @@ of the contraction axis on each rank: the per-token absmax is all-reduced
 are summed over it, exactly, so they equal the whole product's, as under the
 JAX package's GSPMD.
 
-Not ported yet: ``qdot_asym``/``dense_asym`` (no production caller),
-``qdot_ste`` (the fine-tuning ``int8_forward``) and ``quantize_conv_weight``
-(the int8-stem experiment).
+Fine-tuning's ``int8_forward`` trains through ``qdot_ste``: the forward
+quantizes the live weight every call (it changes every update; under a
+row-parallel ``group`` its per-channel absmax is all-reduced, MAX, first, so
+that every rank holds the whole weight's scale) and takes ``qdot``; the backward is the plain product's, ``dx = g W`` and
+``dW = g^T x`` with the cotangent first cast to the weight's dtype, as
+JAX's straight-through estimator. ``linear(..., ste=True)`` takes it.
+
+Not ported: ``qdot_asym``/``dense_asym`` (no production caller) and
+``quantize_conv_weight`` (the int8-stem experiment).
 """
 
 from __future__ import annotations
@@ -71,11 +77,14 @@ class QuantizedWeight(nn.Module):
         self.register_buffer("s", s)
 
 
-def quantize_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_weight(w: torch.Tensor, group=None) -> tuple[torch.Tensor, torch.Tensor]:
     """w [..., N, K] -> (int8 [..., N, K], f32 scale [..., N]): symmetric,
-    per output channel N, over the contraction axis K."""
+    per output channel N, over the contraction axis K. Under tensor
+    parallelism (``group``) w is this rank's slice of K, and the absmax is
+    taken over the whole axis, as ``quantize_activations`` takes x's."""
     wf = w.float()
-    s = (wf.abs().amax(dim=-1, keepdim=True) / 127.0).clamp_min(1e-12)
+    amax = all_reduce_max(wf.abs().amax(dim=-1, keepdim=True), group)
+    s = (amax / 127.0).clamp_min(1e-12)
     q = torch.clamp(torch.round(wf / s), -127, 127).to(torch.int8)
     return q, s.squeeze(-1)
 
@@ -124,9 +133,35 @@ def qdot(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, group=None) -> torch
 qdot.calls = 0
 
 
-def linear(x: torch.Tensor, w, b: torch.Tensor | None = None, group=None) -> torch.Tensor:
-    """x @ w^T (+ b): the int8 path for a ``QuantizedWeight`` (cast to x's
-    dtype, then the bias added), else ``F.linear``.
+class QdotSTE(torch.autograd.Function):
+    """``qdot`` of x against the int8 quantization of the live weight w
+    [N, K] -> f32 [..., N]; gradients of the plain product x @ w^T."""
+
+    @staticmethod
+    def forward(ctx, x, w, group):
+        ctx.save_for_backward(x, w)
+        return qdot(x, *quantize_weight(w, group), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(w.dtype)  # the cotangent arrives f32, as the forward's output
+        dx = torch.matmul(g, w).to(x.dtype)
+        dw = torch.matmul(g.reshape(-1, g.shape[-1]).t(), x.reshape(-1, x.shape[-1]))
+        return dx, dw.to(w.dtype), None
+
+
+def qdot_ste(x: torch.Tensor, w: torch.Tensor, group=None) -> torch.Tensor:
+    """int8 forward, straight-through backward (``QdotSTE``); ``group`` as
+    in ``qdot_accumulators``."""
+    return QdotSTE.apply(x, w, group)
+
+
+def linear(x: torch.Tensor, w, b: torch.Tensor | None = None, group=None,
+           ste: bool = False) -> torch.Tensor:
+    """x @ w^T (+ b): the int8 path for a ``QuantizedWeight`` or, with
+    ``ste``, ``qdot_ste`` of a float weight (cast to x's dtype, then the bias
+    added), else ``F.linear``.
 
     ``group`` makes it a row-parallel product of tensor parallelism: x holds
     this rank's slice of the features and w the matching columns. The
@@ -136,8 +171,9 @@ def linear(x: torch.Tensor, w, b: torch.Tensor | None = None, group=None) -> tor
     dtype. The float partials are f32 products of the upcast operands; bf16
     or f16 operands are exact in TF32, so that product takes the tensor
     cores (``tf32``), where f32 operands keep full f32."""
-    if isinstance(w, QuantizedWeight):
-        y = qdot(x, w.q, w.s, group).to(x.dtype)
+    if isinstance(w, QuantizedWeight) or ste:
+        y = (qdot(x, w.q, w.s, group) if isinstance(w, QuantizedWeight)
+             else qdot_ste(x, w, group)).to(x.dtype)
         return y if b is None else y + b
     if group is None:
         return F.linear(x, w, b)

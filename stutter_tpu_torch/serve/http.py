@@ -8,9 +8,10 @@ do.
 - ``POST /embed`` with a JSON body ``{"path": "/abs/clip.wav"}``: embed a
   file on the server's file system.
 - ``POST /embed`` with raw audio bytes (any other content type): the body is
-  spooled to a temporary file, embedded, and the file removed. This package
-  decodes WAV only, so a compressed body (FLAC, MP3) gets the decode-failure
-  answer.
+  spooled to a temporary file, embedded, and the file removed. The decoder
+  finds the format from the content, not the file's suffix: WAV always, and
+  FLAC, MP3, OGG and the rest where the host has libav (without it a
+  compressed body gets the decode-failure answer).
 - ``GET /stats``: the server's counters; ``GET /healthz``: liveness.
 
 Under a plan the frontend binds on rank 0 only; the other ranks run
@@ -204,7 +205,8 @@ def _handler_class(frontend: HttpEmbeddingFrontend):
                     return
                 self._reply(*response_json(frontend.submit(path)))
                 return
-            # raw audio bytes: spool to a temporary file for the decoder
+            # raw audio bytes: spool to a temporary file for the decoder, which
+            # tells the format by its content, whatever the suffix
             fd, tmp = tempfile.mkstemp(suffix=".wav", prefix="serve_http_")
             try:
                 with os.fdopen(fd, "wb") as f:

@@ -39,7 +39,7 @@ from torch import nn
 
 from stutter_tpu_torch.extract.pipeline import resolve_device
 from stutter_tpu_torch.frontend.wavlm_frontend import wavlm_prepare_batch
-from stutter_tpu_torch.models.wavlm import WavLMConfig, WavLMModel
+from stutter_tpu_torch.models.wavlm import REMAT_MODES, WavLMConfig, WavLMModel
 from stutter_tpu_torch.ops.precision import no_tf32
 from stutter_tpu_torch.ops.specaugment import spec_augment
 from stutter_tpu_torch.parallel.mesh import MeshPlan
@@ -54,18 +54,18 @@ from stutter_tpu_torch.train.optim import MultiAdamW
 
 logger = logging.getLogger("stutter_tpu_torch.train.finetune")
 
-# remat policies of the JAX package that the port does not have yet
-UNPORTED_REMAT = ("layer_dots", "layer_probs", "dots")
-
-
 @dataclasses.dataclass(frozen=True)
 class FinetuneConfig:
     """The JAX package's fields. Three are TPU dispatch or XLA knobs that the
     port ignores: ``precision`` (f32 runs in full f32 on the card, TF32
     off), ``accum_unroll`` (no scan here) and ``use_flash_attention`` (the
-    port always takes its attention kernel). ``int8_forward``, ``cast_params
-    = False`` with a bf16 activation dtype and the remat policies
-    "layer_dots", "layer_probs" and "dots" are not ported and raise."""
+    port always takes its attention kernel). ``cast_params = False`` with a
+    bf16 activation dtype is not ported and raises: PyTorch refuses a bf16 x
+    f32 product where JAX promotes it.
+
+    ``int8_forward`` runs the six projections of every layer through
+    ``ops.quant.qdot_ste`` (int8 forward, the plain product's backward), in
+    training and evaluation alike, as in JAX."""
 
     model: WavLMConfig
     n_classes: int
@@ -77,7 +77,10 @@ class FinetuneConfig:
     freeze_feature_encoder: bool = True
     freeze_backbone: bool = False  # True = SUPERB-style weighted-sum probe
     remat_encoder: bool = True
-    # "layer": checkpoint each encoder layer; "nothing": the whole encoder
+    # "layer": checkpoint each encoder layer; "nothing": the whole encoder;
+    # "layer_dots" / "dots": the same keeping the GEMMs' outputs;
+    # "layer_probs": each layer keeping all but the attention core
+    # (models/wavlm.py: save_only, SaveAllButAttention)
     remat_policy: str = "layer"
     precision: Any = None
     activation_dtype: torch.dtype = torch.bfloat16
@@ -89,21 +92,14 @@ class FinetuneConfig:
     seed: int = 0
 
     def remat(self) -> str | None:
-        """The ``pooled_states`` remat mode; raises for unported policies."""
+        """The ``pooled_states`` remat mode."""
         if not self.remat_encoder:
             return None
-        if self.remat_policy in UNPORTED_REMAT:
-            raise NotImplementedError(
-                f"remat_policy {self.remat_policy!r} is not ported yet (ROADMAP Queue 1, "
-                "fine-tuning); use 'layer' or 'nothing'")
-        if self.remat_policy not in ("layer", "nothing"):
+        if self.remat_policy not in REMAT_MODES:
             raise ValueError(f"unknown remat_policy {self.remat_policy!r}")
         return self.remat_policy
 
     def check_supported(self) -> None:
-        if self.int8_forward:
-            raise NotImplementedError(
-                "int8_forward needs the int8 GEMM, not ported yet (ROADMAP Queue 2 #1)")
         if not self.cast_params and self.activation_dtype != torch.float32:
             raise NotImplementedError("cast_params=False (f32 weights into bf16 "
                                       "activations) is not ported")
@@ -139,6 +135,8 @@ class FinetuneModel(nn.Module):
                             device=device)
         for name, p in self.named_parameters():
             p.requires_grad_(param_label(name, cfg) != "frozen")
+        for layer in backbone.layers:
+            layer.attention.int8_forward = layer.feed_forward.int8_forward = cfg.int8_forward
 
 
 def init_finetune_model(cfg: FinetuneConfig, backbone: WavLMModel | None = None,

@@ -8,8 +8,8 @@ CPU devices of ``tests/conftest.py`` and against the one-process port:
 the plan's groups, data-parallel extraction (store, CSV, checkpoints,
 resume), tensor-parallel WavLM and Whisper forwards, turbo's row-parallel
 int8 accumulators, the data-parallel fine-tune step (with accumulation) and
-the sharded step of ``dryrun_multichip``. The ranks import torch and the
-port only.
+the sharded step of ``dryrun_multichip``, plain and with ``int8_forward``.
+The ranks import torch and the port only.
 """
 
 import dataclasses
@@ -55,6 +55,15 @@ FAST_POOLED_COSINE = 1e-6
 # leaves 0.6-2)
 DRYRUN_LOSS_REL = DRYRUN_GRAD_COSINE = 1e-6
 DRYRUN_GRAD_REL = 1e-4
+# the same with int8_forward: an activation that the two packages' f32 sums
+# put on either side of an int8 rounding boundary moves the loss by 6.1e-6
+# (relative), the groups' cosine distance to <= 5.8e-8 and the small gate
+# bias's gradient by 2.3e-3 of its max (the one-process port is off JAX's
+# step by as much). A rank-local weight scale moves them by 1.3e-2, 1.1e-2
+# and 0.85.
+DRYRUN_INT8_LOSS_REL = 1e-4
+DRYRUN_INT8_GRAD_COSINE = 1e-6
+DRYRUN_INT8_GRAD_REL = 2e-2
 
 
 def run_bounded(cmds, cwd=REPO, timeout=RANK_TIMEOUT_S) -> list[str]:
@@ -229,11 +238,14 @@ def _w_finetune(out: str, params: str, batches: str, grad_accum: int) -> None:
             json.dump(aux, f)
 
 
-def _w_dryrun(out: str, params: str) -> None:
-    from stutter_tpu_torch.parallel.dryrun import dryrun_step
+def _w_dryrun(out: str, params: str, int8_forward: bool = False) -> None:
+    from stutter_tpu_torch.parallel import dryrun
 
+    if int8_forward:  # the step's trainer takes its config from dryrun_config
+        base = dryrun.dryrun_config
+        dryrun.dryrun_config = lambda *a: dataclasses.replace(base(*a), int8_forward=True)
     plan = make_plan(data=1, model=2)
-    loss, _, grads, _ = dryrun_step(plan, "cpu", torch.load(params), random_draws=False)
+    loss, _, grads, _ = dryrun.dryrun_step(plan, "cpu", torch.load(params), random_draws=False)
     np.savez(os.path.join(out, f"grads{plan.rank}.npz"),
              **{k: g.numpy() for k, g in grads.items() if g is not None})
     with open(os.path.join(out, f"loss{plan.rank}.json"), "w") as f:
@@ -506,6 +518,20 @@ def test_dryrun_tp_step_matches_jax(tmp_path):
     off: the loss and each rank's gradients (cut as the ranks hold them)
     against the JAX dryrun's step on its [1, 2] mesh, from the same numpy
     weights and batch."""
+    _dryrun_tp_vs_jax(tmp_path, int8_forward=False)
+
+
+def test_dryrun_tp_int8_forward_step_matches_jax(tmp_path):
+    """The same step with int8_forward: the six projections of each layer
+    through qdot_ste. The row-parallel o_w and w2 hold half of the
+    contraction axis on each rank, so each rank must quantize its half with
+    the whole weight's per-channel scale (JAX's GSPMD takes the absmax over
+    the whole axis); a rank-local scale moves the sums of the int32
+    accumulators off the product and the gradients off JAX's."""
+    _dryrun_tp_vs_jax(tmp_path, int8_forward=True)
+
+
+def _dryrun_tp_vs_jax(tmp_path, int8_forward: bool) -> None:
     import jax
     import jax.numpy as jnp
 
@@ -521,10 +547,12 @@ def test_dryrun_tp_step_matches_jax(tmp_path):
     cfg = dryrun_config(random_draws=False)
     jcfg = jft.FinetuneConfig(
         model=JaxWavLM(**dataclasses.asdict(cfg.model)), n_classes=4, head_hidden=(32,),
-        head_dropout=0.0, activation_dtype=jnp.float32, remat_encoder=True)
+        head_dropout=0.0, activation_dtype=jnp.float32, remat_encoder=True,
+        int8_forward=int8_forward)
     tree = jax.tree.map(np.asarray, jft.init_finetune_params(jcfg))
     torch.save(finetune_params_from_numpy(tree, cfg.model), tmp_path / "params.pt")
-    _run_ranks(tmp_path, 2, "_w_dryrun", out=str(tmp_path), params=str(tmp_path / "params.pt"))
+    _run_ranks(tmp_path, 2, "_w_dryrun", out=str(tmp_path), params=str(tmp_path / "params.pt"),
+               int8_forward=int8_forward)
 
     # the JAX dryrun's batch (__graft_entry__.dryrun_multichip) is the port's
     rs = np.random.RandomState(0)
@@ -543,9 +571,11 @@ def test_dryrun_tp_step_matches_jax(tmp_path):
 
     loss, grads = jax.jit(jax.value_and_grad(loss_fn))(params)
     full = finetune_params_from_numpy(jax.tree.map(np.asarray, grads), cfg.model)
+    loss_rel, grad_cosine, grad_rel = (
+        (DRYRUN_INT8_LOSS_REL, DRYRUN_INT8_GRAD_COSINE, DRYRUN_INT8_GRAD_REL) if int8_forward
+        else (DRYRUN_LOSS_REL, DRYRUN_GRAD_COSINE, DRYRUN_GRAD_REL))
     for r in range(2):
-        assert abs(json.load(open(tmp_path / f"loss{r}.json")) / float(loss) - 1) \
-            <= DRYRUN_LOSS_REL
+        assert abs(json.load(open(tmp_path / f"loss{r}.json")) / float(loss) - 1) <= loss_rel
         got = dict(np.load(tmp_path / f"grads{r}.npz"))
         ref = {k: cut(v, shard_dim(k, WAVLM_LAYER_DIMS), r, 2) for k, v in full.items()}
         for group in ("backbone.", "layer_weights", "head."):
@@ -553,9 +583,9 @@ def test_dryrun_tp_step_matches_jax(tmp_path):
             assert names
             a = np.concatenate([got[k].ravel() for k in names])
             b = np.concatenate([ref[k].numpy().ravel() for k in names])
-            assert _cosine(a, b) <= DRYRUN_GRAD_COSINE, (r, group, _cosine(a, b))
+            assert _cosine(a, b) <= grad_cosine, (r, group, _cosine(a, b))
         for k in got:
             if k.endswith("k_b"):  # its exact gradient is 0 (a row's scores shift alike)
                 continue
             b = ref[k].numpy()
-            assert np.abs(got[k] - b).max() <= DRYRUN_GRAD_REL * np.abs(b).max(), (r, k)
+            assert np.abs(got[k] - b).max() <= grad_rel * np.abs(b).max(), (r, k)

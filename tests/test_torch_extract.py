@@ -76,12 +76,14 @@ def test_read_wav_matches_jax(tmp_path, rng, fmt, channels):
     tag, bits, payload = _payload(fmt, x)
     path = str(tmp_path / f"{fmt}.wav")
     _riff(path, tag, channels, bits, 22050, payload, extensible=channels == 2)
-    ours, sr = wavio.read_wav(path)
-    ref, ref_sr = jwavio._read_wav_numpy(path)  # the parser the port copies
+    ours, sr = wavio.read_wav(path)  # the native parser in both packages
+    ref, ref_sr = jwavio.read_wav(path)
     assert sr == ref_sr == 22050 and ours.dtype == np.float32
     np.testing.assert_array_equal(ours, ref)
-    # read_wav may take the native decoder, whose stereo mixdown rounds apart
-    np.testing.assert_allclose(ours, jwavio.read_wav(path)[0], atol=1e-6)
+    # the numpy parsers alike; the native stereo mixdown rounds once, in double
+    plain = wavio.read_wav_plain(path)[0]
+    np.testing.assert_array_equal(plain, jwavio._read_wav_numpy(path)[0])
+    np.testing.assert_allclose(ours, plain, atol=1e-6)
     assert wavio.wav_info(path) == jwavio.wav_info(path) == (301, 22050)
 
 
@@ -323,6 +325,7 @@ def test_port_imports_neither_jax_nor_pandas():
         "import stutter_tpu_torch.cli.train, stutter_tpu_torch.cli.train_grid\n"
         "import stutter_tpu_torch.parallel.mesh, stutter_tpu_torch.parallel.sharding\n"
         "import stutter_tpu_torch.parallel.collectives, stutter_tpu_torch.parallel.dryrun\n"
+        "import stutter_tpu_torch.audio.build, stutter_tpu_torch.audio.synthetic\n"
         "forbidden = ('jax', 'pandas', 'optax', 'orbax', 'joblib', 'stutter_tpu', 'sklearn',\n"
         "             'transformers', 'safetensors')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in forbidden]\n"

@@ -420,20 +420,35 @@ def test_cli_on_cpu_with_checkpoint_resume_and_grad_accum(corpus, tmp_path, monk
     assert os.path.isfile(os.path.join(results, "wavlm_finetune_weighted_sum_mlp_info.json"))
 
 
-@pytest.mark.parametrize("extra", [[], ["--random_init", "--int8_forward"],
-                                   ["--random_init", "--remat_policy", "layer_dots"],
-                                   ["--random_init", "--remat_policy", "dots"]])
+@pytest.mark.parametrize("extra", [[], ["cast_params=False"]])
 def test_cli_refuses_what_is_not_ported(tmp_path, extra):
-    """int8_forward and the unported remat policies raise; without
-    --random_init a hub name raises OSError naming a local checkpoint
-    directory (no download). (--devices 2 runs: tests/test_torch_parallel.py.)"""
-    argv = ["--data_dir", str(tmp_path), "--results_dir", str(tmp_path / "r"), *extra]
+    """Without --random_init a hub name raises OSError naming a local
+    checkpoint directory (no download); the one option still not ported,
+    cast_params=False with bf16 activations (no CLI flag), raises
+    NotImplementedError when the trainer is built. (--devices 2 runs:
+    tests/test_torch_parallel.py.)"""
     if not extra:
+        argv = ["--data_dir", str(tmp_path), "--results_dir", str(tmp_path / "r")]
         with pytest.raises(OSError, match="local checkpoint directory"):
             cli.main(argv + ["--device", "cpu"])
         return
-    with pytest.raises(NotImplementedError):
-        cli.main(argv)
+    _, cfg = _configs(_tiny(), "bf16", cast_params=False)
+    with pytest.raises(NotImplementedError, match="cast_params=False"):
+        FinetuneTrainer(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("extra", [["--int8_forward"], ["--remat_policy", "layer_dots"],
+                                   ["--remat_policy", "dots"]])
+def test_cli_runs_what_it_once_refused(corpus, tmp_path, monkeypatch, extra):
+    """int8_forward and the remat policies the port once refused: the CLI
+    takes one update on the CPU with each and writes its results."""
+    monkeypatch.setattr(WavLMConfig, "base", staticmethod(lambda: WavLMConfig.tiny(32, 2, 4)))
+    results = str(tmp_path / "results")
+    argv = ["--data_dir", corpus, "--results_dir", results, "--random_init",
+            "--model_name", "microsoft/wavlm-base", "--batch_size", "8", "--max_length", "1.0",
+            "--device", "cpu", "--epochs", "1", *extra]
+    assert cli.main(argv) == 0
+    assert os.path.isfile(os.path.join(results, "finetune_results.json"))
 
 
 def test_cli_raises_without_card(monkeypatch, tmp_path):

@@ -570,16 +570,18 @@ def test_http_embed_raw_wav_bytes(frontend, corpus):
 
 
 def test_http_embed_raw_flac_bytes_is_a_decode_failure(frontend, corpus, tmp_path):
-    """The port decodes WAV only (no compressed-audio decoder yet), so a
-    FLAC body gets the decode-failure answer, 422, where the JAX package
-    (with its libav decoder) answers 200."""
-    from stutter_tpu.audio.build import get_ff_lib
-    from stutter_tpu.audio.wavio import encode_audio, read_wav
+    """A FLAC body: where the host has libav the port decodes it, as the JAX
+    package does, and answers 200 with the WAV body's embedding (the FLAC
+    holds the WAV's samples exactly); without libav it gets the
+    decode-failure answer, 422."""
+    from stutter_tpu_torch.audio.build import get_ff_lib
+    from stutter_tpu_torch.audio.wavio import encode_audio, read_wav
 
     flac = str(tmp_path / "clip.flac")
-    if get_ff_lib() is not None:
+    libav = get_ff_lib() is not None
+    if libav:  # n / 32768 from the WAV, encoded from n / 32767 (audio.synthetic.flac_copy)
         x, sr = read_wav(corpus[2])
-        encode_audio(flac, x, sr)
+        encode_audio(flac, x * np.float32(32768 / 32767), sr)
     else:  # a FLAC stream's magic and a STREAMINFO header, enough for any sniffer
         with open(flac, "wb") as f:
             f.write(b"fLaC\x80\x00\x00\x22" + bytes(34))
@@ -587,7 +589,15 @@ def test_http_embed_raw_flac_bytes_is_a_decode_failure(frontend, corpus, tmp_pat
         body = f.read()
     assert body[:4] == b"fLaC"
     status, obj = _post(frontend, body, "audio/flac")
-    assert status == 422 and not obj["ok"] and obj["error"] == "decode failed"
+    if not libav:
+        assert status == 422 and not obj["ok"] and obj["error"] == "decode failed"
+        return
+    assert status == 200 and obj["ok"]
+    with open(corpus[2], "rb") as f:
+        wav_status, wav_obj = _post(frontend, f.read(), "audio/wav")
+    assert wav_status == 200 and set(obj["embeddings"]) == set(wav_obj["embeddings"])
+    for col, vec in obj["embeddings"].items():
+        np.testing.assert_allclose(vec, wav_obj["embeddings"][col], rtol=1e-6, atol=1e-7)
 
 
 def test_http_concurrent_requests_all_answered(frontend, corpus):

@@ -404,3 +404,26 @@ def test_cuda_entry_points_raise_without_card(monkeypatch, tmp_path, entry):
                       "--random_init"])
         else:
             profile_cli.main([])
+
+
+def test_gemm_stem_matches_jax_and_the_conv_stem(tiny):
+    """The stem as three shifted GEMMs (``gemm_stem``) against JAX's
+    ``gemm_stem`` forward and the port's conv stem: every encoder state
+    within FIDELITY_BAR cosine distance, the stem's output within 1e-5."""
+    cfg, tree, mel = tiny
+    params = jax.tree.map(jnp.asarray, tree)
+    _, ref = jw.whisper_encoder_forward(params, jnp.asarray(mel), _jax_cfg(cfg),
+                                        precision=HIGHEST, gemm_stem=True)
+    model = _port(cfg, tree)
+    with torch.inference_mode():
+        _, states = model.encoder(_t(mel), gemm_stem=True)
+        _, conv_states = model.encoder(_t(mel))
+        gemm, conv = model.encoder.stem(_t(mel), gemm_stem=True), model.encoder.stem(_t(mel))
+    assert gemm.shape == conv.shape == (2, 1500, cfg.d_model)
+    np.testing.assert_allclose(gemm.numpy(), conv.numpy(), atol=1e-5, rtol=0)
+    ref = np.asarray(ref)
+    for i in range(ref.shape[0]):
+        for b in range(2):
+            assert cosine_distance(states[i][b].numpy(), ref[i, b]) <= FIDELITY_BAR
+            assert cosine_distance(states[i][b].numpy(), conv_states[i][b].numpy()) <= FIDELITY_BAR
+    np.testing.assert_allclose(torch.stack(states).numpy(), ref, atol=1e-5, rtol=0)
