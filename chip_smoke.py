@@ -60,9 +60,12 @@ Phases, one line each on stdout ([time] lines give each phase's seconds):
    planes through 16-byte and element-wise copies, a contiguous input;
 5b. probe_kernels: the int8 probe's kernels (int8 k and v and their scales
    bit-equal to the plain version's) and the four softmax variants against
-   their plain versions at 25 x 16 x 1504 x 64 and a ragged length;
+   their plain versions at 25 x 16 x 1504 x 64, 30 x 16 x 1008 x 64 and
+   the ragged lengths 37 and 1025 (64 k + 1);
 5c. probes: cli.attn_int8_probe and cli.attn_softmax_variants_probe at
-   their defaults, in-process: their JSON, fidelity against f32, launches;
+   their defaults, in-process: their JSON, fidelity against f32, launches,
+   and the verdicts on this card (int8's speedup_min over the bf16 kernel,
+   each variant's best ms over the incumbent's);
 5d. stem: the fused WavLM stem kernels against their plain version and the
    plain ConvFeatureEncoder (cuDNN) at 128 x 3 s and 12 x 30 s (timed per
    launch and 8 queued), with ragged lengths, a silent clip and a clip of 4
@@ -1077,6 +1080,9 @@ TILE_KERNELS = {"KeyPadding<2, 4, 2, 0>", "FullBias<2, 4, 1, 0>", "GatedBiasRing
 BWD_TILE_KERNELS = {"dq<0>", "dq<1>", "dkv<0>", "dkv<1>", "dbias"}
 # the stem's wgmma conv kernels, by taps
 STEM_TILE_KERNELS = {"conv<3>", "conv<2>"}
+# the probes' kernels: the int8 prologue and main kernel, the four variants
+PROBE_KERNELS = {"quantize_kv", "attn_int8", "softmax_variant<0, 0>", "softmax_variant<1, 0>",
+                 "softmax_variant<0, 1>", "softmax_variant<1, 1>"}
 
 
 def phase_gated_edges(torch, attn) -> float:
@@ -1119,10 +1125,14 @@ def phase_bwd_edges(torch, attn) -> float:
 
 def phase_tile_resources(build) -> None:
     """What ptxas said of the bf16 wgmma kernels at the build, every
-    instantiation of the forward tiles, of the backward and of the stem's
-    conv layers: no spill, no stack, no serialised wgmma."""
+    instantiation of the forward tiles, of the backward, of the stem's conv
+    layers and of the probes: no spill, no stack, no serialised wgmma; and,
+    from the SASS, that the probes' main kernels issue wgmma and no
+    mma.sync."""
     from stutter_tpu_torch.cli.flash_tiles_ab import (
         bwd_tile_kernels,
+        probe_kernel_rows,
+        probe_sass,
         stem_tile_kernels,
         tile_kernels,
     )
@@ -1139,9 +1149,14 @@ def phase_tile_resources(build) -> None:
     found = {row["tiles"] for row in stem_rows}
     check(len(stem_rows) == len(STEM_TILE_KERNELS) and found == STEM_TILE_KERNELS,
           f"expected the stem's kernels {sorted(STEM_TILE_KERNELS)}, found {sorted(found)}")
+    probe_rows = probe_kernel_rows(build)
+    found = {row["tiles"] for row in probe_rows}
+    check(len(probe_rows) == len(PROBE_KERNELS) and found == PROBE_KERNELS,
+          f"expected the probes' kernels {sorted(PROBE_KERNELS)}, found {sorted(found)}")
     named = ([(f"attention_bf16_kernel<{row['tiles']}>", row) for row in rows]
              + [(f"bwd_{row['tiles']}", row) for row in bwd_rows]
-             + [(f"stem_{row['tiles']}", row) for row in stem_rows])
+             + [(f"stem_{row['tiles']}", row) for row in stem_rows]
+             + [(f"probe_{row['tiles']}", row) for row in probe_rows])
     for name, row in named:
         say("ptxas", kernel=name,
             registers=row["registers"], stack_bytes=row["stack_bytes"],
@@ -1152,6 +1167,14 @@ def phase_tile_resources(build) -> None:
     warnings = build.serialized_wgmma_warnings()
     say("ptxas", serialized_wgmma_warnings=len(warnings))
     check(not warnings, "ptxas serialised a wgmma:\n" + "\n".join(warnings))
+    # the probes' main kernels issue wgmma (HGMMA, IGMMA) and no mma.sync
+    for row in probe_sass(build.library_path()):
+        gmma = row["IGMMA"] if row["kernel"] == "attn_int8" else row["HGMMA"]
+        say("sass", kernel=row["kernel"], HGMMA=row["HGMMA"], IGMMA=row["IGMMA"],
+            HMMA=row["HMMA"], IMMA=row["IMMA"],
+            passes=";".join(f"{p['all_per_score']}/score" for p in row["passes"]))
+        check(gmma > 0 and row["HMMA"] == 0 and row["IMMA"] == 0,
+              f"probe {row['kernel']}: wgmma {gmma}, mma.sync {row['HMMA'] + row['IMMA']}")
 
 
 def phase_mha(torch, mha):
@@ -1276,41 +1299,20 @@ def phase_mha_bias(torch, mha):
     return worst, headline
 
 
-def probe_case(torch, g, B, L):
-    """The probes' operands on the card: contiguous bf16 q, k, v (randn *
-    0.3), bias, gate and a key mask that cuts the last clip short."""
-    H = 16
-    q, k, v = ((torch.randn(B, H, L, 64, device="cuda", generator=g) * 0.3).to(torch.bfloat16)
-               for _ in range(3))
-    bias = torch.randn(H, L, L, device="cuda", generator=g)
-    gate = torch.rand(B, H, L, device="cuda", generator=g)
-    mask = torch.zeros(B, L, device="cuda")
-    mask[-1, L // 2:] = -1e9
-    return q, k, v, bias, gate, mask
-
-
-def check_int8_operands(torch, probes, k, v) -> None:
-    """The prologue's int8 k and v and their scales equal the plain
-    version's bit for bit; vq's padding past L is 0."""
-    kq, sk, vqt, sv = probes.quantize_kv(k, v)
-    rkq, rsk, rvq, rsv = probes.quantize_kv_reference(k, v)
-    L = k.shape[2]
-    torch.cuda.synchronize()
-    check(torch.equal(kq, rkq) and torch.equal(sk, rsk), "int8 k or its scales differ")
-    check(torch.equal(vqt[..., :L].transpose(-1, -2), rvq) and torch.equal(sv, rsv)
-          and not bool(vqt[..., L:].any()), "int8 v or its scales differ")
-
-
 def phase_probe_kernels(torch, probes, card: str):
     """The int8 probe's kernels and the four softmax variants against their
-    plain versions at the probes' 30 s case (25 x 16 x 1504 x 64) and a
-    ragged length, the int8 operands bit-equal; returns {kernel: (worst
-    max-abs error, the numbers at the 30 s case)}."""
+    plain versions at the probes' 30 s and 20 s cases (25 x 16 x 1504 x 64,
+    30 x 16 x 1008 x 64) and two ragged lengths (37, under one 64-key tile,
+    and 1025 = 64 * 16 + 1), the int8 operands bit-equal; returns {kernel:
+    (worst max-abs error, the numbers at the 30 s case)}."""
+    from stutter_tpu_torch.cli.flash_tiles_ab import int8_operands_equal, probe_inputs
+
     g = torch.Generator(device="cuda").manual_seed(12)
     result = {"attn_int8": (0.0, None), "attn_softmax_variants": (0.0, None)}
-    for B, L in ((25, 1504), (3, 37)):
-        q, k, v, bias, gate, mask = args = probe_case(torch, g, B, L)
-        check_int8_operands(torch, probes, k, v)
+    for B, L in ((25, 1504), (30, 1008), (3, 37), (4, 1025)):
+        q, k, v, bias, gate, mask = args = probe_inputs(torch, g, B, L)
+        check(int8_operands_equal(torch, probes, k, v),
+              f"int8 k, v or their scales differ from the plain version's at {B}x16x{L}")
         n = B * 16 * L * 64  # q k^T and a v; q, k, v, out once, bias, gate, mask
         nbytes = 4 * n * 2 + 4 * (16 * L * L + B * 16 * L + B * L)
         runs = [("attn_int8", "int8", lambda: probes.int8_attention_long(*args),
@@ -1441,6 +1443,15 @@ def phase_probes(torch, card: str) -> dict:
                 card=f'"{card}"')
         check(launches == expected, f"{kernel}: {launches} launches, expected {expected}")
         say("probes", kernel=kernel, launches=launches, expected=expected)
+        for name, case in r["cases"].items():  # the verdicts on this card
+            if "speedup_min" in case:
+                say("probes", verdict=name, int8_speedup_min_vs_bf16=f"{case['speedup_min']:.4f}",
+                    card=f'"{card}"')
+            else:
+                base = min(case["src_incumbent_ms"])
+                say("probes", verdict=name, src_incumbent_ms=f"{base:.4f}",
+                    **{f"{n}_over_incumbent": f"{min(case[n + '_ms']) / base:.4f}"
+                       for n in VARIANTS}, card=f'"{card}"')
         torch.cuda.empty_cache()
     return read_counts()
 

@@ -4,7 +4,7 @@ log-mel and the fused WavLM stem, beside an earlier checkout's kernels and,
 where there is one, ``scaled_dot_product_attention``.
 
     python -m stutter_tpu_torch.cli.flash_tiles_ab [--prev_root DIR] [--runs 20] \\
-        [--kernels all|flash|gated|bwd|logmel|stem] [--skip_timing]
+        [--kernels all|flash|gated|bwd|logmel|stem|probes] [--skip_timing]
 
 1. Prints what ``ptxas -v`` said of the bf16 tiles' kernels at the build
    (registers, spills, stack, per instantiation) and any "wgmma
@@ -57,6 +57,16 @@ where there is one, ``scaled_dot_product_attention``.
    the split is by layer; beside them, cuBLAS's time for layer 1's product
    alone as a GEMM (its im2col rows made beforehand), a yardstick for the
    tensor cores' share.
+7. ``--kernels probes`` (alone): the two attention probes (the int8 probe's
+   prologue and main kernel, the four softmax variants) on the wgmma tiles:
+   their ``ptxas`` rows, the opcodes of their SASS (``cuobjdump -sass``:
+   wgmma in every kernel, no ``mma.sync``, and the chain's instructions per
+   score in each pass's loop), each held to its plain version at the
+   probes' two cases and ragged lengths (the int8 operands bit-equal), then
+   timed in turns at the probes' cases through the wrappers, the bare C
+   entries, the earlier checkout's C entries (its int8 prologue padded to
+   its own ``KEY_ALIGN``, read from its ``ops/attn_probes.py``) and the
+   incumbent ``gated_relpos_attention``, per launch and with 8 queued.
 
 The last line is one JSON object with the times; the card's name and power
 limit are in it.
@@ -92,6 +102,15 @@ BWD_TIMED = [(32, 16, 160), (9, 16, 512), (4, 16, 1008)]
 LOGMEL_TIMED = [(16, 80), (16, 128)]
 # the fused stem's buckets (clips, samples): 128 x 3 s and 12 x 30 s
 STEM_TIMED = [(128, 51_280), (12, 481_360)]
+# chip_smoke.py's bars for the probes against their plain versions
+PROBE_INT8_MAX_ABS, PROBE_INT8_COSINE = 5e-2, 2e-4
+PROBE_VARIANT_MAX_ABS = 2e-2
+PROBE_VARIANT_COSINE = {"A_incumbent": 1e-5, "B_postnorm": 5e-5, "C_bf16chain": 1e-5,
+                        "D_both": 5e-5}
+# the probes' cases (clips, frames), 16 heads: their CLIs' two defaults, timed
+PROBE_TIMED = [(30, 1008), (25, 1504)]
+# checked only: under, at and past one 64-key tile, and 64 k + 1
+PROBE_EDGES = [(3, 37), (2, 64), (2, 65), (2, 129), (4, 1025)]
 
 
 def parse_args(argv=None):
@@ -99,7 +118,7 @@ def parse_args(argv=None):
     parser.add_argument("--prev_root", default=None)
     parser.add_argument("--runs", type=int, default=20)
     parser.add_argument("--kernels", default="all",
-                        choices=("all", "flash", "gated", "bwd", "logmel", "stem"))
+                        choices=("all", "flash", "gated", "bwd", "logmel", "stem", "probes"))
     parser.add_argument("--skip_timing", action="store_true")
     return parser.parse_args(argv)
 
@@ -525,9 +544,10 @@ def prev_bwd_splits(torch, prev) -> None:
                                       (do.float() * out.float()).sum(dim=-1).contiguous())))
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    """chip_smoke.py's bound at the bf16 peak (989 TFLOP/s) and 3.35 TB/s."""
-    ops_ms, bytes_ms = flops / 989e12 * 1e3, nbytes / 3.35e12 * 1e3
+def bound_ms(flops: float, nbytes: float, peak: float = 989e12) -> tuple[float, str]:
+    """chip_smoke.py's bound at the bf16 peak (989 TFLOP/s; ``peak``: another
+    type's) and 3.35 TB/s."""
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / 3.35e12 * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
@@ -871,6 +891,322 @@ def stem_tile_kernels(build) -> list[dict]:
     return found
 
 
+
+def probe_inputs(torch, g, B, L):
+    """The probes' operands on the card: contiguous bf16 q, k, v (randn *
+    0.3), bias, gate, and a key mask that cuts the last clip short."""
+    H = 16
+    q, k, v = ((torch.randn(B, H, L, 64, device="cuda", generator=g) * 0.3).to(torch.bfloat16)
+               for _ in range(3))
+    bias = torch.randn(H, L, L, device="cuda", generator=g)
+    gate = torch.rand(B, H, L, device="cuda", generator=g)
+    mask = torch.zeros(B, L, device="cuda")
+    mask[-1, L // 2:] = -1e9
+    return q, k, v, bias, gate, mask
+
+
+def int8_operands_equal(torch, probes, k, v) -> bool:
+    """Whether the int8 prologue's k and v and their scales equal the plain
+    version's bit for bit, vq in its padded transposed layout."""
+    kq, sk, vqt, sv = probes.quantize_kv(k, v)
+    rkq, rsk, rvq, rsv = probes.quantize_kv_reference(k, v)
+    return (torch.equal(kq, rkq) and torch.equal(sk, rsk) and torch.equal(sv, rsv)
+            and torch.equal(vqt, probes.transpose_padded_reference(rvq)))
+
+
+def check_probe_cases(torch, probes, cases, verbose: bool = True) -> tuple[int, int]:
+    """The int8 probe (its int8 operands bit-equal to the plain version's)
+    and the four softmax variants against their plain versions at each
+    (clips, frames) of ``cases``: (cases run, cases that disagree)."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    n = bad = 0
+    for B, L in cases:
+        args = probe_inputs(torch, g, B, L)
+        operands_equal = int8_operands_equal(torch, probes, args[1], args[2])
+        runs = [("int8", lambda: probes.int8_attention_long(*args),
+                 lambda: probes.int8_attention_long_reference(*args),
+                 PROBE_INT8_MAX_ABS, PROBE_INT8_COSINE)]
+        for name, (pn, chain) in probes.VARIANTS.items():
+            runs.append((name,
+                         lambda pn=pn, c=chain: probes.softmax_variant_attention(*args, pn, c),
+                         lambda pn=pn, c=chain: probes.softmax_variant_attention_reference(
+                             *args, pn, c),
+                         PROBE_VARIANT_MAX_ABS, PROBE_VARIANT_COSINE[name]))
+        for name, fn, plain, tol_abs, tol_cos in runs:
+            out, ref = fn().float(), plain().float()
+            max_abs = float((out - ref).abs().max())
+            cos = cosine_distance(out, ref)
+            ok = (bool(torch.isfinite(out).all()) and max_abs <= tol_abs and cos <= tol_cos
+                  and (operands_equal or name != "int8"))
+            n += 1
+            bad += not ok
+            if verbose or not ok:
+                extra = f" int8_operands_equal={operands_equal}" if name == "int8" else ""
+                print(f"[check] probe {name} {B}x16x{L}: max_abs={max_abs:.3e} (tol {tol_abs}) "
+                      f"cosine={cos:.3e} (tol {tol_cos}){extra}{'' if ok else '  FAILED'}",
+                      flush=True)
+            if not ok:
+                print(error_map(torch, out, ref), flush=True)
+            del out, ref
+        del args, runs
+        torch.cuda.empty_cache()
+    return n, bad
+
+
+def prev_key_align(root: Path) -> int:
+    """The earlier checkout's int8 key padding (its ops/attn_probes.py's
+    KEY_ALIGN: 32 before the probes took the wgmma tiles, 64 since), which
+    its attn_int8 entries expect of Lp."""
+    import re
+
+    text = (root / "stutter_tpu_torch" / "ops" / "attn_probes.py").read_text()
+    return int(re.search(r"^KEY_ALIGN = (\d+)", text, re.M).group(1))
+
+
+def int8_buffers(torch, q, align: int) -> tuple:
+    """The int8 prologue's outputs for q's shape, Lp a multiple of ``align``,
+    and the output."""
+    B, H, L, d = q.shape
+    Lp = -(-L // align) * align
+    dev = q.device
+    return (torch.empty((B, H, L, d), dtype=torch.int8, device=dev),
+            torch.empty((B, H, L), device=dev),
+            torch.empty((B, H, d, Lp), dtype=torch.int8, device=dev),
+            torch.empty((B, H, d), device=dev), torch.empty_like(q))
+
+
+def c_int8_call(torch, lib, bufs, q, k, v, bias, gate, mask):
+    """A kernel library's int8 probe through its two bare C entries."""
+    kq, sk, vqt, sv, out = bufs
+    B, H, L, _ = q.shape
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = lib.attn_int8_quantize_kv(k.data_ptr(), v.data_ptr(), kq.data_ptr(), sk.data_ptr(),
+                                   vqt.data_ptr(), sv.data_ptr(), B * H, L, vqt.shape[-1], stream)
+    if rc == 0:
+        rc = lib.attn_int8(q.data_ptr(), kq.data_ptr(), sk.data_ptr(), vqt.data_ptr(),
+                           sv.data_ptr(), bias.data_ptr(), gate.data_ptr(), mask.data_ptr(),
+                           out.data_ptr(), B, H, L, vqt.shape[-1], stream)
+    if rc != 0:
+        raise RuntimeError(f"attn_int8 failed: CUDA error {rc}")
+    return out
+
+
+def c_variant_call(torch, lib, out, q, k, v, bias, gate, mask, postnorm, chain):
+    """A kernel library's softmax variant through its bare C entry."""
+    B, H, L, _ = q.shape
+    rc = lib.attn_softmax_variant(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                                  gate.data_ptr(), mask.data_ptr(), out.data_ptr(), B, H, L,
+                                  int(postnorm), int(chain),
+                                  torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"attn_softmax_variant failed: CUDA error {rc}")
+    return out
+
+
+def time_probes(torch, probes, attn, prev, prev_align, runs: int) -> list[dict]:
+    """The probes at their two cases, in turns: each kernel through its
+    wrapper and its bare C entry, the earlier checkout's kernel, and the
+    incumbent gated attention."""
+    from stutter_tpu_torch.ops import _build
+
+    g = torch.Generator(device="cuda").manual_seed(14)
+    lib = _build.kernel_library()
+    results = []
+    for B, L in PROBE_TIMED:
+        args = probe_inputs(torch, g, B, L)
+        bufs = int8_buffers(torch, args[0], probes.KEY_ALIGN)
+        fns = {"int8": lambda: probes.int8_attention_long(*args),
+               "int8_bare": lambda: c_int8_call(torch, lib, bufs, *args)}
+        if prev is not None:
+            prev_bufs = int8_buffers(torch, args[0], prev_align)
+            fns["int8_prev"] = lambda: c_int8_call(torch, prev, prev_bufs, *args)
+        out = torch.empty_like(args[0])
+        for name, (pn, chain) in probes.VARIANTS.items():
+            fns[name] = lambda pn=pn, c=chain: probes.softmax_variant_attention(*args, pn, c)
+            fns[f"{name}_bare"] = lambda pn=pn, c=chain: c_variant_call(
+                torch, lib, out, *args, pn, c)
+            if prev is not None:
+                fns[f"{name}_prev"] = lambda pn=pn, c=chain: c_variant_call(
+                    torch, prev, out, *args, pn, c)
+        fns["incumbent"] = lambda: attn.gated_relpos_attention(*args)
+        ms = dict(zip(fns, time_turns(torch, list(fns.values()), runs)))
+        queued = dict(zip(fns, time_turns(torch, list(fns.values()), runs, reps=QUEUED_LAUNCHES)))
+        n = B * 16 * L * 64
+        nbytes = 4 * n * 2 + 4 * (16 * L * L + B * 16 * L + B * L)
+        for name in ["int8", *probes.VARIANTS, "incumbent"]:
+            bound, bound_by = bound_ms(4 * n * L, nbytes, 1979e12 if name == "int8" else 989e12)
+            row = {"kernel": name, "shape": f"{B}x16x{L}x64", "bound_ms": bound,
+                   "bound_by": bound_by}
+            for suffix in ("", "_bare", "_prev"):
+                if name + suffix in fns:
+                    key = suffix[1:] + "_" if suffix else ""
+                    row[f"{key}ms"], row[f"{key}queued_ms"] = ms[name + suffix], queued[name + suffix]
+            row["share_of_bound"] = bound / row["queued_ms"]
+            row["vs_incumbent_queued"] = row["queued_ms"] / queued["incumbent"]
+            if "prev_queued_ms" in row:
+                row["speedup_vs_prev_queued"] = row["prev_queued_ms"] / row["queued_ms"]
+            print(f"[time] {row}", flush=True)
+            results.append(row)
+        del args, bufs, fns, out
+        torch.cuda.empty_cache()
+    return results
+
+
+def probe_kernel_rows(build) -> list[dict]:
+    """ptxas's rows for the probes' kernels, named ``quantize_kv``,
+    ``attn_int8`` and ``softmax_variant<postnorm, bf16chain>``."""
+    import re
+
+    found = []
+    for pattern in ("quantize_kv_kernel", "attn_int8_kernel", "softmax_variant_kernel"):
+        for row in build.resource_report(pattern):
+            m = re.search(r"softmax_variant_kernelILb(\d)ELb(\d)EE", row["kernel"])
+            row["tiles"] = (f"softmax_variant<{m.group(1)}, {m.group(2)}>" if m
+                            else pattern.removesuffix("_kernel"))
+            found.append(row)
+    return found
+
+
+def sass_functions(lib_path: Path) -> dict[str, list[tuple[int, str]]]:
+    """The SASS of every kernel of a built library (``cuobjdump -sass``):
+    {mangled name: [(address, instruction text)]}, branch targets written as
+    addresses."""
+    import re
+
+    from stutter_tpu_torch.ops._build import _nvcc
+
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    funcs, name, labels, pending = {}, None, {}, []
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name, labels, pending = m.group(1), {}, []
+            funcs[name] = []
+            continue
+        if name is None:
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            addr = int(m.group(1), 16)
+            for label in pending:
+                labels[label] = addr
+            pending = []
+            funcs[name].append((addr, m.group(2)))
+    for name, instrs in funcs.items():  # labels -> addresses
+        funcs[name] = [(a, re.sub(r"`?\(?(\.L_x_\d+)\)?", lambda m: hex(labels.get(m.group(1), -1)),
+                                  s)) for a, s in instrs]
+    return funcs
+
+
+def opcode(text: str) -> str:
+    """An instruction's opcode without its predicate: MUFU keeps its
+    function (MUFU.EX2), the others lose their modifiers."""
+    op = text.split()[1] if text.startswith("@") else text.split()[0]
+    return op if op.startswith("MUFU") else op.split(".")[0]
+
+
+def sass_loops(instrs: list[tuple[int, str]]) -> list[dict]:
+    """The loops of one kernel that issue wgmma, in program order, with the
+    opcodes their body always runs: the instructions between a loop's head
+    and its backward branch that no forward branch inside the body jumps
+    over (the edge tile's masking, a rescale, the 4-byte copies are skipped
+    on the common path). ``tiles``: key tiles an iteration (MUFU.EX2 / 32,
+    one exponential a score and 32 scores a thread and tile)."""
+    import re
+
+    index = {a: i for i, (a, _) in enumerate(instrs)}
+    branches = []
+    for i, (a, text) in enumerate(instrs):
+        m = re.search(r"\bBRA\S*\s+(?:[^,;]*,\s*)?(0x[0-9a-f]+)", text)
+        if m and int(m.group(1), 16) in index:
+            branches.append((i, index[int(m.group(1), 16)]))
+    loops = []
+    last = {}  # a loop's head -> its last backward branch
+    for i, head in branches:
+        if head < i:
+            last[head] = max(i, last.get(head, i))
+    for head, i in last.items():
+        body = range(head, i + 1)
+        if not any("GMMA" in opcode(instrs[j][1]) for j in body):
+            continue
+        skipped = set()
+        for a, target in branches:
+            if head <= a < target <= i:
+                skipped.update(range(a + 1, target))
+        counts = {}
+        for j in body:
+            if j not in skipped:
+                op = opcode(instrs[j][1])
+                counts[op] = counts.get(op, 0) + 1
+        loops.append({"head": instrs[head][0], "counts": counts,
+                      "tiles": max(1, round(counts.get("MUFU.EX2", 0) / 32))})
+    return sorted(loops, key=lambda loop: loop["head"])
+
+
+# the opcodes of a score's chain, shown per score
+CHAIN_OPS = ("FFMA", "FMUL", "FADD", "FMNMX", "FSEL", "MUFU.EX2", "F2FP", "HFMA2", "HADD2",
+             "HMUL2", "HMNMX2", "PRMT", "IADD3", "LOP3", "I2F", "F2I", "LDS", "SHFL")
+
+
+def probe_sass(lib_path: Path) -> list[dict]:
+    """Per probe kernel: its wgmma and mma.sync opcodes, and per wgmma loop
+    (a pass) the chain's opcodes per score and all instructions per score."""
+    import re
+
+    rows = []
+    for name, instrs in sass_functions(lib_path).items():
+        m = re.search(r"softmax_variant_kernelILb(\d)ELb(\d)EE", name)
+        kernel = (f"softmax_variant<{m.group(1)}, {m.group(2)}>" if m else
+                  "attn_int8" if "attn_int8_kernel" in name else None)
+        if kernel is None:
+            continue
+        ops = [opcode(text) for _, text in instrs]
+        row = {"kernel": kernel, **{op: ops.count(op) for op in ("HGMMA", "IGMMA", "HMMA", "IMMA")},
+               "passes": []}
+        for loop in sass_loops(instrs):
+            per = 32 * loop["tiles"]
+            row["passes"].append({
+                "tiles_an_iteration": loop["tiles"],
+                "per_score": {op: round(loop["counts"].get(op, 0) / per, 3) for op in CHAIN_OPS
+                              if loop["counts"].get(op)},
+                "all_per_score": round(sum(loop["counts"].values()) / per, 3)})
+        rows.append(row)
+    return sorted(rows, key=lambda row: row["kernel"])
+
+
+def probes_main(torch, card: str, prev_root, runs: int) -> int:
+    """--kernels probes: ptxas rows, SASS, checks, times; the JSON line."""
+    from stutter_tpu_torch.ops import _build
+    from stutter_tpu_torch.ops import attn_probes as probes
+    from stutter_tpu_torch.ops import wavlm_attention as attn
+
+    for row in probe_kernel_rows(_build):
+        print(f"[ptxas] probe {row['tiles']} registers={row['registers']} "
+              f"stack={row['stack_bytes']} spill_stores={row['spill_store_bytes']} "
+              f"spill_loads={row['spill_load_bytes']}", flush=True)
+    sass = probe_sass(_build.library_path())
+    for row in sass:
+        print(f"[sass] {json.dumps(row)}", flush=True)
+    cases, bad = check_probe_cases(torch, probes, PROBE_TIMED + PROBE_EDGES)
+    print(f"[check] probes: {bad} of {cases} cases disagree", flush=True)
+    if bad:
+        return 1
+    results = []
+    if runs:
+        prev = prev_align = None
+        if prev_root:
+            prev, prev_align = load_prev_library(Path(prev_root)), prev_key_align(Path(prev_root))
+        results = time_probes(torch, probes, attn, prev, prev_align, runs)
+    print(json.dumps({"card": card, "sass": sass, "times": results}))
+    return 0
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
 
@@ -907,6 +1243,8 @@ def main(argv=None) -> int:
     for line in warnings[:8]:
         print(f"    {line}", flush=True)
 
+    if args.kernels == "probes":
+        return probes_main(torch, card, args.prev_root, 0 if args.skip_timing else args.runs)
     bwd = args.kernels in ("all", "bwd")
     own = args.kernels in ("logmel", "stem")  # timed with their earlier kernels alone
     prev = None

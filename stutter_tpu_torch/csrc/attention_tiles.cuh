@@ -7,7 +7,9 @@
 //   flash_mha_bias (flash_mha.cu, policies KeyPadding and FullBias);
 // - the mma.sync m16n8k16 helpers, the 32-row / 32-key tile constants and
 //   the GatedBias policy are used by the WavLM backward
-//   (wavlm_attention_bwd.cu) and the probes (attn_probes.cu).
+//   (wavlm_attention_bwd.cu); GatedBias is also the base of the bf16 gated
+//   forward's GatedBiasRing (wavlm_attention.cu). The probes (attn_probes.cu)
+//   run on attention_tiles_sm90.cuh.
 // For one (clip b, head h, query row i):
 //
 //     p[j]   = score(i, j, q[i] . k[j])
@@ -190,7 +192,7 @@ __global__ void __launch_bounds__(kF32Threads) attention_f32_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on mma.sync m16n8k16, for the backward and the probes: two warps of 16
+// bf16 on mma.sync m16n8k16, for the backward: two warps of 16
 // query rows a 32-row tile. In the fragment layouts of the PTX ISA, lane
 // l = 4*grp + tig holds score/output rows grp and grp + 8 of its warp's 16, at
 // columns 2*tig and 2*tig + 1 of each 8-wide n-tile; the 4 lanes of a row
@@ -232,7 +234,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // WavLM's score policy: gate * bias + mask, with bias [H, L, L] shared by the
 // batch, gate [B, H, L] and mask [B, L] (0 or -1e9), all f32. Its members are
-// public: the probe kernels (attn_probes.cu) round the three terms apart.
+// public: GatedBiasRing (wavlm_attention.cu) reads the gate and mask row.
 struct GatedBias {
   struct Params {
     const float* bias;  // [H, L, L]

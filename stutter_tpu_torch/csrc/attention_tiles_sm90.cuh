@@ -7,7 +7,9 @@
 // GatedBiasRing; it replaces stutter_tpu/ops/wavlm_attention_pallas.py's two
 // forward kernels). wavlm_attention_bwd.cu builds the bf16 backward of the
 // gated attention from its primitives (copies, descriptors, wgmma, the ring's
-// discipline). The f32 paths and the probes keep the tiles of
+// discipline), and so does attn_probes.cu the two A/B probes (its own
+// kernels for the int8 probe and the softmax variants: two passes, int8
+// wgmma, a packed bf16 chain). The f32 paths keep the tiles of
 // attention_tiles.cuh. For one (clip b, head h, query row i), with q
 // pre-scaled and head_dim 64:
 //
@@ -37,6 +39,9 @@
 //   lanes: at head_dim 64 the exponentials take as long as the products
 //   (~256 cycles per 64 x 64 tile each), which is why the kernel ends up
 //   bound by the softmax's instruction issue and not by the tensor cores.
+//   (The probes of attn_probes.cu, on these tiles, later measured the time
+//   moving by only ~0.022 ms per instruction a score at 25 x 16 x 1504: the
+//   issue is ~20 % of it, and most of the rest latency; PERF.md.)
 // - K and V tiles of 64 keys (and a policy's bias tile) go through a ring of
 //   kStages stages in dynamic shared memory, filled with 16-byte cp.async
 //   (zero-filled past L) kStages - 2 tiles ahead of the products, one commit

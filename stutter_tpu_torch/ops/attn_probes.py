@@ -25,7 +25,10 @@ The wrappers launch the hand-written CUDA kernels of ``csrc/attn_probes.cu``
 for CUDA tensors and count each call in ``.launches``; for CPU tensors they
 run the plain versions (``*_reference``), which transcribe the probe
 kernels' math line for line and which the tests hold against the Pallas
-kernels.
+kernels. The kernels run on the wgmma tiles of the gated attention (64 query
+rows a block, 64-key tiles); the int8 kernel stages each key tile with its
+keys in ``key_permutation``'s order, so that the scores' accumulators are
+the A fragments of the second product.
 """
 
 from __future__ import annotations
@@ -37,8 +40,33 @@ from stutter_tpu_torch.ops.wavlm_attention import _check as check_gated_inputs
 # the probes' four variants: name -> (postnorm, bf16chain)
 VARIANTS = {"A_incumbent": (False, False), "B_postnorm": (True, False),
             "C_bf16chain": (False, True), "D_both": (True, True)}
-BLOCK_Q = 32    # the kernels' query rows per block (attention_tiles.cuh:kBlockQ)
-KEY_ALIGN = 32  # the transposed int8 v is padded to a multiple of the kernel's key tile
+BLOCK_Q = 64    # the kernels' query rows per block: one warpgroup's wgmma tile
+KEY_ALIGN = 64  # the transposed int8 v is padded to a multiple of the kernel's key tile
+
+
+def key_permutation() -> list[int]:
+    """The int8 kernel's order of the keys of a 64-key tile: row c of the
+    staged kq tile holds key ``sigma[c]``. Column c = 8 nt + 2 tig + j of a
+    score accumulator lies with lane tig of its row's quad (n-tile nt, j < 2),
+    and the int8 A fragment of the second product gives lane tig the keys
+    16 h + 32 kk + 4 tig .. + 3 (register 2 h + row of k-step kk, one byte a
+    key), so n-tiles 4 kk + 2 h and 4 kk + 2 h + 1 fill that register's bytes
+    0, 1 and 2, 3: sigma(c) = 16 (nt // 2) + 4 tig + 2 (nt % 2) + j."""
+    return [16 * (c // 16) + 4 * ((c % 8) // 2) + 2 * ((c // 8) % 2) + c % 2 for c in range(64)]
+
+
+def padded_length(L: int) -> int:
+    """Lp: L rounded up to KEY_ALIGN, the key count of the transposed vq."""
+    return -(-L // KEY_ALIGN) * KEY_ALIGN
+
+
+def transpose_padded_reference(vq: torch.Tensor) -> torch.Tensor:
+    """The prologue's layout of the int8 v: [B, H, L, 64] -> [B, H, 64, Lp],
+    zeros past L (the K-major B operand of aq . vq, whole key tiles)."""
+    B, H, L, d = vq.shape
+    out = torch.zeros((B, H, d, padded_length(L)), dtype=vq.dtype, device=vq.device)
+    out[..., :L] = vq.transpose(-1, -2)
+    return out
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -117,16 +145,15 @@ def _stream(q) -> int:
 
 def quantize_kv(k: torch.Tensor, v: torch.Tensor):
     """Kernel path of ``quantize_kv_reference`` (the int8 probe's prologue),
-    for contiguous bf16 [B, H, L, 64] k and v on the card: (kq, sk, vq
-    transposed [B, H, 64, Lp] with Lp = L rounded up to 32 and zeros past L,
-    sv)."""
+    for contiguous bf16 [B, H, L, 64] k and v on the card: (kq, sk, vq in
+    ``transpose_padded_reference``'s layout [B, H, 64, Lp], sv)."""
     if k.device.type != "cuda" or k.dtype != torch.bfloat16 or not (
             k.is_contiguous() and v.is_contiguous()) or k.shape != v.shape or k.shape[-1] != 64:
         raise ValueError("quantize_kv takes contiguous bf16 [B, H, L, 64] k and v on the card")
     from stutter_tpu_torch.ops._build import kernel_library
 
     B, H, L, d = k.shape
-    Lp = -(-L // KEY_ALIGN) * KEY_ALIGN
+    Lp = padded_length(L)
     kq = torch.empty((B, H, L, d), dtype=torch.int8, device=k.device)
     sk = torch.empty((B, H, L), dtype=torch.float32, device=k.device)
     vqt = torch.empty((B, H, d, Lp), dtype=torch.int8, device=k.device)

@@ -158,3 +158,165 @@ def test_probe_kernels_refuse_other_devices():
         attn_probes.softmax_variant_attention(*args, True, False)
     with pytest.raises(ValueError, match="on the card"):
         attn_probes.quantize_kv(args[1], args[2])
+
+
+def test_key_permutation_is_a_bijection_of_the_tile():
+    """sigma is a bijection of the 64 keys of a tile, and it puts the key of
+    score column c = 8 nt + 2 tig + j where the int8 A fragment of the second
+    product wants it: with the lane (tig) that holds the column, in k-step
+    nt // 4, register half (nt // 2) % 2, byte 2 (nt % 2) + j."""
+    sigma = attn_probes.key_permutation()
+    assert sorted(sigma) == list(range(attn_probes.KEY_ALIGN))
+    for c, key in enumerate(sigma):
+        nt, tig, j = c // 8, (c % 8) // 2, c % 2
+        assert (key % 16) // 4 == tig
+        assert key // 32 == nt // 4 and (key % 32) // 16 == (nt // 2) % 2
+        assert key % 4 == 2 * (nt % 2) + j
+
+
+@pytest.mark.parametrize("L", [192, 200])
+def test_int8_reference_unchanged_under_key_permutation(L):
+    """The int8 plain version gives the same output when every whole 64-key
+    tile's keys (k, v, the bias columns and the mask) are taken in
+    key_permutation's order, as the kernel stages them: the int8 products
+    are exact and the softmax is a function of the set of keys."""
+    rs = np.random.RandomState(3)
+    Bc, Hc = 2, 2
+
+    def mk(*shape):
+        return torch.from_numpy(rs.randn(*shape).astype(np.float32) * 0.3).to(torch.bfloat16)
+
+    q, k, v = mk(Bc, Hc, L, D), mk(Bc, Hc, L, D), mk(Bc, Hc, L, D)
+    bias = torch.from_numpy(rs.randn(Hc, L, L).astype(np.float32))
+    gate = torch.from_numpy(rs.rand(Bc, Hc, L).astype(np.float32))
+    mask = torch.zeros((Bc, L))
+    mask[1, L // 2:] = -1e9
+    sigma = torch.tensor(attn_probes.key_permutation())
+    whole = L // 64 * 64
+    order = torch.cat([t * 64 + sigma for t in range(L // 64)] + [torch.arange(whole, L)])
+    assert sorted(order.tolist()) == list(range(L))
+    ref = attn_probes.int8_attention_long_reference(q, k, v, bias, gate, mask)
+    got = attn_probes.int8_attention_long_reference(
+        q, k[:, :, order], v[:, :, order], bias[..., order], gate, mask[:, order])
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("L", [1, 37, 63, 64, 65, 129, 376])
+def test_transpose_padded_reference_at_key_align(L):
+    """The prologue's transposed int8 v: whole 64-key tiles, zeros past L,
+    vq transposed below L."""
+    rs = np.random.RandomState(L)
+    v = torch.from_numpy(rs.randn(2, 3, L, D).astype(np.float32)).to(torch.bfloat16)
+    k = torch.from_numpy(rs.randn(2, 3, L, D).astype(np.float32)).to(torch.bfloat16)
+    _, _, vq, _ = attn_probes.quantize_kv_reference(k, v)
+    vqt = attn_probes.transpose_padded_reference(vq)
+    Lp = attn_probes.padded_length(L)
+    assert attn_probes.KEY_ALIGN == 64 and Lp % 64 == 0 and L <= Lp < L + 64
+    assert vqt.shape == (2, 3, D, Lp) and vqt.dtype == torch.int8
+    assert not bool(vqt[..., L:].any())
+    assert torch.equal(vqt[..., :L], vq.transpose(-1, -2))
+
+
+def test_ab_tool_raises_for_the_probes_without_card(monkeypatch):
+    from stutter_tpu_torch.cli import flash_tiles_ab
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        flash_tiles_ab.main(["--kernels", "probes", "--skip_timing"])
+
+
+@pytest.mark.parametrize("align", [32, 64])
+def test_prev_key_align_reads_the_checkout(tmp_path, align):
+    """The A/B tool pads an earlier checkout's int8 v to that checkout's own
+    KEY_ALIGN, which its attn_int8 entries check."""
+    from stutter_tpu_torch.cli import flash_tiles_ab
+
+    ops = tmp_path / "stutter_tpu_torch" / "ops"
+    ops.mkdir(parents=True)
+    (ops / "attn_probes.py").write_text(
+        f"BLOCK_Q = 32\nKEY_ALIGN = {align}  # the key tile\nLp = KEY_ALIGN\n")
+    assert flash_tiles_ab.prev_key_align(tmp_path) == align
+    assert flash_tiles_ab.prev_key_align(REPO) == attn_probes.KEY_ALIGN
+
+
+# cuobjdump's layout: a kernel's name, then one instruction a line (address,
+# optional predicate, opcode, operands), branch targets as addresses
+_SASS = """
+	code for sm_90a
+		Function : _ZN12_GLOBAL__N_122softmax_variant_kernelILb1ELb0EEEvPK13__nv_bfloat16
+	.headerflags	@"EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;              /* 0x00000a00ff017b82 */
+                                                                       /* 0x000fe40000000800 */
+        /*0010*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ ;
+        /*0020*/                   FFMA R2, R3, R4, R5 ;
+{body}
+        /*0f00*/              @!P0 BRA 0x20 ;
+        /*0f10*/                   EXIT ;
+        /*0f20*/                   BRA 0xf20;
+		Function : _ZN12_GLOBAL__N_116attn_int8_kernelEPK13__nv_bfloat16
+        /*0000*/                   IGMMA.64x64x32.S8.S8 R24, R8, gdesc[UR4], RZ ;
+        /*0010*/                   EXIT ;
+		Function : _ZN12_GLOBAL__N_118quantize_kv_kernelEPK13__nv_bfloat16
+        /*0000*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+"""
+
+
+def _sass_body() -> str:
+    """A loop body from 0x30: HGMMA, 32 MUFU.EX2, a block a forward branch
+    skips (a rescale: 32 FMULs), an inner loop inside that block."""
+    lines, addr = [], 0x30
+
+    def add(text):
+        nonlocal addr
+        lines.append(f"        /*{addr:04x}*/                   {text} ;")
+        addr += 0x10
+
+    add("HGMMA.64x64x16.F32.BF16 R56, gdesc[UR8], R56, gsb0")
+    for _ in range(32):
+        add("MUFU.EX2 R7, R7")
+    start = addr
+    skip_to = start + 0x10 * 36
+    add(f"@P1 BRA {hex(skip_to)}")
+    for _ in range(32):
+        add("FMUL R8, R8, R9")
+    add(f"@P2 BRA {hex(start + 0x10)}")  # an inner backward branch inside the skipped block
+    add("NOP")
+    add("NOP")
+    assert addr == skip_to
+    add("@P0 F2FP.BF16.F32.PACK_AB R10, R11, R12")
+    while addr < 0xf00:
+        add("NOP")
+    return "\n".join(lines)
+
+
+def test_probe_sass_counts_the_common_path(monkeypatch, tmp_path):
+    """``flash_tiles_ab.probe_sass`` names the probes' kernels, counts
+    their wgmma and mma.sync opcodes, and per loop the opcodes its body
+    always runs: a block that a forward branch skips (a rescale) and the
+    loop inside it are left out; MUFU.EX2 / 32 gives the tiles an
+    iteration."""
+    import subprocess
+
+    from stutter_tpu_torch.cli import flash_tiles_ab
+    from stutter_tpu_torch.ops import _build
+
+    text = _SASS.replace("{body}", _sass_body())
+    monkeypatch.setattr(_build, "_nvcc", lambda: "/toolkit/bin/nvcc")
+    calls = []
+
+    def run(cmd, **kwargs):
+        calls.append(cmd)
+        return subprocess.CompletedProcess(cmd, 0, stdout=text, stderr="")
+
+    monkeypatch.setattr(subprocess, "run", run)
+    rows = flash_tiles_ab.probe_sass(tmp_path / "lib.so")
+    assert calls[0][:2] == ["/toolkit/bin/cuobjdump", "-sass"]
+    assert [row["kernel"] for row in rows] == ["attn_int8", "softmax_variant<1, 0>"]
+    int8, variant = rows
+    assert (int8["IGMMA"], int8["HGMMA"], int8["passes"]) == (1, 0, [])
+    assert (variant["HGMMA"], variant["HMMA"], variant["IMMA"]) == (2, 0, 0)
+    (loop,) = variant["passes"]
+    assert loop["tiles_an_iteration"] == 1
+    per = loop["per_score"]
+    assert per["MUFU.EX2"] == 1.0 and per["FFMA"] == round(1 / 32, 3) and "FMUL" not in per
+    assert per["F2FP"] == round(1 / 32, 3)  # a predicated instruction counts as its opcode
