@@ -4,8 +4,10 @@ fast, turbo), WavLM's long-bucket escape hatch, the two attention probes,
 the fused WavLM stem, WavLM-Large fine-tuning, the downstream classifier
 stack, HF checkpoint loading, the chunk long-file policy, serving, the host
 audio runtime, fine-tuning's remat policies and int8_forward, Whisper's
-shifted-GEMM stem and the process groups of data and tensor parallelism on
-one NVIDIA GPU and check them.
+shifted-GEMM stem, the process groups of data and tensor parallelism, the
+turbo_ffn preset, Whisper large-v3, the combined server, cli.train's Whisper
+re-extraction and the utils (per-run logfile, profiler trace, FLOP models)
+on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
     python3 chip_smoke.py --only-parallel   # [slice], [parallel], then [chunk] and
@@ -93,8 +95,11 @@ Phases, one line each on stdout ([time] lines give each phase's seconds):
    the pooled distance between the two runs;
 7b. turbo_slice: the slice again in turbo (6 int8 GEMMs per layer and
    batch), then turbo's pooled distance from the f32 path on one batch;
+7c. turbo_ffn_slice: the slice in turbo_ffn from the same f32 weights (2
+   int8 GEMMs per layer and batch, the FFN's), and its distance from f32;
 8. throughput: WavLM extraction's audio-seconds per second over 1280 clips
-   of 2-3 s, after a warm batch, and one batch's device time, fast and turbo;
+   of 2-3 s, after a warm batch, and one batch's device time, fast and turbo,
+   with its MFU (utils.benchmarking's FLOP model at the bf16 peak);
 8b. stem_ab: cli.stem_fused_ab at its defaults (turbo) and in fast: the stem
    and the encode with and without the fused stem, fidelity, launches;
 9. whisper_slice: a synthetic corpus through a default-constructed
@@ -109,8 +114,14 @@ Phases, one line each on stdout ([time] lines give each phase's seconds):
 10b. whisper_turbo_slice: the Whisper slice in turbo (5 int8 GEMMs per
    encoder layer and batch, none in the decoder) and turbo's distance from
    the f32 path on the 16 x 30 s batch;
+10c. whisper_turbo_ffn_slice: the same in turbo_ffn (2 int8 GEMMs per
+   encoder layer and batch);
 11. whisper_throughput: 64 clips of 2-3 s in batches of 16, after a warm
-   batch: clips/s, audio-s/s, one batch's device time, fast and turbo;
+   batch: clips/s, audio-s/s, one batch's device time and the encoder's MFU,
+   fast and turbo;
+11b. whisper_v3_slice: Whisper large-v3 (128 mels) through the pipeline
+   (one log-mel call, 32 flash_mha launches a batch), then a 16 x 30 s batch
+   against the f32 plain path (encoder 1e-3, decoder 5e-4);
 12. finetune_path: one fixed WavLM-Large training step at 8 x 3 s through
    the kernels and through the plain attention, bf16 and f32: the loss and
    the gradient cosine distance per group (encoder, layer weights, head);
@@ -175,7 +186,20 @@ Phases, one line each on stdout ([time] lines give each phase's seconds):
    with augmentation against --devices 1; each rank's launches (24 a
    batch), rows and probabilities within 1e-4, rank 1 writing no file; with
    two cards or more, serve over NCCL: p50/p95 and audio-s/s beside the
-   one-process server's.
+   one-process server's;
+22. serve_combined: cli.serve --model_type combined over the [checkpoint]
+   WavLM-Large and 4 + 4-layer Whisper-large directories: the fusion store's
+   columns, each within 1e-4 of its part's extractor alone, the launches;
+23. train_whisper: cli.train --model_type whisper with augmentation on a
+   small Whisper store: the re-extraction's log-mel and flash_mha launches,
+   the store's first batch re-extracted unchanged within 1e-4 of its rows;
+24. utils (last, so that no timing follows a profiler session): one fast
+   batch of the slice's corpus inside annotate("encode") under
+   utils.profiling.trace: the Chrome trace holds the range and the gated
+   kernel once a layer under its CUDA name; the host's microseconds to
+   enqueue a small kernel before and after the traces.
+Every CLI run here starts from a working directory of its own and must
+leave exactly one logfile there (utils.logging; [utils] counts them).
 Each extraction, probe, stem A/B, fine-tune, downstream, chunk, serving and parallel path is driven with every kernel's
 launch count (and the int8 GEMM count) set to 0 just before it and read just
 after. Then one JSON line with the kernels' numbers (time, plain time,
@@ -206,6 +230,9 @@ F32_MAX_ABS = 1e-5   # f32 sums taken in another order
 F32_COSINE = 1e-9
 # pooled embeddings, kernel path against plain-attention path, every layer
 FAST_POOLED_COSINE = 1e-4
+# pooled embeddings of the fast kernel path against the f32 plain path: the
+# repo's bar (Whisper's decoder columns: WHISPER_FAST_DECODER_COSINE)
+FAST_F32_POOLED_COSINE = 1e-3
 FIDELITY_POOLED_COSINE = 1e-6
 # the log-mel kernel after the epilogue: the JAX package's bar for its kernel
 LOGMEL_MAX_ABS = 1e-4
@@ -257,11 +284,6 @@ VARIANT_COSINE = {"A_incumbent": 1e-5, "B_postnorm": 5e-5, "C_bf16chain": 1e-5,
 # fixed 127 scale rounds diffuse rows' probabilities to 0: ~0.1-0.4 by design)
 PROBE_F32_COSINE = 1e-3
 
-# the card's peaks for the bounds (H100 SXM, dense)
-BF16_FLOPS = 989e12
-INT8_OPS = 1979e12
-F32_FLOPS = 67e12      # outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
 # the fused stem against its plain version, and the kernel path's end-masked
 # frames against the plain ConvFeatureEncoder: the JAX test's bars
 # (tests/test_stem_pallas.py:98-102). Both share the rounding points (conv ->
@@ -275,6 +297,9 @@ STEM_COSINE, STEM_NRMSE = 5e-4, 0.03
 # flipped rounding in either stem moves the ratio by more than 25 %)
 STEM_AB_FAST_COSINE, TURBO_COSINE = 1e-3, 2e-2
 STEM_AB_RATIO, STEM_AB_FLOOR = 1.25, 5e-5
+# int8 GEMMs a layer and batch, by preset
+INT8_GEMMS_A_LAYER = {"wavlm": {"turbo": 6, "turbo_ffn": 2},
+                      "whisper": {"turbo": 5, "turbo_ffn": 2}}
 
 
 class CheckFailed(Exception):
@@ -293,6 +318,47 @@ def say(phase: str, **fields) -> None:
 def cosine_distance(a, b) -> float:
     a, b = a.double().flatten(), b.double().flatten()
     return float(1.0 - (a @ b) / (a.norm() * b.norm()))
+
+
+def reset_port_logging() -> None:
+    """The port's logging as a new process finds it: ``utils/logging.py``
+    configures it once a process, and each CLI run here is to start its own
+    logfile and leave no handler behind."""
+    import logging
+
+    from stutter_tpu_torch.utils import logging as port_logging
+
+    logger = logging.getLogger("stutter_tpu_torch")
+    for handler in list(logger.handlers):
+        logger.removeHandler(handler)
+        handler.close()
+    logger.setLevel(logging.NOTSET)
+    port_logging._configured = False
+    port_logging.inherit_logfile(None)
+
+
+CLI_LOGFILES: list[str] = []  # the logfile each CLI run here left
+
+
+@contextlib.contextmanager
+def cli_dir(work: Path, tag: str):
+    """Run a CLI (in this process, or on the ranks it spawns) from a new
+    working directory under ``work`` with the port's logging unset; then check
+    that the run left exactly one logfile there, ``logs/{tag}_*.log``."""
+    cwd = work / f"cli_{len(CLI_LOGFILES):02d}_{tag}"
+    cwd.mkdir()
+    home = os.getcwd()
+    reset_port_logging()
+    os.chdir(cwd)
+    try:
+        yield cwd
+    finally:
+        os.chdir(home)
+        reset_port_logging()
+    logs = sorted(p.name for p in (cwd / "logs").iterdir()) if (cwd / "logs").is_dir() else []
+    check(len(logs) == 1 and logs[0].startswith(f"{tag}_") and logs[0].endswith(".log"),
+          f"{tag}: the run left the logfiles {logs}, expected one {tag}_*.log")
+    CLI_LOGFILES.append(logs[0])
 
 
 KSF_LABELS = ("no_disfluency", "block", "prolongation", "sound_repetition")
@@ -345,6 +411,8 @@ def phase_kernel(torch, attn):
     numbers at the 3 s bf16 shape). No single PyTorch call computes the
     gated bias (gate * bias formed per row in the kernel), so no library
     time."""
+    from stutter_tpu_torch.utils.benchmarking import bound
+
     cases = [  # (B, H, L, dtype, layout): the main path passes [B, L, H, d] views
         (128, 16, 160, torch.bfloat16, "blhd"),   # 3 s bucket, fast preset
         (12, 16, 1504, torch.bfloat16, "blhd"),   # 30 s bucket, fast preset
@@ -417,7 +485,9 @@ def shown(numbers: dict) -> dict:
 
 def peak_flops(torch, dtype) -> float:
     """bf16 runs on the tensor cores; the f32 kernels are scalar FMAs."""
-    return BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    from stutter_tpu_torch.utils.benchmarking import BF16_PEAK, F32_PEAK
+
+    return BF16_PEAK if dtype == torch.bfloat16 else F32_PEAK
 
 
 def attention_inputs(torch, g, B, H, L, dtype, lengths):
@@ -439,6 +509,7 @@ def phase_attn_bwd(torch, attn, card: str):
     returns (worst max-abs error, the worst of it relative to the plain
     result's max, the numbers at the CLI's 3 s batch in bf16)."""
     from stutter_tpu_torch.cli.flash_tiles_ab import sdpa_backward
+    from stutter_tpu_torch.utils.benchmarking import bound
 
     cases = [  # (B, H, L): the CLI's batch 32 at 3 s, its 10 s bucket, a ragged long length
         (32, 16, 160), (9, 16, 512), (4, 16, 1008)]
@@ -528,14 +599,6 @@ def time_turns(torch, *fns, runs: int = 20, reps: int = 1):
             e1.synchronize()
             acc.append(e0.elapsed_time(e1) / reps)
     return tuple(sorted(t)[len(t) // 2] for t in times)
-
-
-def bound(flops: float, nbytes: float, peak_flops: float) -> tuple[float, str]:
-    """The least ms the card could take: the larger of the operations over
-    their peak rate and the bytes over the memory rate (H100 SXM data sheet,
-    dense, at 700 W), and which of the two it is."""
-    ops_ms, bytes_ms = flops / peak_flops * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
 def count_submits(extractor):
@@ -642,7 +705,9 @@ def phase_slice(torch, extractor, work: Path, phase: str = "slice") -> dict:
     check(counts["gated_relpos_attention_bwd"] == 0, "extraction launched the backward")
     check(counts["wavlm_fused_stem"] == 0, "the pipeline took the fused stem (off by default)")
     check(counts["flash_mha_bias"] == 0, "the pipeline took the long-bucket hatch (off by default)")
-    int8 = 6 * cfg.num_hidden_layers * seen["batches"] if extractor.preset == "turbo" else 0
+    # turbo: the six projections of each layer; turbo_ffn: the FFN's two
+    int8 = INT8_GEMMS_A_LAYER["wavlm"].get(extractor.preset, 0) * cfg.num_hidden_layers \
+        * seen["batches"]
     check(counts["int8_gemm"] == int8,
           f"{counts['int8_gemm']} int8 GEMMs for {seen['batches']} batches, expected {int8}")
     for split, n in (("train", 12), ("test", 6), ("devel", 6)):
@@ -666,6 +731,74 @@ def phase_slice(torch, extractor, work: Path, phase: str = "slice") -> dict:
 
     check_resume(torch, pipe, extractor, meta, out, results)
     return dict(counts, batches=seen["batches"])
+
+
+# the gated attention kernel's CUDA name in a profiler trace: the bf16 tile
+# template (csrc/attention_tiles_sm90.cuh) with wavlm_attention.cu's policy
+GATED_CUDA_NAME = ("attention_bf16_kernel", "GatedBiasRing")
+
+
+def host_launch_us(torch, launches: int = 2000) -> float:
+    """The host's median microseconds to enqueue one small kernel (five runs
+    of ``launches`` in-place adds on a one-element tensor)."""
+    x = torch.zeros(1, device="cuda")
+    runs = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(launches):
+            x.add_(1)
+        runs.append((time.perf_counter() - t0) / launches * 1e6)
+    torch.cuda.synchronize()
+    return sorted(runs)[2]
+
+
+def phase_utils(torch, extractor, work: Path, card: str) -> dict:
+    """utils/profiling.py on the card: one fast WavLM-Large batch of [slice]'s
+    corpus through the extractor inside ``annotate("encode")`` under
+    ``trace``; the Chrome trace holds the range and the gated kernel once a
+    layer, under its CUDA name. A process's first trace may come back without
+    the card's kernels, so the batch is traced twice and the second trace
+    read. The host's time to enqueue a small kernel is taken before the first
+    trace and after the second (whether a profiler session leaves cost behind
+    in the process). Returns the launch counts of the traced batch."""
+    import numpy as np
+
+    from stutter_tpu_torch.extract.batcher import BucketBatcher
+    from stutter_tpu_torch.extract.scanner import create_metadata_from_files
+    from stutter_tpu_torch.utils.profiling import annotate, trace
+
+    meta = create_metadata_from_files(str(work / "corpus"))
+    batcher = BucketBatcher(frame_align=extractor.frame_align)
+    batch = next(iter(batcher.batches([r["path"] for r in meta], prefetch=False)))
+    n_layers = extractor.cfg.num_hidden_layers
+    on_card = extractor.device.type == "cuda"
+    launch_us = [host_launch_us(torch)] if on_card else []
+    for attempt in ("first", "second"):
+        zero_counts()
+        with trace(str(work / "utils_trace" / attempt)):
+            with annotate("encode"):
+                rows = extractor(batch)
+            if on_card:
+                torch.cuda.synchronize()
+        counts = read_counts()
+    launch_us += [host_launch_us(torch)] if on_card else []
+    path, = (work / "utils_trace" / "second").glob("*.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    ranges = [e for e in events if e.get("name") == "encode"]
+    gated = [e["name"] for e in events if e.get("cat") == "kernel"
+             and all(part in e.get("name", "") for part in GATED_CUDA_NAME)]
+    check(all(bool(np.isfinite(v).all()) for v in rows.values()), "utils: non-finite rows")
+    check(len(ranges) >= 1, "utils: no 'encode' range in the trace")
+    check(len(gated) == n_layers * on_card == counts["gated_relpos_attention"],
+          f"utils: {len(gated)} gated kernels in the trace, {counts['gated_relpos_attention']} "
+          f"counted, expected {n_layers * on_card}")
+    say("utils", trace_events=len(events), encode_ranges=len(ranges),
+        gated_kernels_in_trace=len(gated), launches=counts["gated_relpos_attention"],
+        clips=len(batch.paths), batch=f"{len(batch.lengths)}x{batch.bucket_s:g}s", kernel=f'"{gated[0][:60] if gated else None}"',
+        trace_mb=f"{path.stat().st_size / 1e6:.1f}",
+        host_launch_us_before_after=",".join(f"{t:.2f}" for t in launch_us), card=f'"{card}"')
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -915,6 +1048,7 @@ def phase_throughput(torch, extractor, work: Path, card: str) -> float:
     from stutter_tpu_torch.extract.pipeline import ExtractionPipeline
     from stutter_tpu_torch.extract.scanner import create_metadata_from_files
     from stutter_tpu_torch.frontend.wavlm_frontend import wavlm_prepare_batch
+    from stutter_tpu_torch.utils.benchmarking import wavlm_flops
 
     corpus = work / "timing_corpus"
     audio_s = write_corpus(corpus, {"train": 1280}, (2.0, 3.0), seed=2)
@@ -946,7 +1080,22 @@ def phase_throughput(torch, extractor, work: Path, card: str) -> float:
         batch=f"{len(batch.lengths)}x3s", encode_device_ms=f"{encode_ms:.1f}",
         encode_audio_s_per_s=f"{batch.audio_seconds / (encode_ms / 1e3):.1f}",
         card=f'"{card}"')
+    B, T = batch.waves.shape
+    enc_flops, stem_flops, _ = wavlm_flops(extractor.cfg, B, T)
+    say_mfu("wavlm-large", extractor.preset, f"{B}x{T}", enc_flops + stem_flops, encode_ms, card)
     return audio_s / wall
+
+
+def say_mfu(model: str, preset: str, batch: str, flops: int, device_ms: float,
+            card: str) -> None:
+    """A device-only encode's MFU: the FLOP model's count (utils/benchmarking.py)
+    over the CUDA-event time, at the card's bf16 peak."""
+    from stutter_tpu_torch.utils.benchmarking import BF16_PEAK
+
+    rate = flops / (device_ms / 1e3)
+    say("mfu", model=model, preset=preset, batch=batch, gflop=f"{flops / 1e9:.1f}",
+        device_ms=f"{device_ms:.1f}", tflop_per_s=f"{rate / 1e12:.1f}",
+        mfu=f"{rate / BF16_PEAK:.4f}", peak="bf16_989e12", card=f'"{card}"')
 
 
 def whisper_test_clips(torch, B: int, seed: int):
@@ -1013,6 +1162,8 @@ def phase_logmel(torch, logmel):
     at 1 and 17 clips (a pure tone, a loud burst in 1e-6 noise, silent,
     quiet and zero-padded clips); returns (worst max-abs error from the
     plain version, the numbers at 80 mels)."""
+    from stutter_tpu_torch.utils.benchmarking import F32_PEAK, bound
+
     worst, headline = 0.0, None
     for n_mels in (80, 128):
         for B in (16, 1, 17):
@@ -1040,10 +1191,10 @@ def phase_logmel(torch, logmel):
                 queued_ms, = time_turns(torch, lambda: logmel.whisper_log_mel(wave, n_mels),
                                         reps=8)
                 flops, nbytes, dense_flops = logmel_work(wave, out, n_mels)
-                numbers = timing(ms, plain_ms, *bound(flops, nbytes, F32_FLOPS))
+                numbers = timing(ms, plain_ms, *bound(flops, nbytes, F32_PEAK))
                 numbers["queued_ms"] = queued_ms
                 # a dense design's bound (the windowed DFT as a product), for comparison
-                dense_ms, _ = bound(dense_flops, nbytes, F32_FLOPS)
+                dense_ms, _ = bound(dense_flops, nbytes, F32_PEAK)
                 fields.update(shown(numbers), bound_dense_dft_ms=f"{dense_ms:.4f}")
                 headline = headline or numbers
             say("logmel", **fields)
@@ -1183,6 +1334,8 @@ def phase_mha(torch, mha):
     max-abs error, the numbers at the bf16 encoder shape)."""
     import torch.nn.functional as F
 
+    from stutter_tpu_torch.utils.benchmarking import bound
+
     cases = [  # (B, H, L, dtype, kv_valid): [B, L, H, d] views, as the encoder passes them
         (16, 20, 1500, torch.bfloat16, None),   # Whisper-large encoder, fast preset
         (16, 20, 1500, torch.float32, None),    # fidelity preset
@@ -1254,6 +1407,8 @@ def phase_mha_bias(torch, mha):
     (worst max-abs error, the numbers at the 30 s bucket)."""
     import torch.nn.functional as F
 
+    from stutter_tpu_torch.utils.benchmarking import bound
+
     cases = [(12, 16, 1504, torch.bfloat16), (19, 16, 1008, torch.bfloat16),
              (3, 16, 37, torch.float32)]
     g = torch.Generator(device="cuda").manual_seed(9)
@@ -1306,6 +1461,7 @@ def phase_probe_kernels(torch, probes, card: str):
     and 1025 = 64 * 16 + 1), the int8 operands bit-equal; returns {kernel:
     (worst max-abs error, the numbers at the 30 s case)}."""
     from stutter_tpu_torch.cli.flash_tiles_ab import int8_operands_equal, probe_inputs
+    from stutter_tpu_torch.utils.benchmarking import BF16_PEAK, INT8_PEAK, bound
 
     g = torch.Generator(device="cuda").manual_seed(12)
     result = {"attn_int8": (0.0, None), "attn_softmax_variants": (0.0, None)}
@@ -1316,13 +1472,13 @@ def phase_probe_kernels(torch, probes, card: str):
         n = B * 16 * L * 64  # q k^T and a v; q, k, v, out once, bias, gate, mask
         nbytes = 4 * n * 2 + 4 * (16 * L * L + B * 16 * L + B * L)
         runs = [("attn_int8", "int8", lambda: probes.int8_attention_long(*args),
-                 lambda: probes.int8_attention_long_reference(*args), INT8_OPS,
+                 lambda: probes.int8_attention_long_reference(*args), INT8_PEAK,
                  INT8_MAX_ABS, INT8_COSINE)]
         for name, (postnorm, chain) in probes.VARIANTS.items():
             runs.append(("attn_softmax_variants", name,
                          lambda pn=postnorm, c=chain: probes.softmax_variant_attention(*args, pn, c),
                          lambda pn=postnorm, c=chain: probes.softmax_variant_attention_reference(
-                             *args, pn, c), BF16_FLOPS, VARIANT_MAX_ABS, VARIANT_COSINE[name]))
+                             *args, pn, c), BF16_PEAK, VARIANT_MAX_ABS, VARIANT_COSINE[name]))
         for kernel, name, fn, plain, peak, tol_abs, tol_cos in runs:
             out, ref = fn(), plain()
             torch.cuda.synchronize()
@@ -1497,8 +1653,9 @@ def phase_whisper_slice(torch, extractor, work: Path, phase: str = "whisper_slic
           f"flash_mha launched {counts['flash_mha']} times for {batches} batches")
     check(counts["gated_relpos_attention"] == counts["gated_relpos_attention_bwd"]
           == counts["wavlm_fused_stem"] == 0, "the Whisper path launched WavLM's kernels")
-    # turbo: q, k, v, fc1, fc2 of each encoder layer; attn_o and the decoder stay bf16
-    int8 = 5 * cfg.encoder_layers * batches if extractor.preset == "turbo" else 0
+    # turbo: q, k, v, fc1, fc2 of each encoder layer; turbo_ffn: fc1, fc2; attn_o
+    # and the decoder stay bf16
+    int8 = INT8_GEMMS_A_LAYER["whisper"].get(extractor.preset, 0) * cfg.encoder_layers * batches
     check(counts["int8_gemm"] == int8,
           f"{counts['int8_gemm']} int8 GEMMs for {batches} batches, expected {int8}")
     say(phase, preset=extractor.preset, clips=len(meta), audio_s=f"{audio_s:.2f}",
@@ -1606,6 +1763,7 @@ def phase_whisper_throughput(torch, extractor, work: Path, card: str) -> float:
     from stutter_tpu_torch.extract.pipeline import ExtractionPipeline
     from stutter_tpu_torch.extract.scanner import create_metadata_from_files
     from stutter_tpu_torch.frontend.whisper_frontend import whisper_features
+    from stutter_tpu_torch.utils.benchmarking import whisper_encoder_flops
 
     corpus = work / "whisper_timing_corpus"
     audio_s = write_corpus(corpus, {"train": 64}, (2.0, 3.0), seed=4)
@@ -1632,6 +1790,9 @@ def phase_whisper_throughput(torch, extractor, work: Path, card: str) -> float:
         e1.synchronize()
         times.append(e0.elapsed_time(e1))
     encode_ms = float(np.median(times))
+    # the encoder's FLOPs over the whole embed's time (log-mel, encoder, decoder step)
+    say_mfu("whisper-large", extractor.preset, f"{len(batch.lengths)}x30s",
+            whisper_encoder_flops(cfg, len(batch.lengths)), encode_ms, card)
     say("whisper_throughput", preset=extractor.preset, clips=len(meta),
         audio_s=f"{audio_s:.1f}",
         wall_s=f"{wall:.3f}", clips_per_s=f"{len(meta) / wall:.2f}",
@@ -1640,6 +1801,50 @@ def phase_whisper_throughput(torch, extractor, work: Path, card: str) -> float:
         encode_clips_per_s=f"{len(batch.lengths) / (encode_ms / 1e3):.2f}",
         card=f'"{card}"')
     return len(meta) / wall
+
+
+def phase_whisper_v3_slice(torch, work: Path, card: str, device: str = "cuda") -> dict:
+    """Whisper large-v3 (128 mels; random weights, seed 0) fast through the
+    pipeline on [whisper_slice]'s corpus (``phase_whisper_slice``: the store,
+    one log-mel call, i.e. two kernel launches, and 32 flash_mha launches a
+    batch, resume); then one 16 x 30 s batch, kernel path against the f32
+    plain path (plain log-mel and attention, no TF32): the encoder columns
+    within 1e-3, the decoder's within 5e-4 (PERF.md section 2's fast bars).
+    Returns the slice's launch counts."""
+    from stutter_tpu_torch.extract.pipeline import WhisperExtractor
+    from stutter_tpu_torch.frontend.whisper_frontend import whisper_features
+    from stutter_tpu_torch.models.whisper import WhisperConfig, WhisperModel
+    from stutter_tpu_torch.ops.flash_mha import flash_mha_reference
+    from stutter_tpu_torch.ops.logmel import log_mel_spectrogram_reference
+    from stutter_tpu_torch.ops.precision import no_tf32
+    from stutter_tpu_torch.weights.convert import init_whisper
+
+    cfg = WhisperConfig.large_v3()
+    check(cfg.num_mel_bins == 128, f"large-v3 takes 128 mels, the config {cfg.num_mel_bins}")
+    base = init_whisper(cfg, torch.Generator().manual_seed(0))
+    fid_model = WhisperModel(cfg, device=device)
+    fid_model.load_state_dict(base.state_dict())
+    extractor = WhisperExtractor(base, device, preset="fast")  # casts to bf16
+    del base
+    counts = phase_whisper_slice(torch, extractor, work, phase="whisper_v3_slice")
+    wave = whisper_test_clips(torch, 16, seed=5)
+    n = cfg.encoder_layers
+    idx = (n, n - 1, n - 2)
+    fast = extractor.model.embed(whisper_features(wave, 128), idx, idx)
+    with no_tf32():
+        ref = fid_model.embed(log_mel_spectrogram_reference(wave, 128), idx, idx,
+                              attention_fn=flash_mha_reference)
+    check(fast.shape == (6, 16, cfg.d_model) and bool(torch.isfinite(fast).all()),
+          f"whisper_v3: pooled rows {tuple(fast.shape)} or non-finite")
+    d_enc, d_dec = worst_pooled(fast[:3], ref[:3]), worst_pooled(fast[3:], ref[3:])
+    say("whisper_v3_slice", batch="16x30s", mels=128, encoder_cosine_vs_f32=f"{d_enc:.3e}",
+        encoder_tol=FAST_F32_POOLED_COSINE, decoder_cosine_vs_f32=f"{d_dec:.3e}",
+        decoder_tol=WHISPER_FAST_DECODER_COSINE, card=f'"{card}"')
+    check(d_enc <= FAST_F32_POOLED_COSINE,
+          f"whisper_v3: encoder columns {d_enc:.3e} from the f32 plain path")
+    check(d_dec <= WHISPER_FAST_DECODER_COSINE,
+          f"whisper_v3: decoder columns {d_dec:.3e} from the f32 plain path")
+    return counts
 
 
 # the gradient groups: encoder (the backbone above the frozen stem), layer
@@ -1955,7 +2160,7 @@ def phase_finetune(torch, work: Path, card: str, device: str = "cuda", batch_siz
         zero_counts()
         if on_card:
             torch.cuda.reset_peak_memory_stats()
-        with spy.attached():
+        with spy.attached(), cli_dir(work, "finetune"):
             t0 = time.perf_counter()
             rc = cli.main(common + args)
             wall = time.perf_counter() - t0
@@ -2249,8 +2454,9 @@ def phase_downstream(torch, work: Path, card: str, device: str = "cuda",
                            labels=labels)
     stages = {}
     t0 = time.perf_counter()
-    rc = extract_cli.main(["--data_dir", str(corpus), "--output_dir", str(store / "wavlm"),
-                           "--random_init", "--device", device, "--devices", "1"])
+    with cli_dir(work, "wavlm_embedding"):
+        rc = extract_cli.main(["--data_dir", str(corpus), "--output_dir", str(store / "wavlm"),
+                               "--random_init", "--device", device, "--devices", "1"])
     stages["extract"] = time.perf_counter() - t0
     check(rc == 0, f"cli.extract_wavlm returned {rc}")
 
@@ -2278,10 +2484,11 @@ def phase_downstream(torch, work: Path, card: str, device: str = "cuda",
     zero_counts()
     try:
         t0 = time.perf_counter()
-        rc = train_cli.main(["--embeddings_dir", str(store), "--results_dir", str(results),
-                             "--model_type", "wavlm", "--classifier", "mlp",
-                             "--augmentation_factor", "2", "--minority_threshold", "20",
-                             "--random_init", "--device", device, "--devices", "1"])
+        with cli_dir(work, "model_training"):
+            rc = train_cli.main(["--embeddings_dir", str(store), "--results_dir", str(results),
+                                 "--model_type", "wavlm", "--classifier", "mlp",
+                                 "--augmentation_factor", "2", "--minority_threshold", "20",
+                                 "--random_init", "--device", device, "--devices", "1"])
         stages["train_cli"] = time.perf_counter() - t0
         counts = read_counts()
     finally:
@@ -2394,6 +2601,7 @@ def phase_stem(torch, card: str):
     from stutter_tpu_torch.frontend.wavlm_frontend import wavlm_prepare_batch
     from stutter_tpu_torch.models.wavlm import WavLMConfig, wavlm_feature_lengths
     from stutter_tpu_torch.ops import wavlm_stem as st
+    from stutter_tpu_torch.utils.benchmarking import BF16_PEAK, bound
 
     from stutter_tpu_torch.cli.flash_tiles_ab import seeded_stem_layers
 
@@ -2441,8 +2649,8 @@ def phase_stem(torch, card: str):
             queued_ms, = time_turns(torch, lambda: st.wavlm_fused_stem(wave, weights, table),
                                     runs=10, reps=8)
             flops, io, between, weight_reads = stem_flops_bytes(st, B, T, weights, table)
-            bound_ms, bound_by = bound(flops, io, BF16_FLOPS)
-            design_ms, _ = bound(flops, io + between, BF16_FLOPS)
+            bound_ms, bound_by = bound(flops, io, BF16_PEAK)
+            design_ms, _ = bound(flops, io + between, BF16_PEAK)
             fields.update(ms=f"{ms:.4f}", queued_ms=f"{queued_ms:.4f}",
                           plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
                           tflop=f"{flops / 1e12:.4f}", bound_ms=f"{bound_ms:.4f}",
@@ -2505,10 +2713,11 @@ def worst_pooled(a, b) -> float:
                for s in range(a.shape[0]) for i in range(a.shape[1]))
 
 
-def phase_turbo_fidelity(torch, name: str, embed, turbo_model, fast_model, fid_model):
-    """One batch through the turbo, fast and f32 models (``embed(model)``
-    gives pooled [S, B, D]): turbo's worst pooled cosine distance from f32
-    (bar 2e-2, the JAX turbo tests'), fast's beside it."""
+def phase_turbo_fidelity(torch, name: str, embed, turbo_model, fast_model, fid_model,
+                         preset: str = "turbo"):
+    """One batch through the turbo (or turbo_ffn), fast and f32 models
+    (``embed(model)`` gives pooled [S, B, D]): turbo's worst pooled cosine
+    distance from f32 (bar 2e-2, the JAX turbo tests'), fast's beside it."""
     from stutter_tpu_torch.ops.precision import no_tf32
 
     with no_tf32():
@@ -2516,10 +2725,10 @@ def phase_turbo_fidelity(torch, name: str, embed, turbo_model, fast_model, fid_m
     turbo, fast = embed(turbo_model), embed(fast_model)
     check(bool(torch.isfinite(turbo).all()), f"{name} turbo: non-finite pooled embeddings")
     d_turbo, d_fast = worst_pooled(turbo, ref), worst_pooled(fast, ref)
-    say("turbo_fidelity", model=name, batch=f"{turbo.shape[1]}",
+    say("turbo_fidelity", model=name, preset=preset, batch=f"{turbo.shape[1]}",
         turbo_cosine_vs_f32=f"{d_turbo:.3e}", fast_cosine_vs_f32=f"{d_fast:.3e}",
         bar=TURBO_COSINE)
-    check(d_turbo <= TURBO_COSINE, f"{name} turbo {d_turbo:.3e} from f32, bar {TURBO_COSINE}")
+    check(d_turbo <= TURBO_COSINE, f"{name} {preset} {d_turbo:.3e} from f32, bar {TURBO_COSINE}")
 
 
 # --- checkpoints, the chunk policy and serving --------------------------------
@@ -3755,19 +3964,26 @@ def fds_to(stdout: Path, stderr: Path):
             os.close(old)
 
 
+# the logfile tag of each CLI (the JAX CLIs' tags)
+CLI_TAGS = {"stutter_tpu_torch.cli.serve": "serve", "stutter_tpu_torch.cli.predict": "predict",
+            "stutter_tpu_torch.cli.train": "model_training"}
+
+
 def spawned_cli(module: str, argv: list, spy_dir: Path, work: Path, device: str,
                 backend: str | None) -> list:
     """``module``'s main on two ranks that ``spawn_cli`` starts (gloo shares
     one card; None: NCCL, one card a rank), with the rank spy. Their stdout
     goes to spy_dir/stdout.txt and their stderr to spy_dir/ranks.log, whose
-    end is printed if a rank fails. Returns their reports, rank 0's first."""
+    end is printed if a rank fails. They run from a working directory of their
+    own, where rank 0 leaves the run's one logfile (``cli_dir``). Returns their
+    reports, rank 0's first."""
     from stutter_tpu_torch.parallel.mesh import spawn_cli
 
     spy_dir.mkdir(parents=True)
     log = spy_dir / "ranks.log"
     os.environ[RANK_SPY_ENV] = str(spy_dir)
     try:
-        with fds_to(spy_dir / "stdout.txt", log):
+        with fds_to(spy_dir / "stdout.txt", log), cli_dir(work, CLI_TAGS[module]):
             spawn_cli(module, argv, 2, "cuda" if device == "cuda" else "cpu", str(work),
                       backend=backend)
     except Exception:
@@ -3942,9 +4158,10 @@ def phase_parallel_serve(torch, extractor, work: Path, card: str, ckpt: Path, cl
         ["--max_length", str(max_length)] if max_length else [])
     one_csv, two_csv = base / "predict_one.csv", base / "predict_two.csv"
     t_step = time.perf_counter()
-    check(predict_cli.main(pred + ["--output", str(one_csv), "--devices", "1",
-                                   "--keep_embeddings_dir", str(base / "predict_one")]) == 0,
-          "parallel_serve: one-process predict failed")
+    with cli_dir(work, "predict"):
+        rc = predict_cli.main(pred + ["--output", str(one_csv), "--devices", "1",
+                                      "--keep_embeddings_dir", str(base / "predict_one")])
+    check(rc == 0, "parallel_serve: one-process predict failed")
     reports = spawned_cli("stutter_tpu_torch.cli.predict",
                           pred + ["--output", str(two_csv), "--devices", "2",
                                   "--keep_embeddings_dir", str(base / "predict_two")],
@@ -4004,10 +4221,9 @@ def phase_parallel_serve(torch, extractor, work: Path, card: str, ckpt: Path, cl
     train = ["--embeddings_dir", str(store), "--model_type", "wavlm", "--model_name", str(ckpt),
              "--classifier", "mlp", "--head_epochs", "5", "--augmentation_factor", "1",
              "--minority_threshold", "100", "--no_smote", "--preset", "fast", "--device", device]
-    with augmented_rows({}) as one:
-        check(train_cli.main(train + ["--results_dir", str(base / "train_one"),
-                                      "--devices", "1"]) == 0,
-              "parallel_serve: one-process train failed")
+    with augmented_rows({}) as one, cli_dir(work, "model_training"):
+        rc = train_cli.main(train + ["--results_dir", str(base / "train_one"), "--devices", "1"])
+    check(rc == 0, "parallel_serve: one-process train failed")
     rows_one = one["rows"]
     for backend, backend_arg in [("gloo", "gloo")] + ([("nccl", None)] if cards else []):
         tag = f"train_{backend}_dp2"
@@ -4041,6 +4257,197 @@ def phase_parallel_serve(torch, extractor, work: Path, card: str, ckpt: Path, cl
             seconds=f"{time.perf_counter() - t_step:.1f}", card=f'"{card}"')
         t_step = time.perf_counter()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# [serve_combined], [train_whisper]: the two CLI configurations left
+# ---------------------------------------------------------------------------
+
+
+def phase_serve_combined(torch, wavlm_ex, work: Path, card: str, wavlm_ckpt: Path,
+                         whisper_ckpt: Path, device: str = "cuda", durations=(1.0, 8.0),
+                         requests: int = 6) -> dict:
+    """cli.serve --model_type combined in-process on [checkpoint]'s WavLM-Large
+    and 4 + 4-layer Whisper-large directories over ``requests`` JSONL
+    requests: rc 0, every request answered, the fusion store's column names
+    (each part's columns under its name, then combined_top), and each
+    column's row within PARALLEL_SERVE_COSINE of that part's extractor alone
+    (``wavlm_ex``, loaded from the same directory, and a WhisperExtractor of
+    the Whisper directory) on the batches the server made; per batch one
+    gated launch a WavLM layer, one log-mel call and one flash_mha launch a
+    Whisper encoder layer. Returns the launch counts of the CLI run."""
+    import io
+
+    import numpy as np
+
+    from stutter_tpu_torch.cli import serve as serve_cli
+    from stutter_tpu_torch.extract.pipeline import WhisperExtractor
+    from stutter_tpu_torch.extract.store import combined_top_key
+    from stutter_tpu_torch.serve.combined import CombinedExtractor
+    from stutter_tpu_torch.weights.convert import load_whisper
+
+    on_card = device == "cuda"
+    corpus = work / "combined_corpus"
+    audio_s = write_corpus(corpus, {"train": requests}, durations, seed=51)
+    paths = sorted(str(p) for p in (corpus / "wav").glob("*.wav"))
+    reqs = work / "combined_requests.jsonl"
+    reqs.write_text("".join(json.dumps({"id": f"c{i}", "path": p}) + "\n"
+                            for i, p in enumerate(paths)))
+    batches, submit = [], CombinedExtractor.submit
+
+    def recorded(self, batch):
+        batches.append(batch)
+        return submit(self, batch)
+
+    out = io.StringIO()
+    CombinedExtractor.submit = recorded
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), cli_dir(work, "serve"):
+            rc = serve_cli.main(["--model_type", "combined", "--model_name", str(wavlm_ckpt),
+                                 "--whisper_model_name", str(whisper_ckpt), "--input",
+                                 str(reqs), "--max_wait_ms", "100", "--preset", "fast",
+                                 "--device", device, "--devices", "1"])
+    finally:
+        CombinedExtractor.submit = submit
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    check(rc == 0, f"serve_combined: cli.serve returned {rc}")
+    lines = [json.loads(line) for line in out.getvalue().splitlines()
+             if line.startswith('{"id"')]
+    check(sorted(o["id"] for o in lines) == sorted(f"c{i}" for i in range(len(paths)))
+          and all(o["ok"] for o in lines), f"serve_combined: answers {lines}")
+
+    _, whisper_model = load_whisper(str(whisper_ckpt))
+    whisper_ex = WhisperExtractor(whisper_model, device, preset="fast")
+    parts = (("wavlm", wavlm_ex), ("whisper", whisper_ex))
+    columns = list(dict.fromkeys(  # a response's columns: a dict's keys
+        [f"{name}_{c}" for name, ex in parts for c in ex.column_names] + ["combined_top"]))
+    tops = [f"{name}_{combined_top_key(ex.column_names)}" for name, ex in parts]
+    alone = {}  # path -> {column: row} from each part alone, on the server's batches
+    for batch in batches:
+        rows = [ex(batch) for _, ex in parts]
+        for i, path in enumerate(batch.paths):
+            alone[path] = {f"{name}_{c}": r[c][i] for (name, _), r in zip(parts, rows)
+                           for c in r}
+            alone[path]["combined_top"] = np.hstack([alone[path][c] for c in tops])
+    worst = 0.0
+    for o in lines:
+        check(list(o["embeddings"]) == columns,
+              f"serve_combined: columns {list(o['embeddings'])}, expected {columns}")
+        worst = max([worst] + [cosine_distance(torch.tensor(o["embeddings"][c]),
+                                               torch.from_numpy(alone[o["path"]][c]))
+                               for c in columns])
+    n_batches, n_layers = len(batches), (wavlm_ex.cfg.num_hidden_layers,
+                                         whisper_ex.cfg.encoder_layers)
+    expected = {"gated_relpos_attention": n_layers[0] * n_batches * on_card,
+                "whisper_log_mel": n_batches * on_card,
+                "flash_mha": n_layers[1] * n_batches * on_card}
+    check({k: v for k, v in counts.items() if v} == {k: v for k, v in expected.items() if v},
+          f"serve_combined: launches {counts}, expected {expected}")
+    say("serve_combined", requests=len(lines), batches=n_batches, columns=len(columns),
+        gated_launches=counts["gated_relpos_attention"],
+        log_mel_calls=counts["whisper_log_mel"], flash_mha_launches=counts["flash_mha"],
+        worst_cosine_vs_each_part_alone=f"{worst:.3g}", tol=PARALLEL_SERVE_COSINE,
+        audio_s=f"{audio_s:.1f}", wall_s=f"{wall:.2f}", card=f'"{card}"')
+    check(worst <= PARALLEL_SERVE_COSINE,
+          f"serve_combined: rows {worst:.3g} from each part's extractor alone")
+    del whisper_ex, whisper_model
+    return counts
+
+
+def phase_train_whisper(torch, work: Path, card: str, whisper_ckpt: Path,
+                        device: str = "cuda", durations=(1.0, 3.0)) -> dict:
+    """cli.train --model_type whisper in-process on a small Whisper store
+    ([checkpoint]'s 4 + 4-layer Whisper-large directory through
+    ExtractionPipeline over a KSF-layout corpus: 26 training clips, two
+    classes of 3), augmentation factor 2 under 5 clips a class: rc 0, 12
+    augmented copies re-extracted by Whisper (one log-mel call and one
+    flash_mha launch an encoder layer per batch, no other kernel); then the
+    store's first batch again, unchanged and in the store's order, through
+    the CLI's re-extraction (``augment_extract._embed_waves`` with the CLI's
+    extractor): each row within PARALLEL_SERVE_COSINE of the store's.
+    Returns the launch counts of the CLI run."""
+    from stutter_tpu_torch.audio.wavio import load_audio
+    from stutter_tpu_torch.cli import train as train_cli
+    from stutter_tpu_torch.extract.pipeline import ExtractionPipeline, WhisperExtractor
+    from stutter_tpu_torch.extract.scanner import create_metadata_from_files
+    from stutter_tpu_torch.extract.store import load_embeddings
+    from stutter_tpu_torch.train import augment_extract, trainer
+    from stutter_tpu_torch.weights.convert import load_whisper
+
+    on_card = device == "cuda"
+    labels = {"train": ["no_disfluency"] * 10 + ["block"] * 10 + ["prolongation"] * 3
+              + ["sound_repetition"] * 3, "test": list(KSF_LABELS), "devel": list(KSF_LABELS)}
+    corpus, store, results = work / "tw_corpus", work / "tw_store", work / "tw_results"
+    write_corpus(corpus, {s: len(v) for s, v in labels.items()}, durations, seed=61,
+                 labels=labels)
+    ex = WhisperExtractor(load_whisper(str(whisper_ckpt))[1], device, preset="fast")
+    store_batches, submit = [], ex.submit
+
+    def recorded(batch):
+        store_batches.append([p for p, ok in zip(batch.paths, batch.ok) if ok])
+        return submit(batch)
+
+    ex.submit = recorded
+    ExtractionPipeline(ex).run(create_metadata_from_files(str(corpus)), str(store / "whisper"))
+    del ex
+
+    seen, real_augment, real_submit = {}, trainer.apply_data_augmentation, WhisperExtractor.submit
+
+    def augment(meta, embeddings, extractor, **kw):
+        seen["extractor"] = extractor
+        out_meta, out_emb = real_augment(meta, embeddings, extractor, **kw)
+        seen["augmented"] = len(out_meta) - len(meta)
+        return out_meta, out_emb
+
+    def counted(self, batch):
+        seen["batches"] = seen.get("batches", 0) + 1
+        return real_submit(self, batch)
+
+    trainer.apply_data_augmentation, WhisperExtractor.submit = augment, counted
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        with cli_dir(work, "model_training"):
+            rc = train_cli.main(["--embeddings_dir", str(store), "--results_dir", str(results),
+                                 "--model_type", "whisper", "--model_name", str(whisper_ckpt),
+                                 "--classifier", "mlp", "--head_epochs", "5",
+                                 "--augmentation_factor", "2", "--minority_threshold", "5",
+                                 "--no_smote", "--preset", "fast", "--device", device,
+                                 "--devices", "1"])
+        counts = read_counts()
+    finally:
+        trainer.apply_data_augmentation, WhisperExtractor.submit = real_augment, real_submit
+    wall = time.perf_counter() - t0
+    check(rc == 0 and (results / "best_per_layer.json").is_file(),
+          f"train_whisper: cli.train returned {rc}")
+    cli_ex = seen["extractor"]
+    n_layers, batches = cli_ex.cfg.encoder_layers, seen.get("batches", 0)
+    check(seen["augmented"] == 12 and batches == 1,
+          f"train_whisper: {seen['augmented']} augmented rows in {batches} batches, "
+          f"expected 12 in 1")
+    expected = {"whisper_log_mel": batches * on_card, "flash_mha": n_layers * batches * on_card}
+    check({k: v for k, v in counts.items() if v} == {k: v for k, v in expected.items() if v},
+          f"train_whisper: launches {counts}, expected {expected}")
+
+    meta, stored = load_embeddings(str(store), "whisper")
+    row_of = {r["path"]: i for i, r in enumerate(meta)}
+    first = store_batches[0]
+    again = augment_extract._embed_waves(cli_ex, [load_audio(p) for p in first])
+    worst = max(cosine_distance(torch.from_numpy(again[c][i]),
+                                torch.from_numpy(stored[c][row_of[p]]))
+                for c in cli_ex.column_names for i, p in enumerate(first))
+    say("train_whisper", store_clips=len(meta), store_batches=len(store_batches),
+        augmented_rows=seen["augmented"], reextract_batches=batches,
+        log_mel_calls=counts["whisper_log_mel"], flash_mha_launches=counts["flash_mha"],
+        expected=f"{batches},{n_layers}x{batches}", identity_clips=len(first),
+        worst_cosine_vs_store=f"{worst:.3g}", tol=PARALLEL_SERVE_COSINE,
+        wall_s=f"{wall:.2f}", card=f'"{card}"')
+    check(worst <= PARALLEL_SERVE_COSINE,
+          f"train_whisper: identity re-extraction {worst:.3g} from the store's rows")
+    return counts
 
 
 def write_wavlm_checkpoint(torch, model, work: Path) -> Path:
@@ -4195,7 +4602,16 @@ def main() -> int:
                     torch, "wavlm-large",
                     lambda m: m.encode(wave, extractor.layer_indices, lengths),
                     turbo.model, extractor.model, fid_model)
+            with timed("turbo_ffn_slice"):
+                turbo_ffn = WavLMExtractor(copy.deepcopy(fid_model), "cuda", preset="turbo_ffn")
+                ffn_counts = phase_slice(torch, turbo_ffn, work, phase="turbo_ffn_slice")
+                phase_turbo_fidelity(
+                    torch, "wavlm-large",
+                    lambda m: m.encode(wave, extractor.layer_indices, lengths),
+                    turbo_ffn.model, extractor.model, fid_model, preset="turbo_ffn")
+                del turbo_ffn, wave, lengths
             del fid_model
+            torch.cuda.empty_cache()
             with timed("throughput"):
                 fast_rate = phase_throughput(torch, extractor, work, card)
                 turbo_rate = phase_throughput(torch, turbo, work, card)
@@ -4221,15 +4637,23 @@ def main() -> int:
                 phase_whisper_path(torch, extractor.model, fid_model)
             with timed("whisper_gemm_stem"):
                 phase_whisper_gemm_stem(torch, extractor.model, card)
+            mel = whisper_features(whisper_test_clips(torch, 16, seed=5))
+            idx = extractor.encoder_indices
             with timed("whisper_turbo_slice"):
                 turbo = WhisperExtractor(copy.deepcopy(fid_model), "cuda", preset="turbo")
                 phase_whisper_slice(torch, turbo, work, phase="whisper_turbo_slice")
-                mel = whisper_features(whisper_test_clips(torch, 16, seed=5))
-                idx = extractor.encoder_indices
                 phase_turbo_fidelity(torch, "whisper-large", lambda m: m.embed(mel, idx, idx),
                                      turbo.model, extractor.model, fid_model)
-                del mel
-            del fid_model
+            with timed("whisper_turbo_ffn_slice"):
+                turbo_ffn = WhisperExtractor(copy.deepcopy(fid_model), "cuda",
+                                             preset="turbo_ffn")
+                whisper_ffn_counts = phase_whisper_slice(torch, turbo_ffn, work,
+                                                         phase="whisper_turbo_ffn_slice")
+                phase_turbo_fidelity(torch, "whisper-large", lambda m: m.embed(mel, idx, idx),
+                                     turbo_ffn.model, extractor.model, fid_model,
+                                     preset="turbo_ffn")
+                del turbo_ffn
+            del fid_model, mel
             torch.cuda.empty_cache()
             with timed("whisper_throughput"):
                 fast_rate = phase_whisper_throughput(torch, extractor, work, card)
@@ -4239,6 +4663,9 @@ def main() -> int:
                 turbo_over_fast=f"{turbo_rate / fast_rate:.3f}", card=f'"{card}"')
             torch.save(extractor.model.state_dict(), work / "whisper_fast.pt")  # for [parallel]
             del extractor, turbo
+            torch.cuda.empty_cache()
+            with timed("whisper_v3_slice"):
+                v3_counts = phase_whisper_v3_slice(torch, work, card)
             torch.cuda.empty_cache()
             with timed("parallel"):
                 tp_report = phase_parallel(torch, work, card)
@@ -4270,6 +4697,19 @@ def main() -> int:
                 ps_launches = phase_parallel_serve(
                     torch, extractor, work, card,
                     work / "ckpt_wavlm_safetensors" / "wavlm-large", serve_counts["head"])
+            whisper_ckpt = work / "ckpt_whisper_safetensors" / "whisper-large"  # 4 + 4 layers
+            with timed("serve_combined"):
+                combined_counts = phase_serve_combined(
+                    torch, extractor, work, card,
+                    work / "ckpt_wavlm_safetensors" / "wavlm-large", whisper_ckpt)
+            with timed("train_whisper"):
+                tw_counts = phase_train_whisper(torch, work, card, whisper_ckpt)
+            # last: no timing follows the profiler's sessions in this process
+            with timed("utils"):
+                utils_counts = phase_utils(torch, extractor, work, card)
+            say("utils", cli_runs=len(CLI_LOGFILES), logfiles_each=1,
+                tags=",".join(sorted({f.rsplit("_", 2)[0] for f in CLI_LOGFILES})),
+                card=f'"{card}"')
     except CheckFailed as e:
         print(f"FAILED: {e}", flush=True)
         return 1
@@ -4311,6 +4751,16 @@ def main() -> int:
         "2x8x1504": tp_report["wavlm_30s"]["counts"]["gated_relpos_attention"]}
     line[3]["tp2_launches_per_rank"] = {  # 10 of Whisper-large's 20 heads
         "4x10x1500": tp_report["whisper_30s"]["counts"]["flash_mha"]}
+    # the turbo_ffn slices, Whisper large-v3 at 128 mels, the
+    # combined server, cli.train's Whisper re-extraction, the traced batch
+    line[0]["turbo_ffn_slice_launches"] = ffn_counts["gated_relpos_attention"]
+    line[0]["serve_combined_launches"] = combined_counts["gated_relpos_attention"]
+    line[0]["utils_trace_launches"] = utils_counts["gated_relpos_attention"]
+    for row, kernel in ((line[2], "whisper_log_mel"), (line[3], "flash_mha")):
+        row["whisper_turbo_ffn_slice_launches"] = whisper_ffn_counts[kernel]
+        row["whisper_v3_slice_launches"] = v3_counts[kernel]
+        row["serve_combined_launches"] = combined_counts[kernel]
+        row["train_whisper_launches"] = tw_counts[kernel]
     line[1]["also_replaces"] = ["stutter_tpu/ops/wavlm_attention_vjp.py:68",
                                 "stutter_tpu/ops/wavlm_attention_vjp.py:115"]
     line[1]["max_rel_err"] = bwd_rel

@@ -27,7 +27,6 @@ materialised-bias flash kernel
 from __future__ import annotations
 
 import argparse
-import logging
 import os
 import sys
 
@@ -38,6 +37,7 @@ from stutter_tpu_torch.cli.common import (
     rank_device,
     run_on_devices,
 )
+from stutter_tpu_torch.utils.logging import get_logger, setup_logging
 
 
 def long_attention_from_env(environ=None) -> dict:
@@ -95,9 +95,8 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s - %(name)s - %(levelname)s - %(message)s")
-    logger = logging.getLogger("stutter_tpu_torch.cli.extract_wavlm")
+    setup_logging("wavlm_embedding")
+    logger = get_logger("cli.extract_wavlm")
     rc = run_on_devices("stutter_tpu_torch.cli.extract_wavlm", argv, args, args.output_dir)
     if rc is not None:
         return rc

@@ -24,10 +24,10 @@ a run always resumes from the latest checkpoint.
 from __future__ import annotations
 
 import argparse
-import logging
 import sys
 
 from stutter_tpu_torch.cli.common import add_mesh_args, build_plan, rank_device, run_on_devices
+from stutter_tpu_torch.utils.logging import get_logger, setup_logging
 
 
 def parse_args(argv=None):
@@ -64,9 +64,8 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s - %(name)s - %(levelname)s - %(message)s")
-    logger = logging.getLogger("stutter_tpu_torch.cli.extract_whisper")
+    setup_logging("whisper_embedding")
+    logger = get_logger("cli.extract_whisper")
     rc = run_on_devices("stutter_tpu_torch.cli.extract_whisper", argv, args, args.output_dir)
     if rc is not None:
         return rc

@@ -38,7 +38,6 @@ runs bf16 activations.
 from __future__ import annotations
 
 import argparse
-import logging
 import sys
 
 import numpy as np
@@ -51,6 +50,7 @@ from stutter_tpu_torch.cli.common import (
     run_on_devices,
 )
 from stutter_tpu_torch.cli.extract_wavlm import long_attention_from_env
+from stutter_tpu_torch.utils.logging import get_logger, setup_logging
 
 
 def parse_args(argv=None):
@@ -115,9 +115,8 @@ def _check_supported(args) -> None:
 def main(argv=None) -> int:
     args = parse_args(argv)
     _check_supported(args)
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s - %(name)s - %(levelname)s - %(message)s")
-    logger = logging.getLogger("stutter_tpu_torch.cli.finetune")
+    setup_logging("finetune")
+    logger = get_logger("cli.finetune")
     rc = run_on_devices("stutter_tpu_torch.cli.finetune", argv, args, args.results_dir)
     if rc is not None:
         return rc

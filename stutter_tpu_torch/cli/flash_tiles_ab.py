@@ -81,6 +81,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+from stutter_tpu_torch.utils.benchmarking import BF16_PEAK, INT8_PEAK, bound
+
 BF16_MAX_ABS, BF16_COSINE = 2e-2, 1e-5  # chip_smoke.py's bars for these kernels
 LOGMEL_MAX_ABS = 1e-4  # chip_smoke.py's bars for the log-mel and the fused stem
 STEM_COSINE, STEM_NRMSE = 5e-4, 0.03
@@ -516,13 +518,13 @@ def time_bwd(torch, attn, prev, runs: int) -> list[dict]:
         # chip_smoke.py's [attn_bwd] bound: five products; q, k, v, do, out, dq,
         # dk, dv in bf16, bias and dbias, gate, the statistics, dgate, mask in f32
         nbytes = 16 * n + 4 * (2 * H * L * L + 4 * B * H * L + B * L)
-        bound, bound_by = bound_ms(10 * n * L, nbytes)
+        bound_ms, bound_by = bound(10 * n * L, nbytes, BF16_PEAK)
         row = {"kernel": "gated_relpos_attention_bwd", "shape": f"{B}x{H}x{L}x64",
-               "order": order, "clip_groups": groups, "bound_ms": bound, "bound_by": bound_by}
+               "order": order, "clip_groups": groups, "bound_ms": bound_ms, "bound_by": bound_by}
         for (name, _), t, tq in zip(fns.items(), ms, queued):
             key = "" if name == "kernel" else f"{name}_"
             row[f"{key}ms"], row[f"{key}queued_ms"] = t, tq
-        row["queued_share_of_bound"] = bound / row["queued_ms"]
+        row["queued_share_of_bound"] = bound_ms / row["queued_ms"]
         print(f"[time] {row}", flush=True)
         print_split(f"bwd {B}x{H}x{L}", profile_split(torch, fns["kernel"]))
         results.append(row)
@@ -542,13 +544,6 @@ def prev_bwd_splits(torch, prev) -> None:
         print_split(f"prev bwd {B}x{H}x{L} (D in PyTorch)", profile_split(
             torch, lambda: c_bwd_call(torch, prev, args, out, do, stats,
                                       (do.float() * out.float()).sum(dim=-1).contiguous())))
-
-
-def bound_ms(flops: float, nbytes: float, peak: float = 989e12) -> tuple[float, str]:
-    """chip_smoke.py's bound at the bf16 peak (989 TFLOP/s; ``peak``: another
-    type's) and 3.35 TB/s."""
-    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / 3.35e12 * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
 def time_gated(torch, attn, prev, runs: int) -> list[dict]:
@@ -575,9 +570,10 @@ def time_gated(torch, attn, prev, runs: int) -> list[dict]:
         ms = time_turns(torch, list(fns.values()), runs)
         queued = time_turns(torch, list(fns.values()), runs, reps=QUEUED_LAUNCHES)
         n = B * H * L * 64
-        bound, bound_by = bound_ms(4 * n * L, 4 * n * 2 + 4 * (H * L * L + B * H * L + B * L))
+        bound_ms, bound_by = bound(4 * n * L, 4 * n * 2 + 4 * (H * L * L + B * H * L + B * L),
+                                   BF16_PEAK)
         row = {"kernel": "gated_relpos_attention", "shape": f"{B}x{H}x{L}x64",
-               "order": names[order], "bound_ms": bound, "bound_by": bound_by}
+               "order": names[order], "bound_ms": bound_ms, "bound_by": bound_by}
         for (name, _), t, tq in zip(fns.items(), ms, queued):
             key = "" if name == "kernel" else f"{name}_"
             row[f"{key}ms"], row[f"{key}queued_ms"] = t, tq
@@ -1034,14 +1030,15 @@ def time_probes(torch, probes, attn, prev, prev_align, runs: int) -> list[dict]:
         n = B * 16 * L * 64
         nbytes = 4 * n * 2 + 4 * (16 * L * L + B * 16 * L + B * L)
         for name in ["int8", *probes.VARIANTS, "incumbent"]:
-            bound, bound_by = bound_ms(4 * n * L, nbytes, 1979e12 if name == "int8" else 989e12)
-            row = {"kernel": name, "shape": f"{B}x16x{L}x64", "bound_ms": bound,
+            bound_ms, bound_by = bound(4 * n * L, nbytes,
+                                       INT8_PEAK if name == "int8" else BF16_PEAK)
+            row = {"kernel": name, "shape": f"{B}x16x{L}x64", "bound_ms": bound_ms,
                    "bound_by": bound_by}
             for suffix in ("", "_bare", "_prev"):
                 if name + suffix in fns:
                     key = suffix[1:] + "_" if suffix else ""
                     row[f"{key}ms"], row[f"{key}queued_ms"] = ms[name + suffix], queued[name + suffix]
-            row["share_of_bound"] = bound / row["queued_ms"]
+            row["share_of_bound"] = bound_ms / row["queued_ms"]
             row["vs_incumbent_queued"] = row["queued_ms"] / queued["incumbent"]
             if "prev_queued_ms" in row:
                 row["speedup_vs_prev_queued"] = row["prev_queued_ms"] / row["queued_ms"]

@@ -31,7 +31,6 @@ from __future__ import annotations
 
 import argparse
 import csv
-import logging
 import os
 import sys
 import tempfile
@@ -39,6 +38,7 @@ import tempfile
 import numpy as np
 
 from stutter_tpu_torch.cli.common import add_mesh_args
+from stutter_tpu_torch.utils.logging import get_logger, setup_logging
 
 MODEL_TYPES = ["wavlm", "wavlm_large", "whisper", "whisper_large_fixed", "combined"]
 _SPLIT_DIRS = ("train", "test", "devel", "predict", "unknown")
@@ -208,9 +208,8 @@ def write_predictions(path: str, meta: list[dict], labels: list[str],
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s - %(name)s - %(levelname)s - %(message)s")
-    logger = logging.getLogger("stutter_tpu_torch.cli.predict")
+    setup_logging("predict")
+    logger = get_logger("cli.predict")
 
     from stutter_tpu_torch.cli.common import build_plan, rank_device, run_on_devices
     from stutter_tpu_torch.parallel.mesh import broadcast_round

@@ -34,7 +34,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import logging
 import os
 import sys
 import tempfile
@@ -42,6 +41,7 @@ import tempfile
 import numpy as np
 
 from stutter_tpu_torch.cli.common import add_mesh_args
+from stutter_tpu_torch.utils.logging import get_logger, setup_logging
 
 
 def parse_args(argv=None):
@@ -141,9 +141,8 @@ def response_line(resp, output_dir: str | None) -> dict:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s - %(name)s - %(levelname)s - %(message)s")
-    logger = logging.getLogger("stutter_tpu_torch.cli.serve")
+    setup_logging("serve")
+    logger = get_logger("cli.serve")
     # the listen address is checked before the model is built
     http_host = http_port = None
     if args.http:

@@ -29,6 +29,7 @@ import sys
 
 from stutter_tpu_torch.cli.common import add_mesh_args
 from stutter_tpu_torch.cli.extract_wavlm import long_attention_from_env
+from stutter_tpu_torch.utils.logging import get_logger, setup_logging
 
 MODEL_TYPES = ["whisper", "wavlm", "wavlm_large", "bestrq", "combined", "whisper_large_fixed"]
 # accepted by the reference but implemented by neither it nor this package
@@ -117,15 +118,10 @@ def trainer_ranks(module: str, argv, args):
     return None, (plan, rank_device(args, plan))
 
 
-def setup_logging() -> logging.Logger:
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s - %(name)s - %(levelname)s - %(message)s")
-    return logging.getLogger("stutter_tpu_torch.cli.train")
-
-
 def main(argv=None) -> int:
     args = parse_args(argv)
-    logger = setup_logging()
+    setup_logging("model_training")
+    logger = get_logger("cli.train")
     if args.model_type in UNIMPLEMENTED:
         logger.error("--model_type %s is accepted by the reference CLI but has no "
                      "implementation there or here; use one of %s",

@@ -22,9 +22,9 @@ from stutter_tpu_torch.cli.train import (
     add_device_args,
     build_extractor_for,
     plots_available,
-    setup_logging,
     trainer_ranks,
 )
+from stutter_tpu_torch.utils.logging import get_logger, setup_logging
 
 
 def str2bool(v: str | bool) -> bool:
@@ -77,7 +77,8 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    logger = setup_logging()
+    setup_logging("model_training_grid")
+    logger = get_logger("cli.train_grid")
     if args.model_type in UNIMPLEMENTED:
         logger.error("--model_type %s has no implementation; use one of %s",
                      args.model_type, sorted(set(MODEL_TYPES) - UNIMPLEMENTED))

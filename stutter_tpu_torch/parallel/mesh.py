@@ -240,14 +240,20 @@ def launch(fn: Callable, nprocs: int, args: tuple = (), *, device_type: str = "c
             os.remove(store_path)
 
 
-def _cli_main(module: str, argv: list[str]) -> int:
+def _cli_main(module: str, argv: list[str], logfile: str | None) -> int:
+    from stutter_tpu_torch.utils.logging import inherit_logfile
+
+    inherit_logfile(logfile)
     return importlib.import_module(module).main(argv)
 
 
 def spawn_cli(module: str, argv: list[str], nprocs: int, device_type: str,
               store_dir: str, backend: str | None = None) -> int:
     """Run ``module.main(argv)`` on ``nprocs`` spawned ranks (``launch``;
-    ``backend="gloo"`` lets several ranks share a card)."""
-    launch(_cli_main, nprocs, (module, list(argv)), device_type=device_type,
+    ``backend="gloo"`` lets several ranks share a card). Rank 0 logs into
+    this process's logfile, if it has one (``utils/logging.py``)."""
+    from stutter_tpu_torch.utils.logging import logfile
+
+    launch(_cli_main, nprocs, (module, list(argv), logfile()), device_type=device_type,
            backend=backend, store_dir=store_dir)
     return 0

@@ -278,6 +278,8 @@ def test_cli_without_matplotlib_warns_once(emb_store, tmp_path, caplog):
                              "--device", "cpu", "--classifier", "linear", "--head_epochs", "2",
                              "--no_augmentation", "--no_smote"])
     assert rc == 0
-    assert [r.message for r in caplog.records if "matplotlib" in r.message] == \
+    # warnings only: the CLI's INFO lines name files under tmp_path, whose name holds "matplotlib"
+    assert [r.message for r in caplog.records
+            if r.levelno >= logging.WARNING and "matplotlib" in r.message] == \
         ["matplotlib is not installed: writing no plots"]
     assert not [f for f in _tree(str(tmp_path)) if f.endswith(".png")]
