@@ -1,0 +1,8 @@
+"""Percent of the traced stretch of paced requests in which no operation
+ran on the device."""
+
+from benchmark.readers import idle_share
+
+
+def read(run):
+    return idle_share(run)
