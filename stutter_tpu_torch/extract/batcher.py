@@ -6,6 +6,10 @@ bucket length; batch sizes scale inversely with bucket length so that every
 batch carries about the same audio. A one-deep background thread decodes
 batch i+1 while the device runs batch i. Pad rows carry ok=False.
 
+Spans (``utils.profiling.span``): ``extract.plan`` (the bucket probe of
+every file), ``extract.decode`` (one batch's decode, on the prefetch thread)
+and ``extract.decode_wait`` (the loop's wait for it).
+
 Under data parallelism every rank runs the same batcher over the same paths,
 so every rank sees the same batch plan; ``batches(..., shard=(d, D))``
 yields data rank d's contiguous rows of each batch (``batch_multiple = D``
@@ -23,6 +27,7 @@ from typing import Iterator, Sequence
 import numpy as np
 
 from stutter_tpu_torch.audio.wavio import audio_info, decode_batch
+from stutter_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger("stutter_tpu_torch.extract.batcher")
 
@@ -132,6 +137,15 @@ class BucketBatcher:
         return Batch(paths=batch_paths, rows=list(rows), waves=waves, lengths=lengths,
                      ok=ok, bucket_s=bucket_s, sample_rate=self.target_sr)
 
+    def _decode(self, index: int, paths: Sequence[str], rows: list[int], bucket_s: float,
+                shard: tuple[int, int] | None) -> Batch:
+        """``_make_batch`` under the ``extract.decode`` span."""
+        with span("extract.decode", batch=index) as s:
+            batch = self._make_batch(paths, rows, bucket_s, shard)
+            n = len(batch.paths)
+            s.set(clips=n, failed=n - int(batch.ok[:n].sum()))
+        return batch
+
     def batches(self, paths: Sequence[str], prefetch: bool = True,
                 shard: tuple[int, int] | None = None) -> Iterator[Batch]:
         """Yield decoded batches, prefetching the next one on a host thread.
@@ -141,7 +155,8 @@ class BucketBatcher:
         if shard is not None and self.batch_multiple % shard[1]:
             raise ValueError(f"batch_multiple {self.batch_multiple} does not split over "
                              f"{shard[1]} data ranks")
-        assignment = self.assign_buckets(paths)
+        with span("extract.plan", files=len(paths)):
+            assignment = self.assign_buckets(paths)
         plan: list[tuple[float, list[int]]] = []
         for bucket_s, idxs in assignment.items():
             bsz = self.batch_size_for(bucket_s)
@@ -152,14 +167,17 @@ class BucketBatcher:
         if not plan:
             return
         if not prefetch:
-            for bucket_s, rows in plan:
-                yield self._make_batch(paths, rows, bucket_s, shard)
+            for k, (bucket_s, rows) in enumerate(plan):
+                yield self._decode(k, paths, rows, bucket_s, shard)
             return
         with ThreadPoolExecutor(max_workers=1) as pool:
-            future = pool.submit(self._make_batch, paths, plan[0][1], plan[0][0], shard)
-            for nxt in plan[1:]:
-                batch = future.result()
-                future = pool.submit(self._make_batch, paths, nxt[1], nxt[0], shard)
+            future = pool.submit(self._decode, 0, paths, plan[0][1], plan[0][0], shard)
+            for k, nxt in enumerate(plan[1:], 1):
+                with span("extract.decode_wait", batch=k - 1):
+                    batch = future.result()
+                future = pool.submit(self._decode, k, paths, nxt[1], nxt[0], shard)
                 yield batch
-            yield future.result()
+            with span("extract.decode_wait", batch=len(plan) - 1):
+                batch = future.result()
+            yield batch
 

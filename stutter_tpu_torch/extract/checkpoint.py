@@ -4,6 +4,8 @@ A pickled list of per-file result dicts at
 ``{output_dir}/checkpoints/checkpoint_{split}_{n}.pkl``; resume finds the
 highest-numbered checkpoint and skips the paths it holds. The pickles hold
 numpy arrays and strings only, so either package reads the other's.
+Each write is an ``extract.checkpoint`` span (``utils.profiling.span``)
+with the rows it pickles.
 """
 
 from __future__ import annotations
@@ -11,6 +13,8 @@ from __future__ import annotations
 import logging
 import os
 import pickle
+
+from stutter_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger("stutter_tpu_torch.extract.checkpoint")
 
@@ -20,9 +24,10 @@ def _ckpt_path(output_dir: str, split: str, n: int) -> str:
 
 
 def save_checkpoint(results: list[dict], output_dir: str, split: str, checkpoint_num: int) -> None:
-    os.makedirs(os.path.join(output_dir, "checkpoints"), exist_ok=True)
-    with open(_ckpt_path(output_dir, split, checkpoint_num), "wb") as f:
-        pickle.dump(results, f)
+    with span("extract.checkpoint", checkpoint=checkpoint_num, rows=len(results)):
+        os.makedirs(os.path.join(output_dir, "checkpoints"), exist_ok=True)
+        with open(_ckpt_path(output_dir, split, checkpoint_num), "wb") as f:
+            pickle.dump(results, f)
     logger.info("saved checkpoint %d for %s split with %d processed files",
                 checkpoint_num, split, len(results))
 

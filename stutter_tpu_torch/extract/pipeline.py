@@ -28,6 +28,13 @@ rank encoding its rows of each chunk batch. ``submit_rows`` and
 ``chunked_embeddings``, the augmentation's re-extraction): enqueue this
 rank's rows of a global batch, then collect them and gather every data
 rank's rows to rank 0.
+
+Spans (``utils.profiling.span``): ``extract.submit`` with its children
+``extract.pin`` (the bf16 presets' int16 encoding of the batch on the host,
+then its pinned host-to-device copies) and ``extract.encode`` (the model's
+enqueue); ``extract.collect_wait`` (the host's wait for a batch's result);
+``extract.rows`` (a batch's rows built for the store); ``extract.checkpoint``
+and ``extract.store`` (in ``checkpoint.py`` and ``store.py``).
 """
 
 from __future__ import annotations
@@ -77,6 +84,7 @@ from stutter_tpu_torch.parallel.mesh import (
     shard_rows,
 )
 from stutter_tpu_torch.parallel.sharding import shard_wavlm, shard_whisper
+from stutter_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger("stutter_tpu_torch.extract.pipeline")
 
@@ -140,7 +148,8 @@ class _Extractor:
     """What both extractors share: the device, the preset's cast (and turbo's
     quantization) of the float32 model, and the batch loop's
     submit/collect/warmup. A subclass sets ``column_names`` (the order of
-    ``_encode``'s [S, B, D] result) and defines ``_encode``. Under a
+    ``_forward``'s [S, B, D] result) and defines ``_inputs`` and
+    ``_forward``. Under a
     ``plan`` the model is cut to the rank's tensor-parallel share after the
     cast (turbo quantizes the whole weights first, as the JAX package does),
     and a batch is this rank's rows of the global batch."""
@@ -167,35 +176,50 @@ class _Extractor:
             t = t.pin_memory()
         return t.to(self.device, non_blocking=True)
 
-    def _waves(self, waves: np.ndarray, scale: np.ndarray) -> torch.Tensor:
-        """Host batch (f32, or int16 with per-clip scales) -> f32 on the device."""
-        return self._to_device(waves).float() * self._to_device(scale)[:, None]
+    @staticmethod
+    def _waves(waves: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+        """Device batch (f32, or int16 with per-clip scales) -> f32."""
+        return waves.float() * scale[:, None]
+
+    def _inputs(self, waves: np.ndarray, scale: np.ndarray, lengths: np.ndarray) -> tuple:
+        """The host batch copied to the device (``_to_device``): the
+        tensors ``_forward`` takes."""
+        raise NotImplementedError
+
+    def _forward(self, *inputs: torch.Tensor) -> torch.Tensor:
+        """Enqueue the model on ``_inputs``' tensors: [S, B, D] f32 pooled."""
+        raise NotImplementedError
 
     def _encode(self, waves: np.ndarray, scale: np.ndarray,
                 lengths: np.ndarray) -> torch.Tensor:
-        raise NotImplementedError
+        return self._forward(*self._inputs(waves, scale, lengths))
 
     def submit(self, batch: Batch):
         """Enqueue the batch's device work and the copy of its [S, B, D] f32
         pooled result into pinned host memory, without waiting for either;
         returns (host tensor, CUDA event or None)."""
-        waves = batch.waves
-        scale = np.ones((len(waves),), np.float32)
-        if self._transfer_i16:
-            waves, scale = encode_waves_i16(waves)
-        pooled = self._encode(waves, scale, batch.lengths)
-        if self.device.type != "cuda":
-            return pooled, None
-        host = torch.empty(pooled.shape, dtype=pooled.dtype, pin_memory=True)
-        host.copy_(pooled, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(self.device))
-        return host, done
+        with span("extract.submit", clips=len(batch.paths)):
+            with span("extract.pin"):
+                waves = batch.waves
+                scale = np.ones((len(waves),), np.float32)
+                if self._transfer_i16:
+                    waves, scale = encode_waves_i16(waves)
+                inputs = self._inputs(waves, scale, batch.lengths)
+            with span("extract.encode"):
+                pooled = self._forward(*inputs)
+            if self.device.type != "cuda":
+                return pooled, None
+            host = torch.empty(pooled.shape, dtype=pooled.dtype, pin_memory=True)
+            host.copy_(pooled, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+            return host, done
 
     def collect(self, handle) -> dict[str, np.ndarray]:
         host, done = handle
-        if done is not None:
-            done.synchronize()  # this batch's copy only, not later batches
+        with span("extract.collect_wait"):
+            if done is not None:
+                done.synchronize()  # this batch's copy only, not later batches
         pooled = host.numpy()
         return {name: pooled[s] for s, name in enumerate(self.column_names)}
 
@@ -257,8 +281,11 @@ class WavLMExtractor(_Extractor):
     def frame_count(self, n_samples: int) -> int:
         return int(wavlm_feature_lengths(self.cfg, n_samples))
 
-    def _encode(self, waves: np.ndarray, scale: np.ndarray, lengths: np.ndarray):
-        lens = self._to_device(lengths.astype(np.int64))
+    def _inputs(self, waves: np.ndarray, scale: np.ndarray, lengths: np.ndarray) -> tuple:
+        return (self._to_device(waves), self._to_device(scale),
+                self._to_device(lengths.astype(np.int64)))
+
+    def _forward(self, waves: torch.Tensor, scale: torch.Tensor, lens: torch.Tensor):
         w = wavlm_prepare_batch(self._waves(waves, scale), lens, self.cfg.do_normalize)
         with self._precision():
             return self.model.encode(w, self.layer_indices, sample_lengths=lens,
@@ -301,7 +328,10 @@ class WhisperExtractor(_Extractor):
         still pools over all 1500 padded positions."""
         return max(1, min(self.cfg.max_source_positions, int(n_samples) // (WHISPER_HOP * 2)))
 
-    def _encode(self, waves: np.ndarray, scale: np.ndarray, lengths: np.ndarray):
+    def _inputs(self, waves: np.ndarray, scale: np.ndarray, lengths: np.ndarray) -> tuple:
+        return self._to_device(waves), self._to_device(scale)
+
+    def _forward(self, waves: torch.Tensor, scale: torch.Tensor):
         with self._precision():
             mel = whisper_features(self._waves(waves, scale), n_mels=self.cfg.num_mel_bins)
             return self.model.embed(mel, self.encoder_indices, self.decoder_indices)
@@ -518,43 +548,47 @@ class ExtractionPipeline:
                 save_checkpoint(results, output_dir, split, ckpt_num)
                 since_ckpt = 0
 
-        def drain(submitted) -> None:
-            """Store a batch's rows: on rank 0, every data rank's, in order."""
+        def drain(submitted, k: int) -> None:
+            """Store batch k's rows: on rank 0, every data rank's, in order."""
             nonlocal audio_s, since_ckpt
             got = collect_rows(self.extractor, submitted)
             if got is None:  # not rank 0
                 return
             audio_s += got.audio_seconds
-            for j, row_idx in enumerate(got.rows):
-                if not got.ok[j]:
-                    logger.error("skipping %s (decode failed)", got.paths[j])
-                    continue
-                entry = _store_row(todo[row_idx], split)
-                for col, arr in got.columns.items():
-                    entry[col] = np.asarray(arr[j], np.float32)
-                results.append(entry)
-                since_ckpt += 1
+            with span("extract.rows", batch=k) as s:
+                for j, row_idx in enumerate(got.rows):
+                    if not got.ok[j]:
+                        logger.error("skipping %s (decode failed)", got.paths[j])
+                        continue
+                    entry = _store_row(todo[row_idx], split)
+                    for col, arr in got.columns.items():
+                        entry[col] = np.asarray(arr[j], np.float32)
+                    results.append(entry)
+                    since_ckpt += 1
+                s.set(rows=int(got.ok.sum()))
             checkpoint_if_due()
 
         # 1-deep: batch i+1 is enqueued on the device before batch i's pooled
         # result is copied back and stored
         shard = None if plan is None else (plan.data_rank, plan.data_size)
         pending = None
-        for batch in self.batcher.batches([todo[i]["path"] for i in short_rows], shard=shard):
+        for k, batch in enumerate(self.batcher.batches([todo[i]["path"] for i in short_rows],
+                                                       shard=shard)):
             batch.rows = [short_rows[r] for r in batch.rows]
             submitted = submit_rows(self.extractor, batch, sharded=True)
             if pending is not None:
-                drain(pending)
-            pending = submitted
+                drain(*pending)
+            pending = submitted, k
         if pending is not None:
-            drain(pending)
+            drain(*pending)
 
         if long_rows:
             def file_done(entry: dict) -> None:
                 nonlocal audio_s, since_ckpt
-                audio_s += entry.pop("_audio_s")
-                results.append(entry)
-                since_ckpt += 1
+                with span("extract.rows", rows=1):
+                    audio_s += entry.pop("_audio_s")
+                    results.append(entry)
+                    since_ckpt += 1
                 checkpoint_if_due()
 
             self._extract_chunked_rows(todo, long_rows, split, file_done)

@@ -13,6 +13,8 @@ integer or with an empty cell gives floats, true/false gives bools, anything
 else strings; an empty cell (or one of pandas' NA words) is None. Across
 splits, a column that is integer in one file and float or empty in another
 becomes float, as ``pd.concat`` makes it.
+
+A write is an ``extract.store`` span (``utils.profiling.span``) with its rows.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ import os
 import re
 
 import numpy as np
+
+from stutter_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger("stutter_tpu_torch.extract.store")
 
@@ -50,29 +54,30 @@ def save_embeddings(rows: list[dict], output_dir: str, split: str | None = None,
                     expected_dim: int | None = None, columns: list[str] | None = None) -> None:
     """Persist one split's embeddings: metadata CSV + one .npy per layer.
     ``columns`` orders the columns (default: first appearance in ``rows``)."""
-    if not rows:
-        logger.warning("no embeddings to save")
-        return
-    split_dir = os.path.join(output_dir, split) if split and split != "all" else output_dir
-    os.makedirs(split_dir, exist_ok=True)
+    with span("extract.store", rows=len(rows)):
+        if not rows:
+            logger.warning("no embeddings to save")
+            return
+        split_dir = os.path.join(output_dir, split) if split and split != "all" else output_dir
+        os.makedirs(split_dir, exist_ok=True)
 
-    if columns is None:
-        columns = list(dict.fromkeys(col for row in rows for col in row))
-    metadata_cols = [c for c in columns if not _is_embedding_col(c)]
-    with open(os.path.join(split_dir, "embedding_metadata.csv"), "w", newline="") as f:
-        writer = csv.writer(f, lineterminator="\n")
-        writer.writerow(metadata_cols)
-        for row in rows:
-            writer.writerow([csv_cell(row.get(c)) for c in metadata_cols])
-    logger.info("saved metadata for %d files to %s", len(rows), split_dir)
+        if columns is None:
+            columns = list(dict.fromkeys(col for row in rows for col in row))
+        metadata_cols = [c for c in columns if not _is_embedding_col(c)]
+        with open(os.path.join(split_dir, "embedding_metadata.csv"), "w", newline="") as f:
+            writer = csv.writer(f, lineterminator="\n")
+            writer.writerow(metadata_cols)
+            for row in rows:
+                writer.writerow([csv_cell(row.get(c)) for c in metadata_cols])
+        logger.info("saved metadata for %d files to %s", len(rows), split_dir)
 
-    for col in [c for c in columns if _is_embedding_col(c)]:
-        arr = np.stack([np.asarray(row[col]) for row in rows])
-        if expected_dim is not None and arr.shape[-1] != expected_dim:
-            logger.warning("WARNING: %s has dimension %d but expected %d",
-                           col, arr.shape[-1], expected_dim)
-        np.save(os.path.join(split_dir, f"{col}_embeddings.npy"), arr)
-        logger.info("saved %s embeddings with shape %s", col, arr.shape)
+        for col in [c for c in columns if _is_embedding_col(c)]:
+            arr = np.stack([np.asarray(row[col]) for row in rows])
+            if expected_dim is not None and arr.shape[-1] != expected_dim:
+                logger.warning("WARNING: %s has dimension %d but expected %d",
+                               col, arr.shape[-1], expected_dim)
+            np.save(os.path.join(split_dir, f"{col}_embeddings.npy"), arr)
+            logger.info("saved %s embeddings with shape %s", col, arr.shape)
 
 
 def _number(cell: str):

@@ -12,7 +12,9 @@ do.
   finds the format from the content, not the file's suffix: WAV always, and
   FLAC, MP3, OGG and the rest where the host has libav (without it a
   compressed body gets the decode-failure answer).
-- ``GET /stats``: the server's counters; ``GET /healthz``: liveness.
+- ``GET /stats``: the server's counters and latency percentiles (each
+  request from its arrival in the serving loop's queue to its answer);
+  ``GET /healthz``: liveness.
 
 Under a plan the frontend binds on rank 0 only; the other ranks run
 ``EmbeddingServer.follow``. A spooled body stays on disk until rank 0 has

@@ -34,6 +34,18 @@ every ``idle_interval_s()``, so that its followers never wait in a
 collective for the group's whole timeout, and "stop" when its source ends.
 The JAX server shards each batch over its mesh inside its one loop; this is
 that loop with one process per card.
+
+Spans (``utils.profiling.span``): per request ``serve.wait``, from its
+arrival (the reader thread's stamp as it queues the request) to the start
+of its round's submit; per round ``serve.round``, the loop's pass from the
+round's first request, with its children ``serve.gather``, ``serve.probe``
+(the long-clip split's header reads), ``serve.decode`` and ``serve.submit``
+(each bucket batch), then the previous round's ``serve.collect_wait``,
+``serve.chunked`` (a long clip's whole path) and ``serve.emit`` (classify
+and emit); ``serve.idle``, the wait for a first request with no round in
+flight. ``stats()`` times each request from the same arrival stamp, and
+its ``device_collect_s`` is the sum of ``serve.collect_wait`` and
+``serve.chunked``.
 """
 
 from __future__ import annotations
@@ -54,6 +66,7 @@ from stutter_tpu_torch.audio.wavio import audio_info
 from stutter_tpu_torch.extract.batcher import Batch, BucketBatcher
 from stutter_tpu_torch.extract.pipeline import chunked_embeddings, collect_rows, submit_rows
 from stutter_tpu_torch.parallel.mesh import broadcast_round, idle_interval_s
+from stutter_tpu_torch.utils.profiling import record, span, timed
 
 logger = logging.getLogger("stutter_tpu_torch.serve.server")
 
@@ -106,7 +119,8 @@ class EmbeddingServer:
         self.max_clips = max_clips
         self.long_clip_policy = long_clip_policy
         self.stats_every = stats_every
-        # latency from arrival (queue pop) to response, the last 100k requests
+        # latency from arrival (the reader queues the request) to response,
+        # the last 100k requests
         self._latencies: deque[float] = deque(maxlen=100_000)
         self._served = self._failed = self._rounds = 0
         # time spent waiting in collect() and in the chunked path, and the
@@ -123,7 +137,8 @@ class EmbeddingServer:
 
     def stats(self) -> dict:
         """Counters since startup; latency percentiles over the last 100k
-        requests (seconds)."""
+        requests (seconds), each from its arrival in the queue to its
+        response."""
         lat = np.asarray(self._latencies, np.float64)
         out = {"served": self._served, "failed": self._failed, "rounds": self._rounds,
                "device_collect_s": round(self._collect_s, 3),
@@ -142,19 +157,21 @@ class EmbeddingServer:
         if self.plan is not None:
             broadcast_round(self.plan, msg)
 
-    def _submit_batch(self, bucket_s: float, paths: list[str]):
+    def _submit_batch(self, bucket_s: float, paths: list[str], k: int = 0):
         """Decode this rank's rows of one bucket batch of ``paths`` and
         enqueue them (``submit_rows``); a decode or submit error comes back
         in the handle's place, as ``collect_rows`` raises it."""
         shard = None if self.plan is None else (self.plan.data_rank, self.plan.data_size)
         try:
-            batch = self.batcher._make_batch(paths, list(range(len(paths))), bucket_s, shard)
+            with span("serve.decode", batch=k, clips=len(paths)):
+                batch = self.batcher._make_batch(paths, list(range(len(paths))), bucket_s, shard)
         except Exception as e:  # noqa: BLE001 — fails this batch's requests only
             logger.exception("batch decode failed")
             return Batch(paths=[], rows=[], waves=np.zeros((0, 0), np.float32),
                          lengths=np.zeros((0,), np.int64), ok=np.zeros((0,), bool),
                          bucket_s=bucket_s), e
-        submitted = submit_rows(self.extractor, batch, sharded=True)
+        with span("serve.submit", batch=k, clips=len(paths)):
+            submitted = submit_rows(self.extractor, batch, sharded=True)
         if isinstance(submitted[1], Exception):
             logger.error("batch submit failed: %r", submitted[1])
         return submitted
@@ -170,17 +187,18 @@ class EmbeddingServer:
             top_s = self.batcher.buckets_s[-1]
             short: list[Request] = []
             durations = []
-            for r in reqs:
-                try:
-                    n, sr = audio_info(r.path)
-                    dur = n / sr
-                except (OSError, ValueError, struct.error):
-                    dur = None  # the batch path reports the file
-                if dur is not None and dur > top_s:
-                    long_reqs.append(r)
-                else:
-                    short.append(r)
-                    durations.append(dur)  # assign_buckets need not probe again
+            with span("serve.probe", clips=len(reqs)):
+                for r in reqs:
+                    try:
+                        n, sr = audio_info(r.path)
+                        dur = n / sr
+                    except (OSError, ValueError, struct.error):
+                        dur = None  # the batch path reports the file
+                    if dur is not None and dur > top_s:
+                        long_reqs.append(r)
+                    else:
+                        short.append(r)
+                        durations.append(dur)  # assign_buckets need not probe again
             reqs = short
         assignment = self.batcher.assign_buckets([r.path for r in reqs], durations=durations)
         batches = []  # (bucket, requests of the batch)
@@ -191,19 +209,21 @@ class EmbeddingServer:
         # from here on every step is taken on every rank
         self._send("round", [(b, [r.path for r in rs]) for b, rs in batches],
                    [r.path for r in long_reqs])
-        pending = [(rs, self._submit_batch(b, [r.path for r in rs])) for b, rs in batches]
+        pending = [(rs, self._submit_batch(b, [r.path for r in rs], k))
+                   for k, (b, rs) in enumerate(batches)]
         return pending, long_reqs
 
-    def _finish_round(self, work, emit: Callable[[Response], None], emitted: set[str]):
+    def _finish_round(self, work, emit: Callable[[Response], None], emitted: set[str],
+                      round_no: int = 0):
         """Collect, classify and emit a submitted round. Every emit is
         recorded in ``emitted``, so that a failure part way through never
         answers a request twice; a failed batch fails its own requests."""
         pending, long_reqs = work
-        for chunk_reqs, submitted in pending:
+        for k, (chunk_reqs, submitted) in enumerate(pending):
             try:
-                t_c = time.monotonic()
-                got = collect_rows(self.extractor, submitted)
-                self._collect_s += time.monotonic() - t_c
+                with timed("serve.collect_wait", round=round_no, batch=k) as waited:
+                    got = collect_rows(self.extractor, submitted)
+                self._collect_s += waited.seconds
                 self._audio_s += got.audio_seconds
             except Exception as e:  # noqa: BLE001
                 logger.exception("batch failed")
@@ -211,35 +231,37 @@ class EmbeddingServer:
                     emitted.add(req.req_id)
                     emit(Response(req.req_id, req.path, False, None, f"batch failed: {e}"))
                 continue
-            cols, ok = got.columns, got.ok
-            # one classifier call for the whole batch
-            preds: dict[int, tuple[str, dict | None]] = {}
-            classify_err = None
-            if self.classifier is not None:
-                valid = [j for j in range(len(chunk_reqs)) if ok[j]]
-                try:
-                    rows = np.asarray(cols[self.classifier.layer], np.float32)[valid]
-                    labels, probs = self.classifier.predict_rows(rows)
-                    preds = {j: (labels[i], probs[i] if probs else None)
-                             for i, j in enumerate(valid)}
-                except Exception as e:  # noqa: BLE001 — the embeddings still ship
-                    logger.exception("classification failed for batch")
-                    classify_err = f"classification failed: {e}"
-            for j, req in enumerate(chunk_reqs):
-                emitted.add(req.req_id)
-                if not ok[j]:
-                    emit(Response(req.req_id, req.path, False, None, "decode failed"))
-                    continue
-                label, probs_j = preds.get(j, (None, None))
-                emit(Response(req.req_id, req.path, True,
-                              {name: np.asarray(col[j], np.float32) for name, col in cols.items()},
-                              error=classify_err, prediction=label, probs=probs_j))
+            with span("serve.emit", round=round_no, batch=k, clips=len(chunk_reqs)):
+                cols, ok = got.columns, got.ok
+                # one classifier call for the whole batch
+                preds: dict[int, tuple[str, dict | None]] = {}
+                classify_err = None
+                if self.classifier is not None:
+                    valid = [j for j in range(len(chunk_reqs)) if ok[j]]
+                    try:
+                        rows = np.asarray(cols[self.classifier.layer], np.float32)[valid]
+                        labels, probs = self.classifier.predict_rows(rows)
+                        preds = {j: (labels[i], probs[i] if probs else None)
+                                 for i, j in enumerate(valid)}
+                    except Exception as e:  # noqa: BLE001 — the embeddings still ship
+                        logger.exception("classification failed for batch")
+                        classify_err = f"classification failed: {e}"
+                for j, req in enumerate(chunk_reqs):
+                    emitted.add(req.req_id)
+                    if not ok[j]:
+                        emit(Response(req.req_id, req.path, False, None, "decode failed"))
+                        continue
+                    label, probs_j = preds.get(j, (None, None))
+                    emit(Response(req.req_id, req.path, True,
+                                  {name: np.asarray(col[j], np.float32)
+                                   for name, col in cols.items()},
+                                  error=classify_err, prediction=label, probs=probs_j))
         for req in long_reqs:
             emitted.add(req.req_id)
             try:
-                t_c = time.monotonic()
-                res = chunked_embeddings(self.extractor, self.batcher, req.path)
-                self._collect_s += time.monotonic() - t_c
+                with timed("serve.chunked", round=round_no) as waited:
+                    res = chunked_embeddings(self.extractor, self.batcher, req.path)
+                self._collect_s += waited.seconds
                 if res is not None:
                     self._audio_s += res[2]
             except Exception as e:  # noqa: BLE001 — one bad clip must not end the round
@@ -265,10 +287,10 @@ class EmbeddingServer:
     def _finish_pending(self, pending) -> None:
         """Finish a submitted round (the followers theirs): collect, emit,
         never answer twice."""
-        work, gathered, tracked_emit, emitted, t0 = pending
+        work, gathered, tracked_emit, emitted, t0, round_no = pending
         self._send("finish")
         try:
-            self._finish_round(work, tracked_emit, emitted)
+            self._finish_round(work, tracked_emit, emitted, round_no)
         except Exception as e:  # noqa: BLE001 — a bad round must not end the server
             logger.exception("serving round failed")
             for r in gathered:
@@ -276,7 +298,7 @@ class EmbeddingServer:
                     tracked_emit(Response(r.req_id, r.path, False, None, f"round failed: {e}"))
         self._rounds += 1
         logger.info("served %d clips in %.1f ms", len(gathered),
-                    (time.monotonic() - t0) * 1e3)
+                    (time.perf_counter() - t0) * 1e3)
         if self._rounds % self.stats_every == 0:
             logger.info("serving stats: %s", self.stats())
 
@@ -290,83 +312,94 @@ class EmbeddingServer:
         and ends them when ``requests`` is exhausted."""
         if self.plan is not None and self.plan.rank != 0:
             raise RuntimeError("serve runs on rank 0; the other ranks call follow()")
-        q: queue.Queue = queue.Queue()
+        q: queue.Queue = queue.Queue()  # (arrival, request)
 
         def reader():
             try:
                 for r in requests:
-                    q.put(r)
+                    q.put((time.perf_counter(), r))
             finally:
-                q.put(_STOP)
+                q.put((time.perf_counter(), _STOP))
 
         t = threading.Thread(target=reader, daemon=True)
         t.start()
 
         done = False
-        in_flight = None  # (work, gathered, tracked_emit, emitted, t0)
+        in_flight = None  # (work, gathered, tracked_emit, emitted, t0, round)
+        round_no = 0
         while not done:
             if in_flight is not None:
                 try:
-                    first = q.get_nowait()
+                    arrival, first = q.get_nowait()
                 except queue.Empty:
                     # idle queue: answer the round in flight now
                     self._finish_pending(in_flight)
                     in_flight = None
                     continue
             else:
-                first = self._next_request(q)
+                with span("serve.idle"):
+                    arrival, first = self._next_request(q)
             if first is _STOP:
                 break
-            arrivals = {first.req_id: time.monotonic()}
-            gathered = [first]
-            deadline = time.monotonic() + self.max_wait_s
-            while len(gathered) < self.max_clips:
-                timeout = deadline - time.monotonic()
-                if timeout <= 0:
-                    break
-                try:
-                    nxt = q.get(timeout=timeout)
-                except queue.Empty:
-                    break
-                if nxt is _STOP:
-                    done = True
-                    break
-                arrivals[nxt.req_id] = time.monotonic()
-                gathered.append(nxt)
-            t0 = time.monotonic()
-
-            def tracked_emit(resp: Response, _arr=arrivals, _t0=t0):
-                self._latencies.append(time.monotonic() - _arr.get(resp.req_id, _t0))
-                if resp.ok:
-                    self._served += 1
-                else:
-                    self._failed += 1
-                emit(resp)
-
-            emitted: set[str] = set()
-            try:
-                work = self._submit_round(gathered)
-            except Exception as e:  # noqa: BLE001
-                logger.exception("round submit failed")
+            round_no += 1
+            with span("serve.round", round=round_no) as this_round:
+                with span("serve.gather", round=round_no):
+                    arrivals = {first.req_id: arrival}
+                    gathered = [first]
+                    deadline = time.perf_counter() + self.max_wait_s
+                    while len(gathered) < self.max_clips:
+                        timeout = deadline - time.perf_counter()
+                        if timeout <= 0:
+                            break
+                        try:
+                            arrival, nxt = q.get(timeout=timeout)
+                        except queue.Empty:
+                            break
+                        if nxt is _STOP:
+                            done = True
+                            break
+                        arrivals[nxt.req_id] = arrival
+                        gathered.append(nxt)
+                this_round.set(clips=len(gathered))
+                t0 = time.perf_counter()
                 for r in gathered:
-                    tracked_emit(Response(r.req_id, r.path, False, None, f"round failed: {e}"))
-                self._rounds += 1
-                work = None
-            # the new round's device work is queued: now finish the previous
-            # round, whose device time overlapped this gather and decode
-            if in_flight is not None:
-                self._finish_pending(in_flight)
-                in_flight = None
-            if work is not None:
-                in_flight = (work, gathered, tracked_emit, emitted, t0)
+                    record("serve.wait", arrivals[r.req_id], t0, req_id=r.req_id,
+                           round=round_no)
+
+                def tracked_emit(resp: Response, _arr=arrivals, _t0=t0):
+                    self._latencies.append(time.perf_counter() - _arr.get(resp.req_id, _t0))
+                    if resp.ok:
+                        self._served += 1
+                    else:
+                        self._failed += 1
+                    emit(resp)
+
+                emitted: set[str] = set()
+                try:
+                    work = self._submit_round(gathered)
+                except Exception as e:  # noqa: BLE001
+                    logger.exception("round submit failed")
+                    for r in gathered:
+                        tracked_emit(Response(r.req_id, r.path, False, None,
+                                              f"round failed: {e}"))
+                    self._rounds += 1
+                    work = None
+                # the new round's device work is queued: now finish the
+                # previous round, whose device time overlapped this gather
+                # and decode
+                if in_flight is not None:
+                    self._finish_pending(in_flight)
+                    in_flight = None
+                if work is not None:
+                    in_flight = (work, gathered, tracked_emit, emitted, t0, round_no)
         if in_flight is not None:
             self._finish_pending(in_flight)
         self._send("stop")
         t.join(timeout=1.0)
 
     def _next_request(self, q: queue.Queue):
-        """Wait for the next request; under a plan, tell the followers every
-        ``idle_interval_s()`` that the leader is idle."""
+        """Wait for the next (arrival, request); under a plan, tell the
+        followers every ``idle_interval_s()`` that the leader is idle."""
         if self.plan is None:
             return q.get()
         while True:

@@ -23,6 +23,13 @@ the data group before the one division: the JAX package's global weighted
 mean, not a mean of per-rank means. Under a model axis the weights are
 replicated on it (the JAX CLI's layout), unless ``tensor_parallel`` cuts
 the backbone to the rank's Megatron share (``dryrun_multichip``).
+
+Spans (``utils.profiling.span``): ``finetune.step`` an update (``step`` or
+``step_accum``), with its children ``finetune.h2d`` (the batch's copies to
+the device), ``finetune.forward`` (forward and loss) and
+``finetune.backward`` (the gradients) for each microbatch,
+``finetune.optim`` (``MultiAdamW.step``) and, with ``sync=True``,
+``finetune.sync`` (the wait for the host floats).
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ from stutter_tpu_torch.train.heads import (
     weighted_xent_sums,
 )
 from stutter_tpu_torch.train.optim import MultiAdamW
+from stutter_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger("stutter_tpu_torch.train.finetune")
 
@@ -281,12 +289,14 @@ class FinetuneTrainer:
         with self._precision():
             if normalize_in_graph:
                 (w, l, y, v), = microbatches
-                logits = finetune_forward(self.model, w, l, cfg, train=True,
-                                          generator=self.generator,
-                                          attention_fn=self.attention_fn)
-                loss = weighted_softmax_xent(logits, y, cw, valid=v)
-                grads = torch.autograd.grad(loss, [self.params[n] for n in trained],
-                                            allow_unused=True)
+                with span("finetune.forward", microbatch=0):
+                    logits = finetune_forward(self.model, w, l, cfg, train=True,
+                                              generator=self.generator,
+                                              attention_fn=self.attention_fn)
+                    loss = weighted_softmax_xent(logits, y, cw, valid=v)
+                with span("finetune.backward", microbatch=0):
+                    grads = torch.autograd.grad(loss, [self.params[n] for n in trained],
+                                                allow_unused=True)
                 hits, n_valid = self._accuracy_parts(logits.detach(), y, v)
                 return (dict(zip(trained, grads)), loss.detach(),
                         hits / torch.clamp(n_valid, min=1.0))
@@ -299,15 +309,17 @@ class FinetuneTrainer:
             g_sum = {n: torch.zeros_like(self.params[n]) for n in trained}
             zero = torch.zeros((), device=self.device)
             loss_sum, w_sum, hits, n_valid = zero, zero, zero, zero
-            for w, l, y, v in microbatches:
-                logits = finetune_forward(self.model, w, l, cfg, train=True,
-                                          generator=self.generator, backbone_params=cast,
-                                          attention_fn=self.attention_fn)
-                ls, ws = weighted_xent_sums(logits, y, cw, valid=v)
-                grads = torch.autograd.grad(ls, list(leaves.values()), allow_unused=True)
-                for n, g in zip(trained, grads):
-                    if g is not None:
-                        g_sum[n] += g.float()
+            for k, (w, l, y, v) in enumerate(microbatches):
+                with span("finetune.forward", microbatch=k):
+                    logits = finetune_forward(self.model, w, l, cfg, train=True,
+                                              generator=self.generator, backbone_params=cast,
+                                              attention_fn=self.attention_fn)
+                    ls, ws = weighted_xent_sums(logits, y, cw, valid=v)
+                with span("finetune.backward", microbatch=k):
+                    grads = torch.autograd.grad(ls, list(leaves.values()), allow_unused=True)
+                    for n, g in zip(trained, grads):
+                        if g is not None:
+                            g_sum[n] += g.float()
                 h, nv = self._accuracy_parts(logits.detach(), y, v)
                 loss_sum, w_sum = loss_sum + ls.detach(), w_sum + ws.detach()
                 hits, n_valid = hits + h, n_valid + nv
@@ -333,18 +345,24 @@ class FinetuneTrainer:
 
     def _finish(self, loss, acc, sync: bool):
         aux = {"loss": loss, "accuracy": acc}
-        return {k: float(v) for k, v in aux.items()} if sync else aux
+        if not sync:
+            return aux
+        with span("finetune.sync"):
+            return {k: float(v) for k, v in aux.items()}
 
     def step(self, waves, lengths, labels, class_weights, valid=None, sync: bool = True):
         """One training step on one batch. sync=True returns host floats;
         sync=False returns the device tensors without waiting for them. Under
         a plan the step takes the summed path of ``step_accum`` (one
         microbatch), whose sums the data group adds up."""
-        batch = self._tensors(waves, lengths, labels, valid)
-        grads, loss, acc = self.gradients([batch], class_weights,
-                                          normalize_in_graph=self.plan is None)
-        self.opt.step(self.params, grads)
-        return self._finish(loss, acc, sync)
+        with span("finetune.step", update=self.opt.state["count"] + 1):
+            with span("finetune.h2d"):
+                batch = self._tensors(waves, lengths, labels, valid)
+            grads, loss, acc = self.gradients([batch], class_weights,
+                                              normalize_in_graph=self.plan is None)
+            with span("finetune.optim"):
+                self.opt.step(self.params, grads)
+            return self._finish(loss, acc, sync)
 
     def step_accum(self, microbatches, class_weights, sync: bool = True):
         """One update over up to ``grad_accum`` same-shape microbatches
@@ -358,10 +376,13 @@ class FinetuneTrainer:
         while len(mbs) < K:
             w, l, y, _ = mbs[-1]
             mbs.append((w, l, y, np.zeros(len(np.asarray(y)), np.float32)))
-        batches = [self._tensors(*mb) for mb in mbs]
-        grads, loss, acc = self.gradients(batches, class_weights, normalize_in_graph=False)
-        self.opt.step(self.params, grads)
-        return self._finish(loss, acc, sync)
+        with span("finetune.step", update=self.opt.state["count"] + 1):
+            with span("finetune.h2d"):
+                batches = [self._tensors(*mb) for mb in mbs]
+            grads, loss, acc = self.gradients(batches, class_weights, normalize_in_graph=False)
+            with span("finetune.optim"):
+                self.opt.step(self.params, grads)
+            return self._finish(loss, acc, sync)
 
     @torch.no_grad()
     def predict(self, waves, lengths) -> np.ndarray:
