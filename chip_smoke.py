@@ -703,7 +703,10 @@ def phase_slice(torch, extractor, work: Path, phase: str = "slice") -> dict:
     check(counts["flash_mha"] == counts["whisper_log_mel"] == 0,
           f"the WavLM path launched a Whisper kernel: {counts}")
     check(counts["gated_relpos_attention_bwd"] == 0, "extraction launched the backward")
-    check(counts["wavlm_fused_stem"] == 0, "the pipeline took the fused stem (off by default)")
+    # every bucket is frame-aligned and the presets' stem weights bf16: one
+    # fused stem call a batch
+    check(counts["wavlm_fused_stem"] == seen["batches"],
+          f"{counts['wavlm_fused_stem']} fused stem calls for {seen['batches']} batches")
     check(counts["flash_mha_bias"] == 0, "the pipeline took the long-bucket hatch (off by default)")
     # turbo: the six projections of each layer; turbo_ffn: the FFN's two
     int8 = INT8_GEMMS_A_LAYER["wavlm"].get(extractor.preset, 0) * cfg.num_hidden_layers \
@@ -4726,7 +4729,7 @@ def main() -> int:
         ("flash_mha", "flash_mha.cu", "stutter_tpu/models/attention.py:54",
          whisper_counts["flash_mha"], mha_err, mha_times),
         ("wavlm_fused_stem", "wavlm_stem.cu", "stutter_tpu/ops/wavlm_stem_pallas.py:113",
-         stem_launches, stem_err, stem_times),
+         wavlm_counts["wavlm_fused_stem"], stem_err, stem_times),
         ("flash_mha_bias", "flash_mha.cu", "stutter_tpu/models/attention.py:102",
          long_counts["flash_mha_bias"], mha_bias_err, mha_bias_times),
         ("attn_int8", "attn_probes.cu", "scripts/attn_int8_probe.py:66",
@@ -4764,6 +4767,7 @@ def main() -> int:
     line[1]["also_replaces"] = ["stutter_tpu/ops/wavlm_attention_vjp.py:68",
                                 "stutter_tpu/ops/wavlm_attention_vjp.py:115"]
     line[1]["max_rel_err"] = bwd_rel
+    line[4]["stem_ab_launches"] = stem_launches
     line[6]["also_replaces"] = "scripts/attn_int8_probe.py:100"  # its pallas_call
     line[7]["also_replaces"] = "scripts/attn_softmax_variants_probe.py:98"
     print(json.dumps({"kernels": line}), flush=True)

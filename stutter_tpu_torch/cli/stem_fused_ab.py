@@ -92,7 +92,7 @@ def main(argv=None) -> int:
     fns = {
         "stem_plain": lambda: stem(wave, lengths),
         "stem_fused": lambda: wavlm_fused_stem(wave, *packed),
-        "e2e_plain": lambda: model.encode(wave, layers, lengths),
+        "e2e_plain": lambda: model.encode(wave, layers, lengths, use_fused_stem=False),
         "e2e_fused": lambda: model.encode(wave, layers, lengths, use_fused_stem=True),
     }
     ms = {name: [] for name in fns}

@@ -7,9 +7,9 @@ in place of ``lax.scan``, and the attention core through
 on the card, its plain version on the CPU). Public functions keep the JAX
 package's layouts ([B, L, C] frames and hidden states) so that the two
 packages compare like with like; inside, the stem runs PyTorch's [B, C, T].
-``forward``/``encode(use_fused_stem=True)`` run the stem through the fused
-kernel of ``ops.wavlm_stem`` instead, where it applies (off by default, as
-in the JAX package). The projections go through ``ops.quant.linear``, which
+``forward``/``encode`` run the stem through the fused kernel of
+``ops.wavlm_stem`` wherever it applies and can run; ``use_fused_stem=False``
+forces the plain stem. The projections go through ``ops.quant.linear``, which
 takes the turbo presets' int8 weights, or with ``int8_forward`` set on a
 layer's modules (fine-tuning) ``qdot_ste``. ``pooled_states`` takes the JAX
 package's remat policies through ``torch.utils.checkpoint``'s selective
@@ -598,23 +598,24 @@ class WavLMModel(nn.Module):
         return hidden, collected, frame_lengths
 
     @torch.inference_mode()
-    def forward(self, waveform, sample_lengths=None, use_fused_stem=False):
+    def forward(self, waveform, sample_lengths=None, use_fused_stem=True):
         """waveform [B, T] f32 (frontend-normalised); sample_lengths [B] true
         sample counts. Returns (last [B, L, D], hidden states [N+1, B, L, D],
         frame lengths [B]).
 
-        ``use_fused_stem`` runs the conv stem through
-        ``ops.wavlm_stem.wavlm_fused_stem`` where it applies exactly (bf16
-        parameters and ``fused_stem_applicable``), as ``wavlm_forward`` does
-        in the JAX package, and where it can run (``fused_stem_supported``:
-        on the card, a 512-wide stem); off by default there and here."""
+        The conv stem runs through ``ops.wavlm_stem.wavlm_fused_stem`` where
+        it applies exactly (bf16 parameters and ``fused_stem_applicable``),
+        as ``wavlm_forward(use_fused_stem=True)`` does in the JAX package,
+        and where it can run (``fused_stem_supported``: on the card, a
+        512-wide stem); elsewhere, and with ``use_fused_stem=False``, through
+        the plain ``ConvFeatureEncoder``."""
         last, states, frame_lengths = self._run(
             waveform, sample_lengths, lambda i, h, fl: h, None, use_fused_stem=use_fused_stem)
         return last, torch.stack(states), frame_lengths
 
     @torch.inference_mode()
     def encode(self, waveform, layer_indices, sample_lengths=None, attention_fn=None,
-               use_fused_stem=False):
+               use_fused_stem=True):
         """Masked mean-pooled hidden states at ``layer_indices``:
         [len(layer_indices), B, D] f32. ``attention_fn`` replaces the
         attention core (the default is the kernel wrapper);

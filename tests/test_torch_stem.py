@@ -11,6 +11,9 @@ points (conv -> bf16, bias in bf16, f32 LN statistics, tanh GELU on bf16)
 but sum in another order, and one flipped bf16 rounding propagates through
 seven layer norms. Padded frames are exactly 0 after end-masking. The
 encode bar is the repo's 1e-3 pooled cosine distance.
+
+Which calls take the fused stem with no flag set: ``encode`` and
+``forward`` wherever the gate passes, never ``pooled_states``.
 """
 
 import dataclasses
@@ -25,11 +28,14 @@ import torch
 import stutter_tpu.ops.wavlm_stem_pallas as jstem
 from stutter_tpu.frontend.wavlm_frontend import wavlm_prepare_batch as jax_prepare
 from stutter_tpu.models import wavlm as jw
+from stutter_tpu_torch.audio.wavio import write_wav
+from stutter_tpu_torch.extract.batcher import BucketBatcher
+from stutter_tpu_torch.extract.pipeline import WavLMExtractor
 from stutter_tpu_torch.frontend.wavlm_frontend import wavlm_prepare_batch
 from stutter_tpu_torch.models import wavlm as tw
 from stutter_tpu_torch.ops import wavlm_stem as tstem
 from stutter_tpu_torch.ops.quant import QuantizedWeight, quantize_weight
-from stutter_tpu_torch.weights.convert import wavlm_params_from_numpy
+from stutter_tpu_torch.weights.convert import init_wavlm, wavlm_params_from_numpy
 from tests.conftest import cosine_distance
 
 torch.set_num_threads(2)  # six xdist workers share the host
@@ -312,3 +318,75 @@ def test_kernel_input_checks(fault):
         tstem._check(wave, weights, table)
     tstem._check(torch.zeros(2, 5200), torch.zeros(rows, 512, dtype=torch.bfloat16),
                  torch.zeros(7, 3, 512))
+
+
+# WavLM-Large's stem geometry and norms at a 128-wide stem, with a small
+# encoder: what the gate reads, at a size the CPU runs in a second
+SMALL = dataclasses.replace(tw.WavLMConfig.large(), hidden_size=64, num_hidden_layers=2,
+                            num_attention_heads=4, intermediate_size=128, conv_dim=(C,) * 7)
+ALIGNED = 16 * 320 + 80  # one 16-frame block
+
+
+@pytest.fixture
+def stem_calls(monkeypatch):
+    """The waveforms that ``models.wavlm`` hands its fused stem."""
+    calls = []
+    real = tw.wavlm_fused_stem
+
+    def spy(waveform, *args):
+        calls.append(tuple(waveform.shape))
+        return real(waveform, *args)
+
+    monkeypatch.setattr(tw, "wavlm_fused_stem", spy)
+    return calls
+
+
+def _small_model(dtype):
+    return init_wavlm(SMALL, torch.Generator().manual_seed(3)).to(dtype)
+
+
+@pytest.mark.parametrize("case,fused", [
+    ("encode", True), ("forward", True), ("f32_params", False), ("unaligned_length", False),
+    ("use_fused_stem_false", False), ("pooled_states", False),
+    ("pooled_states_stop_stem_gradient", False)])
+def test_stem_selection_follows_the_gate(stem_calls, case, fused):
+    """Without a flag, encode and forward take the fused stem once a call on
+    a frame-aligned bf16 batch; f32 weights, an unaligned length and
+    use_fused_stem=False keep the plain stem, and so does the
+    differentiable pooled_states, with or without its stem's gradient."""
+    model = _small_model(torch.float32 if case == "f32_params" else torch.bfloat16)
+    T = ALIGNED + (320 if case == "unaligned_length" else 0)
+    r = np.random.RandomState(7)
+    lens = torch.tensor([T, 3600])
+    w = wavlm_prepare_batch(torch.from_numpy((r.randn(2, T) * 0.1).astype(np.float32)), lens,
+                            SMALL.do_normalize)
+    if case == "forward":
+        out = model(w, lens)[1]
+    elif case.startswith("pooled_states"):
+        out = model.pooled_states(w, lens, stop_stem_gradient=case.endswith("gradient"))
+    else:
+        out = model.encode(w, (2, 1), lens, **(
+            {"use_fused_stem": False} if case == "use_fused_stem_false" else {}))
+    assert torch.isfinite(out.float()).all()
+    assert stem_calls == ([(2, T)] if fused else [])
+    if case == "encode":  # the default is the fused path itself
+        explicit = model.encode(w, (2, 1), lens, use_fused_stem=True)
+        assert torch.equal(out, explicit)
+
+
+def test_fast_extractor_takes_the_fused_stem(stem_calls, tmp_path):
+    """A fast-preset WavLMExtractor batch from the frame-aligned batcher."""
+    r = np.random.RandomState(8)
+    paths = []
+    for i, n in enumerate((9_000, 14_000)):
+        paths.append(str(tmp_path / f"clip{i}.wav"))
+        write_wav(paths[-1], (r.randn(n) * 0.1).astype(np.float32), 16_000)
+    ex = WavLMExtractor(_small_model(torch.float32), "cpu", layer_indices=(2, 1),
+                        preset="fast")
+    batcher = BucketBatcher(buckets_s=(1.0,), max_batch=4, frame_align=ex.frame_align)
+    batches = list(batcher.batches(paths, prefetch=False))
+    rows = [ex(b) for b in batches]
+    n = batcher.bucket_samples(1.0)
+    assert tstem.fused_stem_applicable(SMALL, n, ex.model.feature_encoder.layers)
+    assert stem_calls == [b.waves.shape for b in batches] == [(4, n)]
+    assert all(np.isfinite(v).all() for row in rows for v in row.values())
