@@ -1226,10 +1226,11 @@ def phase_tile_edges(torch, mha) -> dict:
     return worst
 
 
-# the bf16 wgmma tiles' instantiations: policy<warpgroups, stages, blocks an SM,
-# grid order (0 query tile fastest, 1 clip fastest)>
-TILE_KERNELS = {"KeyPadding<2, 4, 2, 0>", "FullBias<2, 4, 1, 0>", "GatedBiasRing<1, 3, 2, 0>",
-                "GatedBiasRing<1, 3, 2, 1>"}
+# the bf16 wgmma tiles' instantiations: policy<head_dim, warpgroups, stages,
+# blocks an SM, grid order (0 query tile fastest, 1 clip fastest)>
+TILE_KERNELS = {"KeyPadding<64, 2, 4, 2, 0>", "KeyPadding<120, 2, 4, 1, 0>",
+                "FullBias<64, 2, 4, 1, 0>", "GatedBiasRing<64, 1, 3, 2, 0>",
+                "GatedBiasRing<64, 1, 3, 2, 1>"}
 # the bf16 backward's wgmma kernels: dq and dk+dv in either grid order, dbias
 BWD_TILE_KERNELS = {"dq<0>", "dq<1>", "dkv<0>", "dkv<1>", "dbias"}
 # the stem's wgmma conv kernels, by taps
@@ -1331,26 +1332,20 @@ def phase_tile_resources(build) -> None:
               f"probe {row['kernel']}: wgmma {gmma}, mma.sync {row['HMMA'] + row['IMMA']}")
 
 
-def phase_mha(torch, mha):
-    """Flash-attention kernel against its plain version, and the time of
-    ``scaled_dot_product_attention`` on the same inputs; returns (worst
-    max-abs error, the numbers at the bf16 encoder shape)."""
+def mha_cases(torch, mha, cases, head_dim: int, phase: str):
+    """``flash_mha`` against its plain version on each case (B, H, L, dtype,
+    key counts or None) of [B, L, H, head_dim] views, as the models pass
+    them, timed in turns with the plain version and
+    ``scaled_dot_product_attention`` (per launch, and 8 queued); returns
+    (worst max-abs error, [(shape, dtype, key counts, numbers)])."""
     import torch.nn.functional as F
 
     from stutter_tpu_torch.utils.benchmarking import bound
 
-    cases = [  # (B, H, L, dtype, kv_valid): [B, L, H, d] views, as the encoder passes them
-        (16, 20, 1500, torch.bfloat16, None),   # Whisper-large encoder, fast preset
-        (16, 20, 1500, torch.float32, None),    # fidelity preset
-        (3, 20, 1500, torch.bfloat16, (1500, 700, 0)),
-        (3, 20, 1500, torch.float32, (1500, 700, 0)),
-        (5, 20, 37, torch.bfloat16, None),      # ragged L, one partial tile
-        (5, 20, 37, torch.float32, None),
-    ]
-    g = torch.Generator(device="cuda").manual_seed(0)
-    worst, headline = 0.0, None
+    g = torch.Generator(device="cuda").manual_seed(0 if head_dim == 64 else 21)
+    worst, rows = 0.0, []
     for B, H, L, dtype, kv in cases:
-        q, k, v = ((torch.randn(B, L, H, 64, device="cuda", generator=g) * 0.5)
+        q, k, v = ((torch.randn(B, L, H, head_dim, device="cuda", generator=g) * 0.5)
                    .to(dtype).transpose(1, 2) for _ in range(3))
         kv_valid = None if kv is None else torch.tensor(kv, dtype=torch.int32, device="cuda")
         out = mha.flash_mha(q, k, v, kv_valid)
@@ -1385,21 +1380,63 @@ def phase_mha(torch, mha):
             lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0), reps=8)
         queued_library_ms = (queued_masked_ms if kv is not None
                              else min(queued_masked_ms, queued_maskless_ms))
-        n = B * H * L * 64  # q k^T and p v; q, k, v and out once each
+        n = B * H * L * head_dim  # q k^T and p v; q, k, v and out once each
         numbers = timing(ms, plain_ms, *bound(4 * n * L, 4 * n * q.element_size(),
                                               peak_flops(torch, dtype)), library_ms)
-        say("mha", shape=f"{B}x{H}x{L}x64", dtype=str(dtype).split(".")[-1],
+        say(phase, shape=f"{B}x{H}x{L}x{head_dim}", dtype=str(dtype).split(".")[-1],
             kv_valid=",".join(map(str, kv)) if kv else "all", max_abs_err=f"{max_abs:.3e}",
             max_abs_tol=tol_abs, cosine_dist=f"{cos:.3e}", cosine_tol=tol_cos,
             **shown(numbers), library_masked_ms=f"{masked_ms:.4f}",
             library_maskless_ms=f"{maskless_ms:.4f}" if kv is None else None,
             queued_ms=f"{queued_ms:.4f}", queued_library_ms=f"{queued_library_ms:.4f}",
-            queued_tflops=f"{4 * n * L / queued_ms / 1e9:.1f}")
+            queued_tflops=f"{4 * n * L / queued_ms / 1e9:.1f}",
+            roofline=f"{100 * numbers['bound_ms'] / queued_ms:.1f}%")
         check(max_abs <= tol_abs and cos <= tol_cos,
-              f"flash_mha disagrees with its plain version at {B}x{H}x{L} {dtype} kv={kv}")
+              f"flash_mha disagrees with its plain version at {B}x{H}x{L}x{head_dim} {dtype} "
+              f"kv={kv}")
         worst = max(worst, max_abs)
-        headline = headline or numbers
-    return worst, headline
+        rows.append((f"{B}x{H}x{L}x{head_dim}", dtype, kv, dict(
+            numbers, queued_ms=queued_ms, queued_library_ms=queued_library_ms)))
+        del q, k, v, out, ref
+        torch.cuda.empty_cache()
+    return worst, rows
+
+
+def phase_mha(torch, mha):
+    """Flash-attention kernel against its plain version, and the time of
+    ``scaled_dot_product_attention`` on the same inputs; returns (worst
+    max-abs error, the numbers at the bf16 encoder shape)."""
+    worst, rows = mha_cases(torch, mha, [
+        (16, 20, 1500, torch.bfloat16, None),   # Whisper-large encoder, fast preset
+        (16, 20, 1500, torch.float32, None),    # fidelity preset
+        (3, 20, 1500, torch.bfloat16, (1500, 700, 0)),
+        (3, 20, 1500, torch.float32, (1500, 700, 0)),
+        (5, 20, 37, torch.bfloat16, None),      # ragged L, one partial tile
+        (5, 20, 37, torch.float32, None),
+    ], 64, "mha")
+    return worst, rows[0][3]
+
+
+def phase_flash_mha_hd120(torch, mha):
+    """The flash kernel at head_dim 120 (wav2vec2 XLS-R 2B's 16 heads of
+    120) at the 30 s and 20 s buckets' batches, bf16 and f32, every key valid
+    and with padded clips (``mha_cases``), and only the 120-wide instance
+    launched; returns (worst max-abs error, the numbers of each bf16 case)."""
+    before = dict(mha.flash_mha.launches_by_head_dim)
+    worst, rows = mha_cases(torch, mha, [
+        (8, 16, 1504, torch.bfloat16, None),    # 30 s bucket, fast preset
+        (12, 16, 1008, torch.bfloat16, None),   # 20 s bucket
+        (8, 16, 1504, torch.float32, None),     # fidelity preset
+        (12, 16, 1008, torch.float32, None),
+        (3, 16, 1504, torch.bfloat16, (1504, 700, 0)),
+        (3, 16, 1504, torch.float32, (1504, 700, 0)),
+    ], 120, "flash_mha_hd120")
+    counted = {d: n - before.get(d, 0) for d, n in mha.flash_mha.launches_by_head_dim.items()}
+    say("flash_mha_hd120", launches_by_head_dim=counted)
+    check(counted.get(120, 0) > 0 and counted.get(64, 0) == 0,
+          f"the 120-wide calls were counted as {counted}")
+    return worst, {shape + ("" if kv is None else "_padded"): numbers
+                   for shape, dtype, kv, numbers in rows if dtype == torch.bfloat16}
 
 
 def phase_mha_bias(torch, mha):
@@ -4560,6 +4597,8 @@ def main() -> int:
         with timed("mha"):
             phase_tile_resources(_build)
             mha_err, mha_times = phase_mha(torch, mha)
+        with timed("flash_mha_hd120"):
+            hd120_err, hd120_times = phase_flash_mha_hd120(torch, mha)
         with timed("mha_bias"):
             mha_bias_err, mha_bias_times = phase_mha_bias(torch, mha)
         with timed("mha_edges"):
@@ -4754,6 +4793,8 @@ def main() -> int:
         "2x8x1504": tp_report["wavlm_30s"]["counts"]["gated_relpos_attention"]}
     line[3]["tp2_launches_per_rank"] = {  # 10 of Whisper-large's 20 heads
         "4x10x1500": tp_report["whisper_30s"]["counts"]["flash_mha"]}
+    # the 120-wide instance (wav2vec2 XLS-R 2B's heads) at the long buckets
+    line[3]["head_dim_120"] = {"max_abs_err": hd120_err, "cases": hd120_times}
     # the turbo_ffn slices, Whisper large-v3 at 128 mels, the
     # combined server, cli.train's Whisper re-extraction, the traced batch
     line[0]["turbo_ffn_slice_launches"] = ffn_counts["gated_relpos_attention"]

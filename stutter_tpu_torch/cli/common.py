@@ -1,9 +1,10 @@
 """What the port's CLIs share (counterpart of ``stutter_tpu/cli/common.py``).
 
-``load_wavlm_model`` and ``load_whisper_model`` give (config, float32
-model): with ``random_init`` the architecture named by ``model_name`` with
-seeded random weights (seed 0), else the local HF checkpoint directory
-``model_name`` through ``weights.convert.load_wavlm`` / ``load_whisper``. A
+``load_wavlm_model``, ``load_wav2vec2_model`` and ``load_whisper_model``
+give (config, float32 model): with ``random_init`` the architecture named by
+``model_name`` with seeded random weights (seed 0), else the local HF
+checkpoint directory ``model_name`` through ``weights.convert.load_wavlm`` /
+``load_wav2vec2`` / ``load_whisper``. A
 hub name raises ``OSError``: this package never downloads.
 ``make_bucket_batcher`` builds the serve and predict CLIs' batcher from the
 extractor's preferences and the plan's data size.
@@ -30,6 +31,11 @@ WAVLM_CONFIGS = {
     "microsoft/wavlm-base-plus": "base_plus",
     "microsoft/wavlm-large": "large",
     "microsoft/wavlm-large-v2": "large",
+}
+
+WAV2VEC2_CONFIGS = {
+    "facebook/wav2vec2-xls-r-2b": "xls_r_2b",
+    "facebook/wav2vec2-xls-r-300m": "xls_r_300m",
 }
 
 # substring of a Whisper name -> WhisperConfig preset, first match wins (the JAX CLI's)
@@ -155,6 +161,26 @@ def load_wavlm_model(model_name: str, random_init: bool):
                        preset)
         return cfg, init_wavlm(cfg, torch.Generator().manual_seed(0))
     return load_wavlm(model_name)
+
+
+def load_wav2vec2_model(model_name: str, random_init: bool, device: str = "cpu"):
+    """(Wav2Vec2Config, float32 Wav2Vec2Model on the CPU). Raises ValueError,
+    before any weight loads, for heads that ``device`` cannot run
+    (``Wav2Vec2Extractor.check_device``)."""
+    import torch
+
+    from stutter_tpu_torch.extract.pipeline import Wav2Vec2Extractor
+    from stutter_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+    from stutter_tpu_torch.weights.convert import init_wav2vec2, load_wav2vec2, wav2vec2_config
+
+    if random_init:
+        preset = WAV2VEC2_CONFIGS.get(model_name, "xls_r_2b")
+        cfg = getattr(Wav2Vec2Config, preset)()
+        Wav2Vec2Extractor.check_device(cfg, device)
+        logger.warning("--random_init: using fresh wav2vec2 %s weights (seed 0)", preset)
+        return cfg, init_wav2vec2(cfg, torch.Generator().manual_seed(0))
+    Wav2Vec2Extractor.check_device(wav2vec2_config(model_name), device)
+    return load_wav2vec2(model_name)
 
 
 def load_whisper_model(model_name: str, random_init: bool):

@@ -9,9 +9,9 @@ where there is one, ``scaled_dot_product_attention``.
 1. Prints what ``ptxas -v`` said of the bf16 tiles' kernels at the build
    (registers, spills, stack, per instantiation) and any "wgmma
    serialized" warning.
-2. Holds ``flash_mha`` and ``flash_mha_bias`` (bf16) against their plain
-   versions over ragged lengths and key counts, and the gated attention
-   (bf16, output and row statistics) over ragged lengths in both grid
+2. Holds ``flash_mha`` (bf16, at head_dim 64 and 120) and ``flash_mha_bias``
+   against their plain versions over ragged lengths and key counts, and the
+   gated attention (bf16, output and row statistics) over ragged lengths in both grid
    orders, with a fully padded clip and a clip whose gate is 0, and the
    gated attention's backward (bf16: dq, dk, dv, dbias, dgate) over the same
    lengths and 512 and 1008, in both grid orders, with one and two groups of
@@ -137,13 +137,16 @@ def load_prev_library(root: Path):
 
 def c_call(torch, lib, name, q, k, v, extra):
     """Launch a kernel library's flash_mha or flash_mha_bias (bf16) through
-    its bare C entry point (with ab_vec where its signature has it)."""
+    its bare C entry point (with ab_vec, or flash_mha's head_dim, where its
+    signature has it)."""
     out = torch.empty_like(q)
-    B, H, L, _ = q.shape
+    B, H, L, d = q.shape
     fn = getattr(lib, name)
     shape = [B, H, L]
     if name == "flash_mha_bias" and len(fn.argtypes) == 14:
         shape.append(16 if L % 4 == 0 and extra.data_ptr() % 16 == 0 else 4)
+    if name == "flash_mha" and len(fn.argtypes) == 14:
+        shape.append(d)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if extra is None else extra.data_ptr(), out.data_ptr(),
             *shape, q.stride(0), q.stride(1), q.stride(2), 1,
@@ -190,23 +193,25 @@ def error_map(torch, out, ref) -> str:
     return "\n".join(lines)
 
 
-def make_qkv(torch, g, B, H, L, transposed=True):
+def make_qkv(torch, g, B, H, L, transposed=True, d=64):
     def one():
-        if transposed:  # [B, L, H, 64] projections viewed [B, H, L, 64], as the models pass them
-            return (torch.randn(B, L, H, 64, device="cuda", generator=g) * 0.5) \
+        if transposed:  # [B, L, H, d] projections viewed [B, H, L, d], as the models pass them
+            return (torch.randn(B, L, H, d, device="cuda", generator=g) * 0.5) \
                 .bfloat16().transpose(1, 2)
-        return (torch.randn(B, H, L, 64, device="cuda", generator=g) * 0.5).bfloat16()
+        return (torch.randn(B, H, L, d, device="cuda", generator=g) * 0.5).bfloat16()
     return one(), one(), one()
 
 
 def check_cases(torch, mha, verbose: bool = True) -> tuple[int, int, dict]:
     """Hold the bf16 kernels to their plain versions where the 64- and
-    128-row tiles are most likely to be wrong. Returns (cases, cases that
-    disagree, each kernel's worst max-abs error); prints a line a case when
-    ``verbose``, else only the cases that disagree."""
+    128-row tiles are most likely to be wrong, flash_mha at head_dim 64 and
+    120 (``flash_mha_hd120``: its zero-filled K panel and its two V panels).
+    Returns (cases, cases that disagree, each kernel's worst max-abs error);
+    prints a line a case when ``verbose``, else only the cases that
+    disagree."""
     g = torch.Generator(device="cuda").manual_seed(3)
     cases, failures = 0, 0
-    worst = {"flash_mha": 0.0, "flash_mha_bias": 0.0}
+    worst = {"flash_mha": 0.0, "flash_mha_bias": 0.0, "flash_mha_hd120": 0.0}
 
     def report(name, shape, extra, out, ref):
         nonlocal cases, failures
@@ -254,6 +259,28 @@ def check_cases(torch, mha, verbose: bool = True) -> tuple[int, int, dict]:
             report("flash_mha_bias", f"{B}x{H}x{L}", f"vec={mha.ab_vector_bytes(shifted)}",
                    mha.flash_mha_bias(q, k, v, shifted),
                    mha.flash_mha_bias_reference(q, k, v, shifted))
+    # head_dim 120: q = 0 and v = I over 120 keys (each output column one
+    # key's probability, both V panels), then the ragged lengths and key counts
+    q, k, _ = make_qkv(torch, g, 1, 1, 120, d=120)
+    eye = torch.eye(120, device="cuda").bfloat16()[None, :, None, :].transpose(1, 2)
+    report("flash_mha_hd120", "1x1x120", "q=0 (out = mean of v)",
+           mha.flash_mha(torch.zeros_like(q), k, eye),
+           mha.flash_mha_reference(torch.zeros_like(q), k, eye))
+    report("flash_mha_hd120", "1x1x120", "v=I (out = probabilities)",
+           mha.flash_mha(q * 4, k, eye), mha.flash_mha_reference(q * 4, k, eye))
+    for L in (37, 64, 65, 127, 128, 129, 1008, 1504):
+        B, H = (2, 3) if L > 200 else (3, 5)
+        q, k, v = make_qkv(torch, g, B, H, L, d=120)
+        report("flash_mha_hd120", f"{B}x{H}x{L}x120", "kv=all", mha.flash_mha(q, k, v),
+               mha.flash_mha_reference(q, k, v))
+        for valid in (0, 1, 63, 64, 65):
+            kv = torch.tensor([min(valid, L), L, max(L - 1, 0)][:B], dtype=torch.int32,
+                              device="cuda")
+            report("flash_mha_hd120", f"{B}x{H}x{L}x120", f"kv={kv.tolist()}",
+                   mha.flash_mha(q, k, v, kv), mha.flash_mha_reference(q, k, v, kv))
+    q, k, v = make_qkv(torch, g, 2, 3, 129, transposed=False, d=120)
+    report("flash_mha_hd120", "2x3x129x120", "contiguous", mha.flash_mha(q, k, v),
+           mha.flash_mha_reference(q, k, v))
     # a contiguous [B, H, L, 64] input, and a grid of more than 65,535 blocks
     q, k, v = make_qkv(torch, g, 2, 3, 129, transposed=False)
     report("flash_mha", "2x3x129", "contiguous", mha.flash_mha(q, k, v),
@@ -608,12 +635,13 @@ def time_turns(torch, fns, runs, reps=1):
 
 def tile_kernels(build) -> list[dict]:
     """ptxas's rows for the bf16 tiles' kernels, each named by its policy and
-    its <warpgroups, stages, blocks an SM, grid order>."""
+    its <head_dim, warpgroups, stages, blocks an SM, grid order> (an earlier
+    checkout's, built before the head_dim was a parameter, without it)."""
     import re
 
     rows = build.resource_report("4sm9021attention_bf16_kernel")
     for row in rows:
-        m = re.search(r"(\w+?)((?:ELi\d+){4})E", row["kernel"])
+        m = re.search(r"(\w+?)((?:ELi\d+){4,5})E", row["kernel"])
         scope, ints = m.group(1), re.findall(r"[0-9]+", m.group(2))
         # the policy is the last <length><name> of its mangled scope
         policy = next(n.group(2) for i in range(len(scope) - 1, -1, -1)

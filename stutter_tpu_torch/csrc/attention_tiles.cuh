@@ -15,7 +15,8 @@
 //     p[j]   = score(i, j, q[i] . k[j])
 //     out[i] = sum_j softmax_j(p)[j] * v[j]
 //
-// with q pre-scaled, head_dim 64, and `score` a compile-time policy that adds
+// with q pre-scaled, head_dim 64 (the f32 kernel also 120: KeyPadding for
+// wav2vec2 XLS-R), and `score` a compile-time policy that adds
 // whatever the caller's logits carry beyond q . k: WavLM's gate * bias + mask
 // (GatedBias below), Whisper's key padding (KeyPadding in flash_mha.cu), or a
 // materialised bias (FullBias in flash_mha.cu). A policy is a struct with a
@@ -39,7 +40,10 @@
 // - The ragged edge (L not a multiple of 32) is masked here: padded query
 //   rows are computed on zeros and not stored, keys past L score -inf. The
 //   caller never pads L.
-// - q, k, v and out may be any [B, H, L, 64] view whose last dimension is
+// - At head_dim 120 a key tile is 16 keys, so that the tiles stay within the
+//   48 KB of static shared memory (32 keys of 120 floats for K and V would
+//   not).
+// - q, k, v and out may be any [B, H, L, d] view whose last dimension is
 //   contiguous (the models pass their [B, L, H, 64] projections transposed),
 //   so no copy is made to reach a head-major layout.
 //
@@ -68,16 +72,19 @@ constexpr int kBlockK = 32;  // keys per shared-memory tile
 
 constexpr int kF32Threads = 128;
 
-template <class Score>
+template <class Score, int kHd>
 __global__ void __launch_bounds__(kF32Threads) attention_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const typename Score::Params params,
     float* __restrict__ out, float* __restrict__ row_stats, int B, int H, int L,
     long long stride_b, long long stride_h, long long stride_l) {
-  __shared__ float qs[kBlockQ][kHeadDim + 1];
-  __shared__ float ks[kBlockK][kHeadDim + 1];
-  __shared__ float vs[kBlockK][kHeadDim];
-  __shared__ float ps[kBlockQ][kBlockK + 1];
+  static_assert(kHd % 8 == 0, "a thread owns output columns tx + 8 n");
+  constexpr int kKeys = kHd > kHeadDim ? 16 : kBlockK;  // keys a shared-memory tile
+  constexpr int kCols = kHd / 8;  // output columns a thread, per row
+  __shared__ float qs[kBlockQ][kHd + 1];
+  __shared__ float ks[kKeys][kHd + 1];
+  __shared__ float vs[kKeys][kHd];
+  __shared__ float ps[kBlockQ][kKeys + 1];
 
   const int b = blockIdx.x;
   const int q0 = blockIdx.y * kBlockQ;
@@ -88,8 +95,8 @@ __global__ void __launch_bounds__(kF32Threads) attention_f32_kernel(
   const long long base = b * stride_b + h * stride_h;
 
   // Stage the query tile; rows past L read as zeros.
-  for (int e = tid; e < kBlockQ * kHeadDim; e += kF32Threads) {
-    const int r = e / kHeadDim, c = e % kHeadDim;
+  for (int e = tid; e < kBlockQ * kHd; e += kF32Threads) {
+    const int r = e / kHd, c = e % kHd;
     const int qi = q0 + r;
     qs[r][c] = qi < L ? q[base + qi * stride_l + c] : 0.f;
   }
@@ -99,14 +106,14 @@ __global__ void __launch_bounds__(kF32Threads) attention_f32_kernel(
 
   float row_max[2] = {-CUDART_INF_F, -CUDART_INF_F};
   float row_sum[2] = {0.f, 0.f};
-  float acc[2][8];
+  float acc[2][kCols];
   for (int a = 0; a < 2; ++a)
-    for (int n = 0; n < 8; ++n) acc[a][n] = 0.f;
+    for (int n = 0; n < kCols; ++n) acc[a][n] = 0.f;
 
-  for (int k0 = 0; k0 < L; k0 += kBlockK) {
+  for (int k0 = 0; k0 < L; k0 += kKeys) {
     __syncthreads();  // the previous tile's readers are done with ks/vs/ps
-    for (int e = tid; e < kBlockK * kHeadDim; e += kF32Threads) {
-      const int r = e / kHeadDim, c = e % kHeadDim;
+    for (int e = tid; e < kKeys * kHd; e += kF32Threads) {
+      const int r = e / kHd, c = e % kHd;
       const int kj = k0 + r;
       const bool ok = kj < L;
       const long long off = base + kj * stride_l + c;
@@ -115,15 +122,15 @@ __global__ void __launch_bounds__(kF32Threads) attention_f32_kernel(
     }
     __syncthreads();
 
-    float s[2][4];
+    float s[2][kKeys / 8];
     for (int a = 0; a < 2; ++a)
-      for (int m = 0; m < 4; ++m) s[a][m] = 0.f;
+      for (int m = 0; m < kKeys / 8; ++m) s[a][m] = 0.f;
 #pragma unroll 16
-    for (int c = 0; c < kHeadDim; ++c) {
+    for (int c = 0; c < kHd; ++c) {
       const float q_a = qs[2 * ty][c];
       const float q_b = qs[2 * ty + 1][c];
 #pragma unroll
-      for (int m = 0; m < 4; ++m) {
+      for (int m = 0; m < kKeys / 8; ++m) {
         const float kv = ks[tx + 8 * m][c];
         s[0][m] = fmaf(q_a, kv, s[0][m]);
         s[1][m] = fmaf(q_b, kv, s[1][m]);
@@ -134,7 +141,7 @@ __global__ void __launch_bounds__(kF32Threads) attention_f32_kernel(
     for (int a = 0; a < 2; ++a) {
       float tile_max = -CUDART_INF_F;
 #pragma unroll
-      for (int m = 0; m < 4; ++m) {
+      for (int m = 0; m < kKeys / 8; ++m) {
         const int kj = k0 + tx + 8 * m;
         s[a][m] = kj < L ? score(a, kj, s[a][m]) : -CUDART_INF_F;
         tile_max = fmaxf(tile_max, s[a][m]);
@@ -148,7 +155,7 @@ __global__ void __launch_bounds__(kF32Threads) attention_f32_kernel(
       const float rescale = expf(row_max[a] - new_max);
       float tile_sum = 0.f;
 #pragma unroll
-      for (int m = 0; m < 4; ++m) {
+      for (int m = 0; m < kKeys / 8; ++m) {
         const float p = expf(s[a][m] - new_max);
         ps[2 * ty + a][tx + 8 * m] = p;
         tile_sum += p;
@@ -159,16 +166,16 @@ __global__ void __launch_bounds__(kF32Threads) attention_f32_kernel(
       row_sum[a] = row_sum[a] * rescale + tile_sum;
       row_max[a] = new_max;
 #pragma unroll
-      for (int n = 0; n < 8; ++n) acc[a][n] *= rescale;
+      for (int n = 0; n < kCols; ++n) acc[a][n] *= rescale;
     }
     __syncthreads();
 
 #pragma unroll 8
-    for (int j = 0; j < kBlockK; ++j) {
+    for (int j = 0; j < kKeys; ++j) {
       const float p_a = ps[2 * ty][j];
       const float p_b = ps[2 * ty + 1][j];
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
+      for (int n = 0; n < kCols; ++n) {
         const float vv = vs[j][tx + 8 * n];
         acc[0][n] = fmaf(p_a, vv, acc[0][n]);
         acc[1][n] = fmaf(p_b, vv, acc[1][n]);
@@ -182,7 +189,7 @@ __global__ void __launch_bounds__(kF32Threads) attention_f32_kernel(
     const float inv = 1.f / row_sum[a];
     float* dst = out + base + qi * stride_l;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) dst[tx + 8 * n] = acc[a][n] * inv;
+    for (int n = 0; n < kCols; ++n) dst[tx + 8 * n] = acc[a][n] * inv;
     if (row_stats != nullptr && tx == 0) {
       const long long r = ((long long)b * H + h) * L + qi;
       row_stats[r] = row_max[a];
@@ -259,10 +266,11 @@ struct GatedBias {
   }
 };
 
-// The f32 kernel on `stream`: q, k, v and out share the strides (stride_b,
-// stride_h, stride_l) in elements, with a unit head-dim stride; row_stats:
-// [2, B, H, L] f32 or null. Returns cudaGetLastError() (0 on success).
-template <class Score>
+// The f32 kernel at head_dim kHd on `stream`: q, k, v and out share the
+// strides (stride_b, stride_h, stride_l) in elements, with a unit head-dim
+// stride; row_stats: [2, B, H, L] f32 or null. Returns cudaGetLastError() (0
+// on success).
+template <class Score, int kHd = kHeadDim>
 int launch_attention_f32(const void* q, const void* k, const void* v,
                          const typename Score::Params& params, void* out, int B, int H, int L,
                          long long stride_b, long long stride_h, long long stride_l,
@@ -270,7 +278,7 @@ int launch_attention_f32(const void* q, const void* k, const void* v,
   const long long q_tiles = (L + kBlockQ - 1) / kBlockQ;
   if (B <= 0 || H <= 0 || L <= 0 || H > 65535 || q_tiles > 65535)
     return (int)cudaErrorInvalidValue;
-  attention_f32_kernel<Score><<<dim3(B, (unsigned)q_tiles, H), kF32Threads, 0, stream>>>(
+  attention_f32_kernel<Score, kHd><<<dim3(B, (unsigned)q_tiles, H), kF32Threads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       params, static_cast<float*>(out), row_stats, B, H, L, stride_b, stride_h, stride_l);
   return (int)cudaGetLastError();

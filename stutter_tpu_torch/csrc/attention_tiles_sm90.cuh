@@ -11,7 +11,8 @@
 // kernels for the int8 probe and the softmax variants: two passes, int8
 // wgmma, a packed bf16 chain). The f32 paths keep the tiles of
 // attention_tiles.cuh. For one (clip b, head h, query row i), with q
-// pre-scaled and head_dim 64:
+// pre-scaled and a head_dim kHd of 64 (every policy) or 120 (KeyPadding
+// alone: wav2vec2 XLS-R's 1920 / 16 heads):
 //
 //     p[j]   = score(i, j, q[i] . k[j])
 //     out[i] = sum_j softmax_j(p)[j] * v[j]
@@ -134,12 +135,29 @@
 
 namespace sm90 {
 
-constexpr int kD = 64;                          // head_dim: one 128-byte swizzled row
+constexpr int kD = 64;                          // head_dim of the 64-wide kernels: one 128-byte row
 constexpr int kTileK = 64;                      // keys a ring stage (wgmma N of q . k^T)
 constexpr int kKvTileBytes = kTileK * kD * 2;   // one K or V tile
+constexpr int kPanelBytes = kTileK * 128;       // 64 columns of a tile: one swizzled panel
 constexpr int kBiasPitch = kTileK + 8;          // floats per staged bias row
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+
+// The forward tiles at head_dim kHd (64 or 120): d in 64-column panels of
+// 128-byte swizzled rows, q . k^T over whole 16-wide k-steps (past kHd, K's
+// chunks are zero-filled and q's registers zero), p . v's accumulator kHd / 2
+// floats a thread.
+template <int kHd>
+struct HeadDim {
+  static_assert(kHd == 64 || kHd == 120, "the tiles are instantiated at head_dim 64 and 120");
+  static constexpr int kPanels = (kHd + 63) / 64;
+  static constexpr int kChunks = 8 * kPanels;             // 16-byte chunks a staged row
+  static constexpr int kChunkShift = kPanels == 1 ? 3 : 4;
+  static constexpr int kSteps = (kHd + 15) / 16;          // k-steps of q . k^T
+  static constexpr int kAcc = kHd / 2;                    // output accumulators a thread
+  static constexpr int kTileBytes = kPanels * kPanelBytes;  // one K or V tile
+  static constexpr bool kWhole = kHd == 64 * kPanels;     // no zero-filled chunk
+};
 
 // L2 policy of a streamed bias's copies
 enum class L2Hint { kEvictFirst, kEvictNormal };
@@ -226,12 +244,26 @@ __device__ __forceinline__ void fence_regs(float (&x)[32]) {
   for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(x[i])::"memory");
 }
 
+__device__ __forceinline__ void fence_regs(float (&x)[60]) {
+#pragma unroll
+  for (int i = 0; i < 60; ++i) asm volatile("" : "+f"(x[i])::"memory");
+}
+
 // Shared-memory matrix descriptor of a 128-byte-swizzled tile of 128-byte
 // rows whose first row starts at `addr` (the tile base is 1024-byte
 // aligned; addr may be advanced inside it): groups of 8 rows lie 1024 bytes
 // apart (the stride offset); the leading offset is unused at these extents.
 __device__ __forceinline__ uint64_t swizzled_desc(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) | (uint64_t{1} << 16) |
+         (uint64_t{1024 >> 4} << 32) | (uint64_t{1} << 62);
+}
+
+// The same for an MN-major operand wider than one swizzle atom: its 64-column
+// panels lie kPanelBytes apart, the leading offset of an MN-major layout
+// (the atoms along N; CUTLASS's canonical ((8, 8, m), (8, k)) : ((1, 8, LBO),
+// (64, SBO)) in 16-byte units).
+__device__ __forceinline__ uint64_t swizzled_desc_panels(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) | (uint64_t{kPanelBytes >> 4} << 16) |
          (uint64_t{1024 >> 4} << 32) | (uint64_t{1} << 62);
 }
 
@@ -283,6 +315,36 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a_de
       : "memory");
 }
 
+// p . v at head_dim 120: d (+)= a . b for a 64 x 16 bf16 A in registers and
+// an MN-major 16 x 120 B in shared memory ([k][n] rows in two 64-column
+// panels, swizzled_desc_panels). accumulate 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n120k16_mn(float (&d)[60], const uint32_t (&a)[4],
+                                                    uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %65, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n120k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, "
+      "%45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59}, "
+      "{%60, %61, %62, %63}, %64, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(accumulate)
+      : "memory");
+}
+
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -294,19 +356,19 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-template <class Score, int kWgs>
+template <class Score, int kHd, int kWgs>
 __host__ __device__ constexpr int stage_bytes() {
-  return 2 * kKvTileBytes + (Score::kStreamsBias ? 64 * kWgs * kBiasPitch * 4 : 0);
+  return 2 * HeadDim<kHd>::kTileBytes + (Score::kStreamsBias ? 64 * kWgs * kBiasPitch * 4 : 0);
 }
 
 // Dynamic shared memory of a block: the ring plus the slack to align it.
-template <class Score, int kWgs, int kStages>
+template <class Score, int kHd, int kWgs, int kStages>
 __host__ __device__ constexpr int smem_bytes() {
-  return kStages * stage_bytes<Score, kWgs>() + 1024;
+  return kStages * stage_bytes<Score, kHd, kWgs>() + 1024;
 }
 
 // One block per (clip, head, tile of 64 * kWgs query rows), in kOrder
-// (GridOrder above). In a warpgroup, warp w owns rows
+// (GridOrder above), at head_dim kHd. In a warpgroup, warp w owns rows
 // 16 w .. 16 w + 15 of its 64; lane 4 * grp + tig holds rows grp and grp + 8
 // of them at columns 2 * tig, 2 * tig + 1 of each 8-wide n-tile (element
 // 4 * nt + 2 * a + j of an accumulator is row grp + 8 a, column
@@ -314,7 +376,7 @@ __host__ __device__ constexpr int smem_bytes() {
 // bias_vec: 16 when the policy's bias rows (and key row) can be copied as
 // 16-byte vectors (L % 4 == 0 and 16-byte aligned bases), else 4.
 // row_stats: [2, B, H, L] f32 to fill, or null.
-template <class Score, int kWgs, int kStages, int kMinBlocks, int kOrder>
+template <class Score, int kHd, int kWgs, int kStages, int kMinBlocks, int kOrder>
 __global__ void __launch_bounds__(128 * kWgs, kMinBlocks) attention_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const typename Score::Params params,
@@ -323,7 +385,9 @@ __global__ void __launch_bounds__(128 * kWgs, kMinBlocks) attention_bf16_kernel(
   static_assert(kStages >= 3, "a tile must be in flight while two are in use");
   constexpr int kThreads = 128 * kWgs;
   constexpr int kRows = 64 * kWgs;
-  constexpr int kStageBytes = stage_bytes<Score, kWgs>();
+  using Hd = HeadDim<kHd>;
+  constexpr int kTileBytes = Hd::kTileBytes;
+  constexpr int kStageBytes = stage_bytes<Score, kHd, kWgs>();
   static_assert(kStageBytes % 1024 == 0, "every K and V tile starts a swizzle period");
   extern __shared__ uint8_t smem_raw[];
   const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -357,11 +421,15 @@ __global__ void __launch_bounds__(128 * kWgs, kMinBlocks) attention_bf16_kernel(
 
   // Each thread's share of a tile's copies stays the same from tile to tile:
   // 16-byte chunk kv_c of K and V rows kv_r + kKvRowStep * i, to the swizzled
-  // offset kv_dst (+ 128 * kKvRowStep * i: the step keeps the row's phase).
-  constexpr int kKvRowStep = kThreads / 8;
+  // offset kv_dst in its panel (+ 128 * kKvRowStep * i: the step keeps the
+  // row's phase); a chunk past kHd is zero-filled.
+  constexpr int kKvRowStep = kThreads / Hd::kChunks;
   constexpr int kKvCopies = kTileK / kKvRowStep;
-  const int kv_r = tid >> 3, kv_c = tid & 7;
-  const uint32_t kv_dst = kv_r * 128 + ((kv_c ^ (kv_r & 7)) << 4);
+  static_assert(kTileK % kKvRowStep == 0, "the threads' rows cover a key tile exactly");
+  const int kv_r = tid >> Hd::kChunkShift, kv_c = tid & (Hd::kChunks - 1);
+  const uint32_t kv_dst =
+      (kv_c >> 3) * kPanelBytes + kv_r * 128 + (((kv_c & 7) ^ (kv_r & 7)) << 4);
+  const bool kv_col_ok = Hd::kWhole || 8 * kv_c < kHd;
   const __nv_bfloat16* k_next = k + base + kv_r * stride_l + kv_c * 8;
   const __nv_bfloat16* v_next = v + base + kv_r * stride_l + kv_c * 8;
   const long long kv_row_step = kKvRowStep * stride_l;
@@ -396,15 +464,15 @@ __global__ void __launch_bounds__(128 * kWgs, kMinBlocks) attention_bf16_kernel(
       const int k0 = load_t * kTileK;
 #pragma unroll
       for (int i = 0; i < kKvCopies; ++i) {
-        const bool ok = k0 + kv_r + kKvRowStep * i < L;
+        const bool ok = kv_col_ok && k0 + kv_r + kKvRowStep * i < L;
         const uint32_t dst = stage + kv_dst + 128 * kKvRowStep * i;
         cp_async_16(dst, ok ? k_next + i * kv_row_step : k, ok);
-        cp_async_16(dst + kKvTileBytes, ok ? v_next + i * kv_row_step : v, ok);
+        cp_async_16(dst + kTileBytes, ok ? v_next + i * kv_row_step : v, ok);
       }
       k_next += kTileK * stride_l;
       v_next += kTileK * stride_l;
       if constexpr (Score::kStreamsBias) {
-        const uint32_t bias_stage = stage + 2 * kKvTileBytes;
+        const uint32_t bias_stage = stage + 2 * kTileBytes;
         if (bias_vec == 16) {
           const bool col_ok = k0 + 4 * bias_c < L;  // L % 4 == 0: a chunk is whole or nothing
 #pragma unroll
@@ -449,17 +517,18 @@ __global__ void __launch_bounds__(128 * kWgs, kMinBlocks) attention_bf16_kernel(
 #pragma unroll
   for (int t = 0; t < kStages - 1; ++t) load_next();
 
-  // This warp's 16 query rows as the A fragments of the four 16-wide k-steps
-  // over d; rows past L are zeros.
-  uint32_t qa[4][4];
+  // This warp's 16 query rows as the A fragments of the 16-wide k-steps
+  // over d; rows past L and columns past kHd are zeros.
+  uint32_t qa[Hd::kSteps][4];
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+  for (int kk = 0; kk < Hd::kSteps; ++kk)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = rows[i & 1];
       const int col = 16 * kk + 2 * tig + 8 * (i >> 1);
-      qa[kk][i] = row < L ? *reinterpret_cast<const uint32_t*>(q + base + row * stride_l + col)
-                          : 0u;
+      qa[kk][i] = row < L && (Hd::kWhole || col < kHd)
+                      ? *reinterpret_cast<const uint32_t*>(q + base + row * stride_l + col)
+                      : 0u;
     }
 
   // Per row: the running max of the scores, that max times log2 e (what the
@@ -469,26 +538,31 @@ __global__ void __launch_bounds__(128 * kWgs, kMinBlocks) attention_bf16_kernel(
   float row_max[2] = {-CUDART_INF_F, -CUDART_INF_F};
   float row_max2[2] = {-CUDART_INF_F, -CUDART_INF_F};
   float row_sum[2] = {0.f, 0.f};
-  float o[32], s[32];
+  float o[Hd::kAcc], s[32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int i = 0; i < Hd::kAcc; ++i) o[i] = 0.f;
   uint32_t p[4][4];
 
   // s = q . k^T for the K tile of `stage`, issued and committed as one group.
   auto issue_qk = [&](int stage) {
     const uint64_t desc = swizzled_desc(ring + stage * kStageBytes);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)  // a k-step is 16 of d: 32 bytes along the rows
-      wgmma_m64n64k16<0>(s, qa[kk], desc + (32 >> 4) * kk, kk > 0);
+    for (int kk = 0; kk < Hd::kSteps; ++kk)  // a k-step is 16 of d: 32 bytes along a panel's rows
+      wgmma_m64n64k16<0>(s, qa[kk], desc + (((kk >> 2) * kPanelBytes + 32 * (kk & 3)) >> 4),
+                         kk > 0);
     wgmma_commit();
   };
 
   // o += p . v for the V tile of `stage`, issued and committed as one group.
   auto issue_pv = [&](int stage) {
-    const uint64_t desc = swizzled_desc(ring + stage * kStageBytes + kKvTileBytes);
+    const uint32_t v_tile = ring + stage * kStageBytes + kTileBytes;
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)  // a k-step is 16 keys: 16 rows of 128 bytes
-      wgmma_m64n64k16<1>(o, p[kk], desc + (2048 >> 4) * kk, 1);
+    for (int kk = 0; kk < 4; ++kk) {  // a k-step is 16 keys: 16 rows of 128 bytes
+      if constexpr (kHd == 64)
+        wgmma_m64n64k16<1>(o, p[kk], swizzled_desc(v_tile) + (2048 >> 4) * kk, 1);
+      else
+        wgmma_m64n120k16_mn(o, p[kk], swizzled_desc_panels(v_tile) + (2048 >> 4) * kk, 1);
+    }
     wgmma_commit();
   };
 
@@ -499,7 +573,7 @@ __global__ void __launch_bounds__(128 * kWgs, kMinBlocks) attention_bf16_kernel(
     const int k0 = t * kTileK;
     if constexpr (Score::kStreamsBias) {
       const float* bias_tile =
-          reinterpret_cast<const float*>(ring_ptr + stage * kStageBytes + 2 * kKvTileBytes);
+          reinterpret_cast<const float*>(ring_ptr + stage * kStageBytes + 2 * kTileBytes);
       const float* tile = bias_tile + r_lo * kBiasPitch + 2 * tig;
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
@@ -598,7 +672,7 @@ __global__ void __launch_bounds__(128 * kWgs, kMinBlocks) attention_bf16_kernel(
     // most tiles leave every row's max where it was
     if (__any_sync(0xffffffffu, rescale[0] != 1.f || rescale[1] != 1.f)) {
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
+      for (int nt = 0; nt < Hd::kAcc / 4; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) o[4 * nt + e] *= rescale[e >> 1];
     }
@@ -620,7 +694,7 @@ __global__ void __launch_bounds__(128 * kWgs, kMinBlocks) attention_bf16_kernel(
     const float inv = 1.f / row_sum[a];
     __nv_bfloat16* dst = out + base + qi * stride_l + 2 * tig;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int nt = 0; nt < Hd::kAcc / 4; ++nt)
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * nt) =
           __floats2bfloat162_rn(o[4 * nt + 2 * a] * inv, o[4 * nt + 2 * a + 1] * inv);
     if constexpr (Score::kRowStats) {
@@ -638,11 +712,11 @@ __global__ void __launch_bounds__(128 * kWgs, kMinBlocks) attention_bf16_kernel(
   }
 }
 
-// Launches the bf16 tiles on `stream`: q, k, v and out share the strides
-// (in elements; unit head-dim stride, 16-byte aligned rows); row_stats is a
+// Launches the bf16 tiles at head_dim kHd on `stream`: q, k, v and out share
+// the strides (in elements; unit head-dim stride, 16-byte aligned rows); row_stats is a
 // [2, B, H, L] f32 buffer or null. Returns the first CUDA error (0 on
 // success): a refused attribute or launch is reported, never worked around.
-template <class Score, int kWgs, int kStages, int kMinBlocks, int kOrder>
+template <class Score, int kHd, int kWgs, int kStages, int kMinBlocks, int kOrder>
 int launch_attention_bf16(const void* q, const void* k, const void* v,
                           const typename Score::Params& params, void* out, float* row_stats,
                           int B, int H, int L, int bias_vec, long long stride_b,
@@ -651,8 +725,8 @@ int launch_attention_bf16(const void* q, const void* k, const void* v,
   const long long n_q_tiles = (L + 64 * kWgs - 1) / (64 * kWgs);
   const long long blocks = n_q_tiles * B * H;
   if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-  auto kernel = attention_bf16_kernel<Score, kWgs, kStages, kMinBlocks, kOrder>;
-  constexpr int kSmem = smem_bytes<Score, kWgs, kStages>();
+  auto kernel = attention_bf16_kernel<Score, kHd, kWgs, kStages, kMinBlocks, kOrder>;
+  constexpr int kSmem = smem_bytes<Score, kHd, kWgs, kStages>();
   const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (attr != cudaSuccess) return (int)attr;

@@ -1,6 +1,7 @@
 // Flash attention with optional key padding (the Whisper encoder's
-// self-attention), and with a materialised additive bias (WavLM's escape
-// hatch for its long buckets), for Hopper (sm_90a).
+// self-attention at head_dim 64, wav2vec2 XLS-R's at head_dim 120), and with
+// a materialised additive bias (WavLM's escape hatch for its long buckets,
+// head_dim 64), for Hopper (sm_90a).
 //
 // flash_mha replaces stutter_tpu/models/attention.py:flash_mha, which wraps
 // the Pallas TPU flash attention (jax.experimental.pallas.ops.tpu.
@@ -44,6 +45,11 @@
 // the plain version writes and reads several times, never reach device
 // memory. L = 1500 is not a multiple of any tile: the ragged last query and
 // key tiles are masked in the kernel, and nothing is padded.
+// At head_dim 120 (wav2vec2 XLS-R 2B, 16 heads of 120 at L = 1008 and
+// 1504) the products per (clip, head) grow by 120 / 64 on the same softmax,
+// so the kernel is nearer the tensor cores' bound; its ring stage doubles to
+// 32 KB (K and V in two 64-column panels each), so it runs one block of two
+// warpgroups an SM (attention_tiles_sm90.cuh, "head_dim 120").
 // flash_mha_bias is bound by bytes, ab itself: at WavLM's 30 s bucket
 // (12 x 16 x 1504 x 64, bf16) it is 1.74 GB against 74 MB of q, k, v and
 // out, and the 4 L^2 d products are 0.11 ms of tensor-core time, so the
@@ -113,34 +119,48 @@ struct FullBias {
 // (122 registers), so four warpgroups' softmaxes and products interleave.
 // With the streamed ab a stage is 52 KB and four of them fill the SM's shared
 // memory: one block an SM, two key tiles of ab in flight beside the two in
-// use.
+// use. At head_dim 120 a stage is 32 KB and a thread holds 60 output
+// accumulators and eight k-steps of q: one block an SM, four stages.
 constexpr int kWarpgroups = 2;
 constexpr int kStages = 4;
 constexpr int kBlocksPerSmPlain = 2;
 constexpr int kBlocksPerSmBias = 1;
+constexpr int kBlocksPerSmWide = 1;
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q, k, v and out: [B, H, L, 64] views
-// sharing the strides (stride_b, stride_h, stride_l) in elements, with a unit
-// head-dim stride (for bf16: 16-byte aligned rows); kv_valid: [B] int32 or
-// null. Launches on `stream` and returns the first CUDA error (0 on success).
+// dtype: 0 = float32, 1 = bfloat16. q, k, v and out: [B, H, L, head_dim]
+// views (head_dim 64 or 120) sharing the strides (stride_b, stride_h,
+// stride_l) in elements, with a unit head-dim stride (for bf16: 16-byte
+// aligned rows); kv_valid: [B] int32 or null. Launches on `stream` and
+// returns the first CUDA error (0 on success).
 extern "C" int flash_mha(const void* q, const void* k, const void* v, const void* kv_valid,
-                         void* out, int B, int H, int L, long long stride_b,
+                         void* out, int B, int H, int L, int head_dim, long long stride_b,
                          long long stride_h, long long stride_l, int dtype, void* stream) {
   const KeyPadding::Params params{static_cast<const int*>(kv_valid)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_attention_f32<KeyPadding>(q, k, v, params, out, B, H, L, stride_b, stride_h,
-                                            stride_l, s);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  return sm90::launch_attention_bf16<KeyPadding, kWarpgroups, kStages, kBlocksPerSmPlain,
-                                     sm90::kQueryTileFastest>(
-      q, k, v, params, out, nullptr, B, H, L, 0, stride_b, stride_h, stride_l, s);
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (head_dim == sm90::kD) {
+    if (dtype == 0)
+      return launch_attention_f32<KeyPadding>(q, k, v, params, out, B, H, L, stride_b,
+                                              stride_h, stride_l, s);
+    return sm90::launch_attention_bf16<KeyPadding, sm90::kD, kWarpgroups, kStages,
+                                       kBlocksPerSmPlain, sm90::kQueryTileFastest>(
+        q, k, v, params, out, nullptr, B, H, L, 0, stride_b, stride_h, stride_l, s);
+  }
+  if (head_dim == 120) {
+    if (dtype == 0)
+      return launch_attention_f32<KeyPadding, 120>(q, k, v, params, out, B, H, L, stride_b,
+                                                   stride_h, stride_l, s);
+    return sm90::launch_attention_bf16<KeyPadding, 120, kWarpgroups, kStages, kBlocksPerSmWide,
+                                       sm90::kQueryTileFastest>(
+        q, k, v, params, out, nullptr, B, H, L, 0, stride_b, stride_h, stride_l, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
-// flash_mha's layout and dtypes, with ab a contiguous [B, H, L, L] f32
-// additive bias in place of kv_valid. ab_vec: 16 when ab's rows may be
+// flash_mha's layout and dtypes at head_dim 64, with ab a contiguous
+// [B, H, L, L] f32 additive bias in place of kv_valid. ab_vec: 16 when ab's rows may be
 // copied as 16-byte vectors (L % 4 == 0 and ab 16-byte aligned), else 4;
 // read by the bf16 path only.
 extern "C" int flash_mha_bias(const void* q, const void* k, const void* v, const void* ab,
@@ -155,7 +175,7 @@ extern "C" int flash_mha_bias(const void* q, const void* k, const void* v, const
   if (dtype != 1 || (ab_vec != 16 && ab_vec != 4)) return (int)cudaErrorInvalidValue;
   if (ab_vec == 16 && (L % 4 != 0 || reinterpret_cast<uintptr_t>(ab) % 16 != 0))
     return (int)cudaErrorMisalignedAddress;
-  return sm90::launch_attention_bf16<FullBias, kWarpgroups, kStages, kBlocksPerSmBias,
-                                     sm90::kQueryTileFastest>(
+  return sm90::launch_attention_bf16<FullBias, sm90::kD, kWarpgroups, kStages,
+                                     kBlocksPerSmBias, sm90::kQueryTileFastest>(
       q, k, v, params, out, nullptr, B, H, L, ab_vec, stride_b, stride_h, stride_l, s);
 }

@@ -87,7 +87,8 @@ template <int kOrder>
 int launch_bf16(const void* q, const void* k, const void* v, const GatedBias::Params& params,
                 void* out, float* row_stats, int B, int H, int L, int bias_vec,
                 long long stride_b, long long stride_h, long long stride_l, cudaStream_t s) {
-  return sm90::launch_attention_bf16<GatedBiasRing, kWarpgroups, kStages, kBlocksPerSm, kOrder>(
+  return sm90::launch_attention_bf16<GatedBiasRing, sm90::kD, kWarpgroups, kStages,
+                                     kBlocksPerSm, kOrder>(
       q, k, v, params, out, row_stats, B, H, L, bias_vec, stride_b, stride_h, stride_l, s);
 }
 

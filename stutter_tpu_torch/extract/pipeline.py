@@ -1,8 +1,10 @@
-"""Batched, resumable WavLM and Whisper embedding extraction on one or many devices.
+"""Batched, resumable WavLM, wav2vec2 and Whisper embedding extraction on one or many devices.
 
 Counterpart of ``stutter_tpu/extract/pipeline.py``: the split loop feeds
-length-bucketed batches through ``WavLMExtractor`` or ``WhisperExtractor``
-and writes the reference's .npy+CSV store with checkpoint/resume. ``submit``
+length-bucketed batches through ``WavLMExtractor``, ``Wav2Vec2Extractor``
+(wav2vec 2.0 / XLS-R, which the JAX package lacks; one device) or
+``WhisperExtractor`` and writes the reference's .npy+CSV store with
+checkpoint/resume. ``submit``
 enqueues a batch's device work and the copy of its pooled result on the
 current CUDA stream without waiting for either, and ``collect`` waits for
 that copy alone, so the pipeline keeps one batch in flight while it stores
@@ -32,7 +34,8 @@ rank's rows to rank 0.
 Spans (``utils.profiling.span``): ``extract.submit`` with its children
 ``extract.pin`` (the bf16 presets' int16 encoding of the batch on the host,
 then its pinned host-to-device copies) and ``extract.encode`` (the model's
-enqueue); ``extract.collect_wait`` (the host's wait for a batch's result);
+enqueue; its attrs name the model ``family`` and its attention's
+``head_dim``); ``extract.collect_wait`` (the host's wait for a batch's result);
 ``extract.rows`` (a batch's rows built for the store); ``extract.checkpoint``
 and ``extract.store`` (in ``checkpoint.py`` and ``store.py``).
 """
@@ -62,6 +65,7 @@ from stutter_tpu_torch.extract.checkpoint import (
 from stutter_tpu_torch.extract.store import save_embeddings
 from stutter_tpu_torch.frontend.wavlm_frontend import wavlm_prepare_batch
 from stutter_tpu_torch.frontend.whisper_frontend import whisper_features
+from stutter_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Model
 from stutter_tpu_torch.models.wavlm import (
     LONG_ATTENTION_MIN_L,
     WavLMModel,
@@ -69,6 +73,7 @@ from stutter_tpu_torch.models.wavlm import (
     wavlm_feature_lengths,
 )
 from stutter_tpu_torch.models.whisper import WhisperModel
+from stutter_tpu_torch.ops._attention import HEAD_DIMS
 from stutter_tpu_torch.ops.logmel import WHISPER_HOP
 from stutter_tpu_torch.ops.precision import no_tf32
 from stutter_tpu_torch.ops.quant import (
@@ -147,13 +152,15 @@ def resolve_device(device: torch.device | str) -> torch.device:
 class _Extractor:
     """What both extractors share: the device, the preset's cast (and turbo's
     quantization) of the float32 model, and the batch loop's
-    submit/collect/warmup. A subclass sets ``column_names`` (the order of
+    submit/collect/warmup. A subclass sets ``family`` (its model's, for the
+    ``extract.encode`` span) and ``column_names`` (the order of
     ``_forward``'s [S, B, D] result) and defines ``_inputs`` and
     ``_forward``. Under a
     ``plan`` the model is cut to the rank's tensor-parallel share after the
     cast (turbo quantizes the whole weights first, as the JAX package does),
     and a batch is this rank's rows of the global batch."""
 
+    family: str
     column_names: list[str]
 
     def __init__(self, model, device: torch.device | str, preset: str,
@@ -205,7 +212,7 @@ class _Extractor:
                 if self._transfer_i16:
                     waves, scale = encode_waves_i16(waves)
                 inputs = self._inputs(waves, scale, batch.lengths)
-            with span("extract.encode"):
+            with span("extract.encode", family=self.family, head_dim=self.cfg.head_dim):
                 pooled = self._forward(*inputs)
             if self.device.type != "cuda":
                 return pooled, None
@@ -255,6 +262,7 @@ class WavLMExtractor(_Extractor):
     frames up, in bf16."""
 
     LONG_ATTENTION = ("gated", "materialized_bias")
+    family = "wavlm"
 
     def __init__(self, model: WavLMModel, device: torch.device | str,
                  layer_indices: Sequence[int] | None = None, preset: str = "fidelity",
@@ -292,6 +300,38 @@ class WavLMExtractor(_Extractor):
                                      attention_fn=self.attention_fn)
 
 
+class Wav2Vec2Extractor(WavLMExtractor):
+    """Layer-selected mean-pooled wav2vec 2.0 (XLS-R) embeddings, as
+    ``WavLMExtractor`` gives WavLM's: the same frontend norm, frame-aligned
+    buckets (so the fused stem runs), default layers, presets (turbo: int8
+    q, k, v, o and FFN weights), store columns and forward; attention through
+    ``flash_mha`` with each clip's key count. ``model`` is a float32
+    ``Wav2Vec2Model``. One device: a ``plan`` of more than one rank raises,
+    and so does a card with heads the tiles are not built at
+    (``check_device``)."""
+
+    family = "wav2vec2"
+
+    def __init__(self, model: Wav2Vec2Model, device: torch.device | str,
+                 layer_indices: Sequence[int] | None = None, preset: str = "fidelity",
+                 plan: MeshPlan | None = None):
+        if plan is not None and plan.world_size > 1:
+            raise NotImplementedError("wav2vec2 extraction runs on one device; "
+                                      f"got a plan of {plan.world_size} ranks")
+        self.check_device(model.cfg, device)
+        super().__init__(model, device, layer_indices, preset)
+
+    @staticmethod
+    def check_device(cfg: Wav2Vec2Config, device: torch.device | str) -> None:
+        """Raise ValueError where ``device`` is a card and ``cfg``'s heads
+        are not a width the attention tiles are built at (``HEAD_DIMS``):
+        callers check before they load weights."""
+        if torch.device(device).type == "cuda" and cfg.head_dim not in HEAD_DIMS:
+            widths = " or ".join(map(str, HEAD_DIMS))
+            raise ValueError(f"heads of {cfg.head_dim}: the attention kernel is built at "
+                             f"head_dim {widths}")
+
+
 class WhisperExtractor(_Extractor):
     """Whisper encoder mean-pooled and decoder single-token embeddings.
 
@@ -302,6 +342,7 @@ class WhisperExtractor(_Extractor):
     it for ``preset`` (fast: the whole tree in bf16, embeddings included)."""
 
     preferred_buckets = (30.0,)
+    family = "whisper"
 
     def __init__(self, model: WhisperModel, device: torch.device | str,
                  encoder_indices: Sequence[int] | None = None,

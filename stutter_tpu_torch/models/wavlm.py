@@ -284,6 +284,26 @@ class ConvFeatureEncoder(nn.Module):
             self._packed = (signature, pack_stem_weights(self.layers))
         return self._packed[1]
 
+    def fused(self, waveform: torch.Tensor,
+              sample_lengths: torch.Tensor | None = None) -> torch.Tensor | None:
+        """The frames of ``ops.wavlm_stem.wavlm_fused_stem`` where it applies
+        exactly (bf16 weights and ``fused_stem_applicable``) and can run
+        (``fused_stem_supported``), zeroed past each clip's frames; None
+        elsewhere, where the caller runs the plain stem."""
+        cfg = self.cfg
+        if not (self.layers[0].weight.dtype == torch.bfloat16
+                and fused_stem_applicable(cfg, waveform.shape[1], self.layers)
+                and fused_stem_supported(cfg, waveform.device)):
+            return None
+        feats = wavlm_fused_stem(waveform, *self.packed())
+        if sample_lengths is not None:
+            # the kernel's frames are unmasked; for the per-frame layer-norm
+            # stem, end-masking equals the per-layer masking
+            fl = wavlm_feature_lengths(cfg, sample_lengths)
+            feats = feats * (torch.arange(feats.shape[1], device=feats.device)[None, :]
+                             < fl[:, None])[:, :, None].to(feats.dtype)
+        return feats
+
     def forward(self, waveform: torch.Tensor, sample_lengths: torch.Tensor | None = None,
                 ) -> torch.Tensor:
         cfg = self.cfg
@@ -528,17 +548,8 @@ class WavLMModel(nn.Module):
             return getattr(self, name) if params is None else params[name]
 
         stem = self.feature_encoder
-        if (use_fused_stem and stem.layers[0].weight.dtype == torch.bfloat16
-                and fused_stem_applicable(cfg, waveform.shape[1], stem.layers)
-                and fused_stem_supported(cfg, waveform.device)):
-            feats = wavlm_fused_stem(waveform, *stem.packed())
-            if sample_lengths is not None:
-                # the kernel's frames are unmasked; for the per-frame
-                # layer-norm stem, end-masking equals the per-layer masking
-                fl = wavlm_feature_lengths(cfg, sample_lengths)
-                feats = feats * (torch.arange(feats.shape[1], device=feats.device)[None, :]
-                                 < fl[:, None])[:, :, None].to(feats.dtype)
-        else:
+        feats = stem.fused(waveform, sample_lengths) if use_fused_stem else None
+        if feats is None:
             with torch.no_grad() if stop_stem_gradient else contextlib.nullcontext():
                 feats = call(stem, "feature_encoder.", waveform, sample_lengths)
         hidden = call(self.feature_projection, "feature_projection.", feats)

@@ -36,7 +36,7 @@ SIGNATURES = {
         [_p] * 8 + [_i] * 5 + [_ll, _ll, _ll, _i, _p], _i),
     "wavlm_gated_relpos_attention_bwd": (
         [_p] * 16 + [_i] * 6 + [_ll, _ll, _ll, _i, _p], _i),
-    "flash_mha": ([_p, _p, _p, _p, _p, _i, _i, _i, _ll, _ll, _ll, _i, _p], _i),
+    "flash_mha": ([_p, _p, _p, _p, _p, _i, _i, _i, _i, _ll, _ll, _ll, _i, _p], _i),
     "flash_mha_bias": ([_p, _p, _p, _p, _p, _i, _i, _i, _i, _ll, _ll, _ll, _i, _p], _i),
     "whisper_log_mel": ([_p] * 7 + [_i, _i, _p], _i),
     "wavlm_fused_stem": ([_p, _p, _p, _p, _p, _p, _i, _i, _p], _i),

@@ -41,12 +41,13 @@ from __future__ import annotations
 
 import torch
 
+from stutter_tpu_torch.ops import _attention
 from stutter_tpu_torch.ops._attention import (
     BF16_TILES,  # noqa: F401  (what device_path returns)
     DTYPE_CODES,
     F32_TILES,  # noqa: F401
+    HEAD_DIM,
     check_qkv,
-    device_path,
     empty_like_q,
     vector_bytes,
 )
@@ -117,6 +118,12 @@ def gated_relpos_attention_backward_reference(q, k, v, position_bias, gate,
     dgate = (dp * position_bias.to(ct)[None]).sum(dim=-1)
     dbias = (gate.to(ct)[..., None] * dp).sum(dim=0)
     return dq, dk, dv, dbias, dgate
+
+
+def device_path(q, k, v) -> str:
+    """Which tiles these inputs launch (``_attention.device_path``); the
+    gated kernels are built at head_dim 64 alone."""
+    return _attention.device_path(q, k, v, (HEAD_DIM,))
 
 
 def _check(q, k, v, position_bias, gate, key_mask_bias) -> None:
@@ -279,7 +286,7 @@ def gated_relpos_attention_backward(q, k, v, position_bias, gate, key_mask_bias,
     if do.dtype != q.dtype or do.stride() != q.stride():
         do = empty_like_q(q)
         do.copy_(grad_out)
-    check_qkv(q, do, v)  # the kernels read do with q's strides and alignment
+    check_qkv(q, do, v, (HEAD_DIM,))  # the kernels read do with q's strides and alignment
     B, H, L, _ = q.shape
     grads = launch_backward(q, k, v, position_bias, gate, key_mask_bias, out, do, row_stats,
                             grid_order_for(H, L), clip_groups_for(B, H, L))

@@ -14,7 +14,7 @@ one entry per layer, and dense weights go from JAX's [in, out] to PyTorch's
 (with ``wavlm_params_to_numpy``) is its inverse, for saving a fine-tuned model
 keyed by the JAX tree's paths.
 
-``init_wavlm`` and ``init_whisper`` build a model with a seeded random init
+``init_wavlm``, ``init_wav2vec2`` and ``init_whisper`` build a model with a seeded random init
 drawn like the JAX package's (normal * fan_in^-0.5 weights, zero biases, unit
 norm scales), from a ``torch.Generator`` on the CPU so that the same seed
 gives the same weights on every device.
@@ -24,11 +24,14 @@ gives the same weights on every device.
 shards, and for WavLM ``preprocessor_config.json``) into a float32 model,
 as the JAX package's loaders of the same names do, without ``transformers``:
 ``read_safetensors`` parses the files by hand where the ``safetensors``
-package is missing. ``convert_wavlm_state_dict`` and
-``convert_whisper_state_dict`` map an HF state dict onto the port's: dense
-weights stay [out, in], the positional conv's weight norm is folded in
-float64, and every HF key must be used exactly once. They never download: a
-name that is not a local directory raises ``OSError``.
+package is missing. ``load_wav2vec2`` does the same for wav2vec 2.0 / XLS-R
+(``Wav2Vec2Model``, ``Wav2Vec2ForPreTraining`` or a task model's backbone),
+which the JAX package lacks. ``convert_wavlm_state_dict``,
+``convert_wav2vec2_state_dict`` and ``convert_whisper_state_dict`` map an HF
+state dict onto the port's: dense weights stay [out, in], the positional
+conv's weight norm is folded in float64, and every HF key of the backbone
+must be used exactly once. They never download: a name that is not a local
+directory raises ``OSError``.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from stutter_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Model
 from stutter_tpu_torch.models.wavlm import WavLMConfig, WavLMModel
 from stutter_tpu_torch.models.whisper import WhisperConfig, WhisperModel, sinusoids
 
@@ -279,7 +283,18 @@ def whisper_params_from_numpy(tree: Any, cfg: WhisperConfig) -> dict[str, torch.
 def init_wavlm(cfg: WavLMConfig, generator: torch.Generator,
                device: torch.device | str | None = None) -> WavLMModel:
     """A float32 ``WavLMModel`` on ``device`` with a seeded random init."""
-    model = WavLMModel(cfg, device="meta")
+    return _seeded_init(WavLMModel, cfg, generator, device)
+
+
+def init_wav2vec2(cfg: Wav2Vec2Config, generator: torch.Generator,
+                  device: torch.device | str | None = None) -> Wav2Vec2Model:
+    """A float32 ``Wav2Vec2Model`` on ``device`` with ``init_wavlm``'s
+    seeded random init."""
+    return _seeded_init(Wav2Vec2Model, cfg, generator, device)
+
+
+def _seeded_init(model_cls, cfg, generator: torch.Generator, device):
+    model = model_cls(cfg, device="meta")
 
     def normal(shape, std):
         return torch.randn(shape, generator=generator) * std
@@ -299,7 +314,7 @@ def init_wavlm(cfg: WavLMConfig, generator: torch.Generator,
             state[name] = normal(shape, shape[1] ** -0.5)
         else:  # biases and norm shifts
             state[name] = torch.zeros(shape)
-    model = WavLMModel(cfg, device=device)
+    model = model_cls(cfg, device=device)
     model.load_state_dict(state, strict=True)
     return model
 
@@ -455,6 +470,35 @@ def wavlm_config_from_hf(hf: Mapping) -> WavLMConfig:
     )
 
 
+def wav2vec2_config_from_hf(hf: Mapping) -> Wav2Vec2Config:
+    """``Wav2Vec2Config`` from an HF ``config.json`` (as a dict). Raises
+    ``ValueError`` for what the port does not compute: an activation other
+    than GELU, an adapter, a convolutional relative position embedding or
+    the post-LN layers of the base models (HF's default)."""
+    for key in ("hidden_act", "feat_extract_activation"):
+        if hf.get(key, "gelu") != "gelu":
+            raise ValueError(f"{key} is {hf[key]!r}; the port computes GELU only")
+    if hf.get("add_adapter") or hf.get("position_embeddings_type", "relative") != "relative":
+        raise ValueError("adapters and other position embeddings are not ported")
+    if not hf.get("do_stable_layer_norm", False):
+        raise ValueError("post-LN layers (do_stable_layer_norm false) are not ported; "
+                         "the port runs the stable pre-LN layers of XLS-R and the large models")
+    return Wav2Vec2Config(
+        hidden_size=hf["hidden_size"],
+        num_hidden_layers=hf["num_hidden_layers"],
+        num_attention_heads=hf["num_attention_heads"],
+        intermediate_size=hf["intermediate_size"],
+        conv_dim=tuple(hf["conv_dim"]),
+        conv_stride=tuple(hf["conv_stride"]),
+        conv_kernel=tuple(hf["conv_kernel"]),
+        conv_bias=hf["conv_bias"],
+        feat_extract_norm=hf["feat_extract_norm"],
+        num_conv_pos_embeddings=hf["num_conv_pos_embeddings"],
+        num_conv_pos_embedding_groups=hf["num_conv_pos_embedding_groups"],
+        layer_norm_eps=hf["layer_norm_eps"],
+    )
+
+
 def whisper_config_from_hf(hf: Mapping) -> WhisperConfig:
     """``WhisperConfig`` from an HF ``config.json`` (as a dict)."""
     return WhisperConfig(
@@ -511,6 +555,21 @@ def convert_wavlm_state_dict(sd: Mapping[str, np.ndarray],
     zero one: extraction never reads it."""
     take = _Leaves(_backbone(sd, "wavlm."))
     state: dict[str, torch.Tensor] = {}
+    _convert_stem(take, cfg, state)
+    state["rel_attn_embed"] = take("encoder.layers.0.attention.rel_attn_embed.weight")
+    for layer in range(cfg.num_hidden_layers):
+        src = f"encoder.layers.{layer}"
+        for name, hf_name in _HF_WAVLM_LAYER.items():
+            state[f"layers.{layer}.{name}"] = take(f"{src}.{hf_name}")
+        state[f"layers.{layer}.attention.gru_const"] = take(
+            f"{src}.attention.gru_rel_pos_const").reshape(-1)
+    take.check_all_used()
+    return state
+
+
+def _convert_stem(take: _Leaves, cfg, state: dict[str, torch.Tensor]) -> None:
+    """The conv stem and the feature projection, which WavLM and wav2vec2
+    checkpoints name alike."""
     for i in range(len(cfg.conv_dim)):
         src, dst = f"feature_extractor.conv_layers.{i}", f"feature_encoder.layers.{i}"
         state[f"{dst}.weight"] = take(f"{src}.conv.weight")
@@ -527,18 +586,28 @@ def convert_wavlm_state_dict(sd: Mapping[str, np.ndarray],
     state["pos_conv.bias"] = take("encoder.pos_conv_embed.conv.bias")
     state["ln_scale"] = take("encoder.layer_norm.weight")
     state["ln_bias"] = take("encoder.layer_norm.bias")
-    state["rel_attn_embed"] = take("encoder.layers.0.attention.rel_attn_embed.weight")
     if "masked_spec_embed" in take.leaves:
         state["masked_spec_embed"] = take("masked_spec_embed")
     else:
         logger.info("the checkpoint has no masked_spec_embed: using zeros")
         state["masked_spec_embed"] = torch.zeros(cfg.hidden_size)
+
+
+def convert_wav2vec2_state_dict(sd: Mapping[str, np.ndarray],
+                                cfg: Wav2Vec2Config) -> dict[str, torch.Tensor]:
+    """HF ``Wav2Vec2Model`` state dict (numpy values; a pre-training or
+    task model's with its ``wav2vec2.`` prefix, whose quantizer, projections
+    and head are dropped) -> ``Wav2Vec2Model``'s. Raises KeyError for a
+    missing entry and ValueError for one left over, naming it. A checkpoint
+    without ``masked_spec_embed`` gets a zero one: extraction never reads it."""
+    take = _Leaves(_backbone(sd, "wav2vec2."))
+    state: dict[str, torch.Tensor] = {}
+    _convert_stem(take, cfg, state)
     for layer in range(cfg.num_hidden_layers):
         src = f"encoder.layers.{layer}"
         for name, hf_name in _HF_WAVLM_LAYER.items():
-            state[f"layers.{layer}.{name}"] = take(f"{src}.{hf_name}")
-        state[f"layers.{layer}.attention.gru_const"] = take(
-            f"{src}.attention.gru_rel_pos_const").reshape(-1)
+            if not name.startswith("attention.gru"):
+                state[f"layers.{layer}.{name}"] = take(f"{src}.{hf_name}")
     take.check_all_used()
     return state
 
@@ -618,6 +687,39 @@ def load_wavlm(path: str) -> tuple[WavLMConfig, WavLMModel]:
     logger.info("converted WavLM %s: %d layers, hidden %d", path, cfg.num_hidden_layers,
                 cfg.hidden_size)
     return cfg, _model_from_state(WavLMModel, cfg, state)
+
+
+def _wav2vec2_do_normalize(path: str, cfg: Wav2Vec2Config) -> bool:
+    """``do_normalize`` of the checkpoint's ``preprocessor_config.json``;
+    without one, whether the stem is the layer-norm one (XLS-R and the large
+    models were trained on normalised waves, the group-norm base models
+    not), with a warning."""
+    pp = os.path.join(path, "preprocessor_config.json")
+    if os.path.isfile(pp):
+        return bool(_read_json(pp).get("do_normalize", True))
+    do_norm = cfg.feat_extract_norm == "layer"
+    logger.warning("no preprocessor config found; inferring do_normalize=%s from the "
+                   "stem's norm (%s)", do_norm, cfg.feat_extract_norm)
+    return do_norm
+
+
+def wav2vec2_config(path: str) -> Wav2Vec2Config:
+    """The ``Wav2Vec2Config`` of a local HF checkpoint directory, its
+    frontend norm included, without reading the weights."""
+    path = _local_dir(path)
+    cfg = wav2vec2_config_from_hf(_read_json(os.path.join(path, "config.json")))
+    return dataclasses.replace(cfg, do_normalize=_wav2vec2_do_normalize(path, cfg))
+
+
+def load_wav2vec2(path: str) -> tuple[Wav2Vec2Config, Wav2Vec2Model]:
+    """A local HF wav2vec 2.0 / XLS-R checkpoint directory -> (config,
+    float32 ``Wav2Vec2Model`` on the CPU). Any other name raises
+    ``OSError``: this package never downloads."""
+    cfg = wav2vec2_config(path)
+    state = convert_wav2vec2_state_dict(_load_state_dict_from_dir(path), cfg)
+    logger.info("converted wav2vec2 %s: %d layers, hidden %d", path, cfg.num_hidden_layers,
+                cfg.hidden_size)
+    return cfg, _model_from_state(Wav2Vec2Model, cfg, state)
 
 
 def load_whisper(path: str) -> tuple[WhisperConfig, WhisperModel]:
