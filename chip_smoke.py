@@ -40,8 +40,8 @@ Phases, one line each on stdout ([time] lines give each phase's seconds):
    version at 16 x 20 x 1500 x 64 in bf16 and f32, with key padding and at a
    ragged length; scaled_dot_product_attention timed beside it; and what
    ptxas said of the bf16 wgmma kernels, every instantiation of the
-   forward tiles, of the backward and of the stem's conv layers (registers,
-   spills, serialised wgmma);
+   forward tiles, of the backward, of the stem's conv layers and of the
+   positional conv (registers, spills, serialised wgmma);
 5a. mha_bias: the materialised-bias flash kernel (WavLM's escape hatch)
    against its plain version at 12 x 16 x 1504 x 64 and 19 x 16 x 1008 x 64
    in bf16 with keys masked, and f32 at a ragged length;
@@ -74,6 +74,12 @@ Phases, one line each on stdout ([time] lines give each phase's seconds):
    frames, and untimed at one clip, a one-frame clip (T = 400), an
    unaligned length and 1 s clips, whose last layers leave a CTA of a
    cluster with no rows;
+5d'. pos_conv: the positional conv kernel (hidden + the grouped conv's
+   embedding in one launch) against its plain version, an f32 reference and
+   the cuDNN path it replaced, at WavLM-Large's 3, 20 and 30 s buckets and
+   XLS-R 2B's 20 and 30 s ones (timed per launch and 8 queued, with the
+   bound), and untimed at the edges of its 256-frame tiles and 64-row
+   sub-tiles (L = 1 ... 257) with clips' tails zeroed at odd counts;
 5e. decode: the host audio runtime (audio/csrc/wavio.cpp, ffdecode.cpp,
    built with g++ into build/): its build seconds, whether libav was found,
    os.cpu_count(); the native parser bit-equal to the numpy plain version on
@@ -620,6 +626,7 @@ def kernel_wrappers() -> dict:
     from stutter_tpu_torch.ops.attn_probes import int8_attention_long, softmax_variant_attention
     from stutter_tpu_torch.ops.flash_mha import flash_mha, flash_mha_bias
     from stutter_tpu_torch.ops.logmel import whisper_log_mel
+    from stutter_tpu_torch.ops.pos_conv import pos_conv_residual
     from stutter_tpu_torch.ops.wavlm_attention import (
         gated_relpos_attention,
         gated_relpos_attention_backward,
@@ -629,7 +636,8 @@ def kernel_wrappers() -> dict:
     return {"gated_relpos_attention": gated_relpos_attention,
             "gated_relpos_attention_bwd": gated_relpos_attention_backward,
             "flash_mha": flash_mha, "whisper_log_mel": whisper_log_mel,
-            "wavlm_fused_stem": wavlm_fused_stem, "flash_mha_bias": flash_mha_bias,
+            "wavlm_fused_stem": wavlm_fused_stem, "pos_conv_residual": pos_conv_residual,
+            "flash_mha_bias": flash_mha_bias,
             "attn_int8": int8_attention_long, "attn_softmax_variants": softmax_variant_attention}
 
 
@@ -676,6 +684,19 @@ def check_resume(torch, pipe, extractor, meta, out: Path, results) -> None:
     say("resume", skipped_rows=skipped, extracted_rows=len(seen["paths"]))
 
 
+def check_wavlm_kernels(what: str, counts: dict, batches: int, on_card: bool) -> None:
+    """A bf16 WavLM run's kernels beside the gated attention: the positional
+    conv once a batch, the fused stem at most once (frame-aligned buckets
+    take it), and no other kernel."""
+    check(counts["pos_conv_residual"] == batches * on_card,
+          f"{what}: {counts['pos_conv_residual']} positional conv calls for {batches} batches")
+    check(counts["wavlm_fused_stem"] <= batches * on_card,
+          f"{what}: {counts['wavlm_fused_stem']} fused stem calls for {batches} batches")
+    check(not any(v for k, v in counts.items() if k not in (
+        "gated_relpos_attention", "pos_conv_residual", "wavlm_fused_stem")),
+          f"{what}: other kernels launched: {counts}")
+
+
 def phase_slice(torch, extractor, work: Path, phase: str = "slice") -> dict:
     """The WavLM slice through ExtractionPipeline.run and a resumed run;
     returns the kernels' launch counts and the batches."""
@@ -707,6 +728,9 @@ def phase_slice(torch, extractor, work: Path, phase: str = "slice") -> dict:
     # fused stem call a batch
     check(counts["wavlm_fused_stem"] == seen["batches"],
           f"{counts['wavlm_fused_stem']} fused stem calls for {seen['batches']} batches")
+    # bf16 on the card, 128 taps, 64 channels a group: one positional conv call a batch
+    check(counts["pos_conv_residual"] == seen["batches"],
+          f"{counts['pos_conv_residual']} positional conv calls for {seen['batches']} batches")
     check(counts["flash_mha_bias"] == 0, "the pipeline took the long-bucket hatch (off by default)")
     # turbo: the six projections of each layer; turbo_ffn: the FFN's two
     int8 = INT8_GEMMS_A_LAYER["wavlm"].get(extractor.preset, 0) * cfg.num_hidden_layers \
@@ -1236,6 +1260,7 @@ BWD_TILE_KERNELS = {"dq<0>", "dq<1>", "dkv<0>", "dkv<1>", "dbias"}
 # the stem's wgmma conv kernels, by taps
 STEM_TILE_KERNELS = {"conv<3>", "conv<2>"}
 # the probes' kernels: the int8 prologue and main kernel, the four variants
+POS_CONV_KERNELS = {"pos_conv<64>", "pos_conv<120>"}
 PROBE_KERNELS = {"quantize_kv", "attn_int8", "softmax_variant<0, 0>", "softmax_variant<1, 0>",
                  "softmax_variant<0, 1>", "softmax_variant<1, 1>"}
 
@@ -1281,9 +1306,11 @@ def phase_bwd_edges(torch, attn) -> float:
 def phase_tile_resources(build) -> None:
     """What ptxas said of the bf16 wgmma kernels at the build, every
     instantiation of the forward tiles, of the backward, of the stem's conv
-    layers and of the probes: no spill, no stack, no serialised wgmma; and,
+    layers, of the positional conv and of the probes: no spill, no stack, no serialised wgmma; and,
     from the SASS, that the probes' main kernels issue wgmma and no
     mma.sync."""
+    import re
+
     from stutter_tpu_torch.cli.flash_tiles_ab import (
         bwd_tile_kernels,
         probe_kernel_rows,
@@ -1304,6 +1331,15 @@ def phase_tile_resources(build) -> None:
     found = {row["tiles"] for row in stem_rows}
     check(len(stem_rows) == len(STEM_TILE_KERNELS) and found == STEM_TILE_KERNELS,
           f"expected the stem's kernels {sorted(STEM_TILE_KERNELS)}, found {sorted(found)}")
+    pos_conv_rows = []
+    for row in build.resource_report("pos_conv_kernel"):
+        m = re.search(r"pos_conv_kernelILi(\d+)EE", row["kernel"])
+        if m:
+            pos_conv_rows.append(dict(row, tiles=f"pos_conv<{m.group(1)}>"))
+    found = {row["tiles"] for row in pos_conv_rows}
+    check(len(pos_conv_rows) == len(POS_CONV_KERNELS) and found == POS_CONV_KERNELS,
+          f"expected the positional conv's kernels {sorted(POS_CONV_KERNELS)}, found "
+          f"{sorted(found)}")
     probe_rows = probe_kernel_rows(build)
     found = {row["tiles"] for row in probe_rows}
     check(len(probe_rows) == len(PROBE_KERNELS) and found == PROBE_KERNELS,
@@ -1311,6 +1347,7 @@ def phase_tile_resources(build) -> None:
     named = ([(f"attention_bf16_kernel<{row['tiles']}>", row) for row in rows]
              + [(f"bwd_{row['tiles']}", row) for row in bwd_rows]
              + [(f"stem_{row['tiles']}", row) for row in stem_rows]
+             + [(row["tiles"], row) for row in pos_conv_rows]
              + [(f"probe_{row['tiles']}", row) for row in probe_rows])
     for name, row in named:
         say("ptxas", kernel=name,
@@ -1580,9 +1617,11 @@ def phase_long_slice(torch, extractor, work: Path) -> dict:
         hatch = n_layers * long_batches if mode == "materialized_bias" else 0
         check(sorted(lengths) == [160, 1008, 1504], f"{mode}: batches of L = {lengths}")
         check(counts["flash_mha_bias"] == hatch
-              and counts["gated_relpos_attention"] == n_layers * len(lengths) - hatch,
+              and counts["gated_relpos_attention"] == n_layers * len(lengths) - hatch
+              and counts["pos_conv_residual"] == len(lengths),
               f"{mode}: launches {counts}, expected flash_mha_bias {hatch} and "
-              f"gated_relpos_attention {n_layers * len(lengths) - hatch}")
+              f"gated_relpos_attention {n_layers * len(lengths) - hatch} and pos_conv_residual "
+              f"{len(lengths)}")
         for split, n in sizes.items():
             check(len(results[split]) == n, f"{mode} {split}: {len(results[split])} rows")
             for layer in layers:
@@ -1692,7 +1731,8 @@ def phase_whisper_slice(torch, extractor, work: Path, phase: str = "whisper_slic
     check(counts["flash_mha"] == cfg.encoder_layers * batches,
           f"flash_mha launched {counts['flash_mha']} times for {batches} batches")
     check(counts["gated_relpos_attention"] == counts["gated_relpos_attention_bwd"]
-          == counts["wavlm_fused_stem"] == 0, "the Whisper path launched WavLM's kernels")
+          == counts["wavlm_fused_stem"] == counts["pos_conv_residual"] == 0,
+          "the Whisper path launched WavLM's kernels")
     # turbo: q, k, v, fc1, fc2 of each encoder layer; turbo_ffn: fc1, fc2; attn_o
     # and the decoder stay bf16
     int8 = INT8_GEMMS_A_LAYER["whisper"].get(extractor.preset, 0) * cfg.encoder_layers * batches
@@ -2541,8 +2581,7 @@ def phase_downstream(torch, work: Path, card: str, device: str = "cuda",
     check(launches == n_layers * batches * on_card,
           f"gated attention launched {launches} times for {batches} re-extraction batches, "
           f"expected {n_layers}x{batches}")
-    check(not any(v for k, v in counts.items() if k != "gated_relpos_attention"),
-          f"the downstream run launched other kernels: {counts}")
+    check_wavlm_kernels("the downstream run", counts, batches, on_card)
     (aug_args, _, (meta_out, emb_out)), = clock.results["augmentation"]
     n_aug = len(meta_out) - len(aug_args[0])
     (waves_args, _, embedded), = clock.results["reextract"]
@@ -2708,6 +2747,123 @@ def phase_stem(torch, card: str):
         del out, ref, lib, masked, d
         torch.cuda.empty_cache()
     return worst, headline
+
+
+# the positional conv's cases (clips, frames, width, timed): the main path's
+# shapes (WavLM-Large's 3 s, 20 s and 30 s buckets at 1024, XLS-R 2B's long
+# buckets at 1920); then the edges of the kernel's 256-frame tile and its
+# 64-row sub-tiles, and one clip
+POS_CONV_CASES = ((80, 160, 1024, True), (12, 1008, 1024, True), (8, 1504, 1024, True),
+                  (12, 1008, 1920, True), (8, 1504, 1920, True),
+                  *((3, L, 1920, False) for L in (1, 17, 63, 64, 65, 127, 129, 200)),
+                  *((3, L, 1024, False) for L in (1, 65, 129, 257)), (1, 333, 1920, False))
+
+
+def pos_conv_flops_bytes(B: int, L: int, D: int, groups: int = 16) -> tuple[int, int]:
+    """The positional conv's operations at its true width and the bytes of
+    its inputs and output (hidden read and the result written once each, the
+    weights and the bias read once)."""
+    Cg = D // groups
+    return 2 * B * L * D * Cg * 128, 2 * 2 * B * L * D + 2 * D * Cg * 128 + 4 * D
+
+
+def seeded_pos_conv(torch, D: int, groups: int = 16):
+    """A PosConvEmbedding of D channels in bf16 on the card, its products
+    ~N(0, 0.25) on inputs ~N(0, 0.25), the bias seeded noise."""
+    import dataclasses
+
+    from stutter_tpu_torch.models.wavlm import PosConvEmbedding, WavLMConfig
+
+    cfg = dataclasses.replace(WavLMConfig.large(), hidden_size=D,
+                              num_conv_pos_embedding_groups=groups)
+    g = torch.Generator().manual_seed(D)
+    module = PosConvEmbedding(cfg)
+    with torch.no_grad():
+        module.weight.copy_(torch.randn(module.weight.shape, generator=g)
+                            * (module.weight.shape[1] * 128) ** -0.5)
+        module.bias.copy_(torch.randn(D, generator=g) * 0.1)
+    return module.to("cuda", torch.bfloat16)
+
+
+def phase_pos_conv(torch, card: str):
+    """The positional conv kernel (hidden + pos_conv(hidden) in one call)
+    against its plain version (f32 conv, the same roundings), an f32
+    reference (no rounding) and the library path it replaced (cuDNN's bf16
+    grouped conv, then the f32 epilogue and the add), at ``POS_CONV_CASES``
+    with the clips' tails zeroed at odd frame counts; median times of all
+    three at the main path's shapes, and of the kernel and the weight pack
+    alone. Returns (worst max-abs error, the
+    numbers at XLS-R 2B's 30 s bucket, the numbers at each timed shape)."""
+    from stutter_tpu_torch.ops import pos_conv as pc
+    from stutter_tpu_torch.ops.precision import no_tf32
+    from stutter_tpu_torch.utils.benchmarking import BF16_PEAK, bound
+
+    modules = {D: seeded_pos_conv(torch, D) for D in (1024, 1920)}
+    g = torch.Generator(device="cuda").manual_seed(5)
+    worst, cases = 0.0, {}
+    for B, L, D, timed_case in POS_CONV_CASES:
+        module = modules[D]
+        hidden = torch.randn(B, L, D, device="cuda", generator=g) * 0.5
+        if B > 1:  # tails zeroed as the callers zero padded frames: odd counts
+            for b, n in enumerate((L, max(1, L // 2) | 1, max(1, L - 7) | 1)[:B]):
+                hidden[b, n:] = 0.0
+        hidden = hidden.to(torch.bfloat16)
+        before = pc.pos_conv_residual.launches
+        out = module(hidden)
+        check(pc.pos_conv_residual.launches == before + 1,
+              "PosConvEmbedding did not take the kernel on a bf16 batch")
+        ref = pc.pos_conv_residual_reference(hidden, module.weight, module.bias, module.groups)
+        with no_tf32():
+            y = torch.nn.functional.conv1d(hidden.float().transpose(1, 2), module.weight.float(),
+                                           padding=64, groups=module.groups)[:, :, :L]
+        exact = hidden.float() + torch.nn.functional.gelu(
+            y + module.bias.float()[None, :, None]).transpose(1, 2)
+        lib = module.plain(hidden)
+        torch.cuda.synchronize()
+        check(out.shape == hidden.shape and out.dtype == torch.bfloat16,
+              f"pos_conv output {out.dtype} {tuple(out.shape)}")
+        check(bool(torch.isfinite(out).all()), "pos_conv output has non-finite values")
+        d = out.float() - ref.float()
+        max_abs = float(d.abs().max())
+        cos = cosine_distance(out.float(), ref.float())
+        f32_max_abs = float((out.float() - exact).abs().max())
+        lib_max_abs = float((lib.float() - ref.float()).abs().max())
+        fields = dict(shape=f"{B}x{L}x{D}", max_abs_err=f"{max_abs:.3e}",
+                      max_abs_tol=BF16_MAX_ABS, cosine_dist=f"{cos:.3e}", cosine_tol=BF16_COSINE,
+                      vs_f32_max_abs=f"{f32_max_abs:.3e}",
+                      library_vs_plain_max_abs=f"{lib_max_abs:.3e}")
+        if timed_case:
+            ms, plain_ms, library_ms = time_turns(
+                torch, lambda: module(hidden),
+                lambda: pc.pos_conv_residual_reference(hidden, module.weight, module.bias,
+                                                       module.groups),
+                lambda: module.plain(hidden))
+            # the module's call packs the weight each time; the kernel alone
+            # takes a packed weight
+            weights, bias = pc.pack_pos_conv_weights(module.weight), module.bias.float()
+            queued_ms, kernel_ms, pack_ms = time_turns(
+                torch, lambda: module(hidden),
+                lambda: pc.pos_conv_residual(hidden, weights, bias, module.groups),
+                lambda: pc.pack_pos_conv_weights(module.weight), runs=10, reps=8)
+            flops, nbytes = pos_conv_flops_bytes(B, L, D)
+            bound_ms, bound_by = bound(flops, nbytes, BF16_PEAK)
+            fields.update(ms=f"{ms:.4f}", queued_ms=f"{queued_ms:.4f}",
+                          kernel_queued_ms=f"{kernel_ms:.4f}", pack_queued_ms=f"{pack_ms:.4f}",
+                          plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
+                          tflop=f"{flops / 1e12:.4f}", bound_ms=f"{bound_ms:.4f}",
+                          bound_by=bound_by, roofline_pct=f"{100 * bound_ms / kernel_ms:.1f}",
+                          card=f'"{card}"')
+            cases[f"{B}x{L}x{D}"] = dict(timing(ms, plain_ms, bound_ms, bound_by, library_ms),
+                                         queued_ms=queued_ms, kernel_queued_ms=kernel_ms,
+                                         pack_queued_ms=pack_ms)
+        say("pos_conv", **fields)
+        check(max_abs <= BF16_MAX_ABS and cos <= BF16_COSINE,
+              f"pos_conv kernel disagrees with its plain version at {B}x{L}x{D}")
+        worst = max(worst, max_abs)
+        del out, ref, exact, lib, y, d, hidden
+        torch.cuda.empty_cache()
+    say("pos_conv", launches=pc.pos_conv_residual.launches)
+    return worst, cases["8x1504x1920"], cases
 
 
 def phase_stem_ab(torch, card: str) -> int:
@@ -3064,8 +3220,7 @@ def phase_chunk(torch, extractor, work: Path, card: str, short=(3.0, 8.0), long=
     launches = counts["gated_relpos_attention"]
     check(launches == n_layers * seen["batches"] * on_card,
           f"chunk: gated attention launched {launches} times for {seen['batches']} batches")
-    check(not any(v for k, v in counts.items() if k != "gated_relpos_attention"),
-          f"chunk: other kernels launched: {counts}")
+    check_wavlm_kernels("chunk", counts, seen["batches"], on_card)
     rows = [r for split in results.values() for r in split]
     long_rows = [r for r in rows if "chunks" in r]
     check(len(rows) == 11 and len(long_rows) == 3,
@@ -3176,8 +3331,7 @@ def phase_serve(torch, extractor, store: Path, work: Path, card: str, durations=
     check(failed == ["bad"], f"serve: failed requests {failed}, expected only 'bad'")
     check(launches == n_layers * seen["batches"] * on_card,
           f"serve: gated attention launched {launches} times for {seen['batches']} batches")
-    check(not any(v for k, v in counts.items() if k != "gated_relpos_attention"),
-          f"serve: other kernels launched: {counts}")
+    check_wavlm_kernels("serve", counts, seen["batches"], on_card)
     served = [r for r in responses if r.ok]
     worst = max(cosine_distance(torch.from_numpy(r.embeddings[c]),
                                 torch.from_numpy(by_path[r.path][c]))
@@ -4038,7 +4192,8 @@ def check_rank_launches(what: str, reports: list, n_layers: int, heads: int,
                         on_card: bool) -> list:
     """Both ranks exited 0, submitted the same batches, and launched the
     gated kernel once a layer a batch (warm-up batches too) at ``heads``
-    heads, and no other kernel. Returns the launches per rank."""
+    heads, and ``check_wavlm_kernels``' other kernels. Returns the gated
+    launches per rank."""
     submits = [r["submits"] for r in reports]
     batches = [r["submits"] + r["warmup_batches"] for r in reports]
     launches = [r["counts"]["gated_relpos_attention"] for r in reports]
@@ -4048,9 +4203,8 @@ def check_rank_launches(what: str, reports: list, n_layers: int, heads: int,
           f"{what}: {launches} gated launches for {batches} batches (warm-up included)")
     check(all(r["heads"] == [heads] for r in reports),
           f"{what}: attention heads {[r['heads'] for r in reports]}, expected {heads}")
-    others = [{k: v for k, v in r["counts"].items() if v and k != "gated_relpos_attention"}
-              for r in reports]
-    check(others == [{}, {}], f"{what}: other kernels launched: {others}")
+    for r, n in zip(reports, batches):
+        check_wavlm_kernels(f"{what} rank", r["counts"], n, on_card)
     return launches
 
 
@@ -4382,9 +4536,13 @@ def phase_serve_combined(torch, wavlm_ex, work: Path, card: str, wavlm_ckpt: Pat
     n_batches, n_layers = len(batches), (wavlm_ex.cfg.num_hidden_layers,
                                          whisper_ex.cfg.encoder_layers)
     expected = {"gated_relpos_attention": n_layers[0] * n_batches * on_card,
+                "pos_conv_residual": n_batches * on_card,
                 "whisper_log_mel": n_batches * on_card,
                 "flash_mha": n_layers[1] * n_batches * on_card}
-    check({k: v for k, v in counts.items() if v} == {k: v for k, v in expected.items() if v},
+    # the fused stem: at most once a batch (frame-aligned buckets take it)
+    check(counts["wavlm_fused_stem"] <= n_batches * on_card
+          and {k: v for k, v in counts.items() if v and k != "wavlm_fused_stem"}
+          == {k: v for k, v in expected.items() if v},
           f"serve_combined: launches {counts}, expected {expected}")
     say("serve_combined", requests=len(lines), batches=n_batches, columns=len(columns),
         gated_launches=counts["gated_relpos_attention"],
@@ -4615,6 +4773,8 @@ def main() -> int:
             probe_counts = phase_probes(torch, card)
         with timed("stem"):
             stem_err, stem_times = phase_stem(torch, card)
+        with timed("pos_conv"):
+            pos_conv_err, pos_conv_times, pos_conv_cases = phase_pos_conv(torch, card)
 
         with tempfile.TemporaryDirectory() as tmp:
             work = Path(tmp)
@@ -4771,6 +4931,8 @@ def main() -> int:
          wavlm_counts["wavlm_fused_stem"], stem_err, stem_times),
         ("flash_mha_bias", "flash_mha.cu", "stutter_tpu/models/attention.py:102",
          long_counts["flash_mha_bias"], mha_bias_err, mha_bias_times),
+        ("pos_conv_residual", "pos_conv.cu", None, wavlm_counts["pos_conv_residual"],
+         pos_conv_err, pos_conv_times),
         ("attn_int8", "attn_probes.cu", "scripts/attn_int8_probe.py:66",
          probe_counts["attn_int8"], *probe_numbers["attn_int8"]),
         ("attn_softmax_variants", "attn_probes.cu", "scripts/attn_softmax_variants_probe.py:54",
@@ -4809,8 +4971,14 @@ def main() -> int:
                                 "stutter_tpu/ops/wavlm_attention_vjp.py:115"]
     line[1]["max_rel_err"] = bwd_rel
     line[4]["stem_ab_launches"] = stem_launches
-    line[6]["also_replaces"] = "scripts/attn_int8_probe.py:100"  # its pallas_call
-    line[7]["also_replaces"] = "scripts/attn_softmax_variants_probe.py:98"
+    # no Pallas kernel: the JAX package's positional conv is XLA's conv
+    line[6]["jax_counterpart"] = "stutter_tpu/models/wavlm.py:316 (conv_general_dilated)"
+    line[6]["cases"] = pos_conv_cases
+    line[6]["long_slice_launches"] = long_counts["pos_conv_residual"]
+    line[6]["chunk_launches"] = chunk_counts["pos_conv_residual"]
+    line[6]["serve_launches"] = serve_counts["pos_conv_residual"]
+    line[7]["also_replaces"] = "scripts/attn_int8_probe.py:100"  # its pallas_call
+    line[8]["also_replaces"] = "scripts/attn_softmax_variants_probe.py:98"
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -187,7 +187,7 @@ class Wav2Vec2Model(nn.Module):
             kv_valid = frame_lengths.to(torch.int32).contiguous()
         else:
             frame_lengths = torch.full((B,), L, dtype=torch.long, device=hidden.device)
-        hidden = hidden + self.pos_conv(hidden)
+        hidden = self.pos_conv(hidden)
         collected = []
         for i, layer in enumerate(self.layers):
             collected.append(collect(i, hidden, frame_lengths))  # layer i's INPUT

@@ -9,7 +9,9 @@ package's layouts ([B, L, C] frames and hidden states) so that the two
 packages compare like with like; inside, the stem runs PyTorch's [B, C, T].
 ``forward``/``encode`` run the stem through the fused kernel of
 ``ops.wavlm_stem`` wherever it applies and can run; ``use_fused_stem=False``
-forces the plain stem. The projections go through ``ops.quant.linear``, which
+forces the plain stem. ``PosConvEmbedding`` returns hidden plus the positional
+embedding, through ``ops.pos_conv``'s kernel where its gate passes (bf16 on
+the card, no autograd). The projections go through ``ops.quant.linear``, which
 takes the turbo presets' int8 weights, or with ``int8_forward`` set on a
 layer's modules (fine-tuning) ``qdot_ste``. ``pooled_states`` takes the JAX
 package's remat policies through ``torch.utils.checkpoint``'s selective
@@ -25,7 +27,7 @@ Numerics copied from the JAX package:
   stem's norm statistics use valid frames only and each stage re-zeroes its
   padded frames, so a padded batch equals per-clip runs;
 - the positional conv adds its bias in f32, drops its last frame (SamePad,
-  even kernel), applies GELU in f32 and casts back;
+  even kernel), applies GELU in f32 and casts back, then is added to hidden;
 - q is scaled by head_dim^-0.5 in the activation dtype;
 - the key mask is additive -1e9 (not -inf), so padded query rows stay finite;
 - hidden state i is the INPUT of layer i; the pre-LN model's final norm
@@ -56,6 +58,11 @@ from torch.utils.checkpoint import (
 from stutter_tpu_torch.models.common import gelu, layer_norm, param
 from stutter_tpu_torch.ops.flash_mha import flash_mha_bias, flash_mha_bias_reference
 from stutter_tpu_torch.ops.pooling import masked_mean_pool
+from stutter_tpu_torch.ops.pos_conv import (
+    kernel_applies,
+    pack_pos_conv_weights,
+    pos_conv_residual,
+)
 from stutter_tpu_torch.ops.quant import linear
 from stutter_tpu_torch.ops.wavlm_attention import (
     gated_relpos_attention,
@@ -358,8 +365,17 @@ class FeatureProjection(nn.Module):
 
 
 class PosConvEmbedding(nn.Module):
-    """Grouped conv positional embedding with SamePad; the weight norm is
-    folded into the plain weight, as in the JAX package."""
+    """Grouped conv positional embedding with SamePad, added to its input:
+    x -> x + pos_conv(x). The weight norm is folded into the plain weight, as
+    in the JAX package.
+
+    Where ``ops.pos_conv.kernel_applies`` (bf16 on the card, 128 taps, 64 or
+    120 channels a group, no autograd) the whole of it is one call of the
+    hand-written kernel (``ops.pos_conv.pos_conv_residual``), on the weight
+    packed for the call: a copy freed after it (16.8 MB at WavLM-Large, 59 MB
+    at XLS-R 2B), where a cached pack would raise the memory peak by its
+    size. Elsewhere (the CPU, f32, the fine-tuning forward) ``plain`` runs it
+    in PyTorch."""
 
     def __init__(self, cfg: WavLMConfig, device=None, dtype=torch.float32):
         super().__init__()
@@ -369,13 +385,19 @@ class PosConvEmbedding(nn.Module):
         self.weight = param((D, D // self.groups, self.kernel), device, dtype)
         self.bias = param((D,), device, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, L, D]
+    def plain(self, x: torch.Tensor) -> torch.Tensor:  # [B, L, D]
         y = F.conv1d(x.transpose(1, 2), self.weight, padding=self.kernel // 2,
                      groups=self.groups).float()
         y = y + self.bias.float()[None, :, None]
         if self.kernel % 2 == 0:  # SamePad removes the trailing element
             y = y[:, :, :-1]
-        return gelu(y).to(x.dtype).transpose(1, 2)
+        return x + gelu(y).to(x.dtype).transpose(1, 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, L, D]
+        if kernel_applies(x, self.weight, self.bias, self.kernel, self.groups):
+            return pos_conv_residual(x, pack_pos_conv_weights(self.weight), self.bias.float(),
+                                     self.groups)
+        return self.plain(x)
 
 
 class GatedRelPosAttention(nn.Module):
@@ -566,7 +588,7 @@ class WavLMModel(nn.Module):
             key_mask_bias = torch.where(frame_mask, 0.0, -1e9).float()
         else:
             key_mask_bias = torch.zeros((B, L), dtype=torch.float32, device=hidden.device)
-        hidden = hidden + call(self.pos_conv, "pos_conv.", hidden)
+        hidden = call(self.pos_conv, "pos_conv.", hidden)
         if not cfg.do_stable_layer_norm:
             hidden = layer_norm(hidden, weight("ln_scale"), weight("ln_bias"),
                                 cfg.layer_norm_eps)
