@@ -46,10 +46,11 @@ Phases, one line each on stdout ([time] lines give each phase's seconds):
    against its plain version at 12 x 16 x 1504 x 64 and 19 x 16 x 1008 x 64
    in bf16 with keys masked, and f32 at a ragged length;
    scaled_dot_product_attention with the same bias timed beside it;
-5a2. mha_edges: both kernels' bf16 wgmma tiles at their edges, checked and
-   not timed: L of 37, 64, 65, 127, 128, 129, 1008, 1500 and 1504 with key
-   counts of 0, 1, 63, 64, 65 and L, ab through its 16-byte and its
-   element-wise copies, a contiguous [B, H, L, 64] input, 70,000 blocks;
+5a2. mha_edges: both kernels' bf16 wgmma tiles at their edges (flash_mha
+   at head_dim 64 and 120), checked and not timed: L of 37, 64, 65, 127,
+   128, 129, 1008, 1500 and 1504 with key counts of 0, 1, 63, 64, 65 and L,
+   ab through its 16-byte and its element-wise copies, a contiguous
+   [B, H, L, 64] input, 70,000 blocks;
 5a3. gated_edges: the WavLM attention's bf16 wgmma tiles in both grid
    orders, output and row statistics, checked and not timed: L of 37, 63,
    64, 65, 127, 128, 129, 160 and 1008 with a full, a half, a fully padded
@@ -63,7 +64,7 @@ Phases, one line each on stdout ([time] lines give each phase's seconds):
 5b. probe_kernels: the int8 probe's kernels (int8 k and v and their scales
    bit-equal to the plain version's) and the four softmax variants against
    their plain versions at 25 x 16 x 1504 x 64, 30 x 16 x 1008 x 64 and
-   the ragged lengths 37 and 1025 (64 k + 1);
+   the ragged lengths 37, 64, 65, 129 and 1025 (64 k + 1);
 5c. probes: cli.attn_int8_probe and cli.attn_softmax_variants_probe at
    their defaults, in-process: their JSON, fidelity against f32, launches,
    and the verdicts on this card (int8's speedup_min over the bf16 kernel,
@@ -100,14 +101,13 @@ Phases, one line each on stdout ([time] lines give each phase's seconds):
    "materialized_bias": exact launch counts of both kernels, the store, and
    the pooled distance between the two runs;
 7b. turbo_slice: the slice again in turbo (6 int8 GEMMs per layer and
-   batch), then turbo's pooled distance from the f32 path on one batch;
+   batch, the fused stem once a batch), then turbo's pooled distance from
+   the f32 path on one frame-aligned batch, through the fused stem;
 7c. turbo_ffn_slice: the slice in turbo_ffn from the same f32 weights (2
    int8 GEMMs per layer and batch, the FFN's), and its distance from f32;
 8. throughput: WavLM extraction's audio-seconds per second over 1280 clips
    of 2-3 s, after a warm batch, and one batch's device time, fast and turbo,
    with its MFU (utils.benchmarking's FLOP model at the bf16 peak);
-8b. stem_ab: cli.stem_fused_ab at its defaults (turbo) and in fast: the stem
-   and the encode with and without the fused stem, fidelity, launches;
 9. whisper_slice: a synthetic corpus through a default-constructed
    ExtractionPipeline with Whisper-large (random weights, seed 0, fast):
    the store, the checkpoints, one log-mel launch per batch and 32 attention
@@ -206,10 +206,11 @@ Phases, one line each on stdout ([time] lines give each phase's seconds):
    enqueue a small kernel before and after the traces.
 Every CLI run here starts from a working directory of its own and must
 leave exactly one logfile there (utils.logging; [utils] counts them).
-Each extraction, probe, stem A/B, fine-tune, downstream, chunk, serving and parallel path is driven with every kernel's
-launch count (and the int8 GEMM count) set to 0 just before it and read just
-after. Then one JSON line with the kernels' numbers (time, plain time,
-bound, library time, launches on their path) and, last, the device line.
+Each extraction, probe, fine-tune, downstream, chunk, serving and parallel
+path is driven with every kernel's launch count (and the int8 GEMM count)
+set to 0 just before it and read just after. Then one JSON line with the
+kernels' numbers (time, plain time, bound, library time, launches on their
+path) and, last, the device line.
 Any failed check exits non-zero; with no CUDA card it exits non-zero at once.
 """
 
@@ -296,13 +297,9 @@ PROBE_F32_COSINE = 1e-3
 # bf16, bias in bf16, f32 statistics, tanh GELU on bf16) but sum in another
 # order, and one flipped bf16 rounding propagates through seven layer norms.
 STEM_COSINE, STEM_NRMSE = 5e-4, 0.03
-# pooled embeddings of the fused-stem encode against the f32 path: the repo's
-# bar in fast, the JAX turbo tests' in turbo (tests/test_quant.py:153,184);
-# and no farther than 1.25x the plain-stem path's own distance (the criterion
-# of tests/test_stem_pallas.py:96-98, with a floor of 5e-5, under which a
-# flipped rounding in either stem moves the ratio by more than 25 %)
-STEM_AB_FAST_COSINE, TURBO_COSINE = 1e-3, 2e-2
-STEM_AB_RATIO, STEM_AB_FLOOR = 1.25, 5e-5
+# turbo's pooled embeddings against the f32 path: the JAX turbo tests' bar
+# (tests/test_quant.py:153,184)
+TURBO_COSINE = 2e-2
 # int8 GEMMs a layer and batch, by preset
 INT8_GEMMS_A_LAYER = {"wavlm": {"turbo": 6, "turbo_ffn": 2},
                       "whisper": {"turbo": 5, "turbo_ffn": 2}}
@@ -496,13 +493,21 @@ def peak_flops(torch, dtype) -> float:
     return BF16_PEAK if dtype == torch.bfloat16 else F32_PEAK
 
 
-def attention_inputs(torch, g, B, H, L, dtype, lengths):
-    """q, k, v as [B, L, H, 64] projections viewed [B, H, L, 64] (as the
-    model passes them), bias, gate and the key mask of `lengths`."""
-    def make():
-        return (torch.randn(B, L, H, 64, device="cuda", generator=g) * 0.5).to(dtype) \
-            .transpose(1, 2)
-    q, k, v = make(), make(), make()
+def make_qkv(torch, g, B, H, L, dtype, transposed=True, d=64):
+    """q, k, v (randn * 0.5 in ``dtype``) as [B, L, H, d] projections viewed
+    [B, H, L, d], as the models pass them, or contiguous [B, H, L, d]."""
+    def one():
+        if transposed:
+            return (torch.randn(B, L, H, d, device="cuda", generator=g) * 0.5).to(dtype) \
+                .transpose(1, 2)
+        return (torch.randn(B, H, L, d, device="cuda", generator=g) * 0.5).to(dtype)
+    return one(), one(), one()
+
+
+def attention_inputs(torch, g, B, H, L, dtype, lengths, transposed=True):
+    """q, k, v of ``make_qkv``, bias [H, L, L], gate [B, H, L] in [0, 2) and
+    the key mask of `lengths`."""
+    q, k, v = make_qkv(torch, g, B, H, L, dtype, transposed)
     bias = torch.randn(H, L, L, device="cuda", generator=g)
     gate = torch.rand(B, H, L, device="cuda", generator=g) * 2
     mask = torch.where(torch.arange(L, device="cuda")[None] < lengths[:, None],
@@ -510,11 +515,21 @@ def attention_inputs(torch, g, B, H, L, dtype, lengths):
     return q, k, v, bias, gate, mask
 
 
+def sdpa_backward(torch, q, k, v, do):
+    """One backward of the maskless bf16 ``scaled_dot_product_attention`` on
+    these inputs, its forward run once beforehand: the yardstick for dq, dk
+    and dv alone."""
+    import torch.nn.functional as F
+
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, scale=1.0)
+    return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+
 def phase_attn_bwd(torch, attn, card: str):
     """Backward kernels against the plain backward, and two calls bit-equal;
     returns (worst max-abs error, the worst of it relative to the plain
     result's max, the numbers at the CLI's 3 s batch in bf16)."""
-    from stutter_tpu_torch.cli.flash_tiles_ab import sdpa_backward
     from stutter_tpu_torch.utils.benchmarking import bound
 
     cases = [  # (B, H, L): the CLI's batch 32 at 3 s, its 10 s bucket, a ragged long length
@@ -1233,16 +1248,103 @@ def phase_logmel(torch, logmel):
     return worst, headline
 
 
-def phase_tile_edges(torch, mha) -> dict:
-    """The bf16 wgmma tiles where they are most likely to be wrong
-    (``cli.flash_tiles_ab.check_cases``: both kernels at ragged lengths and
-    key counts, ab through 16-byte and element-wise copies, a contiguous
-    input, 70,000 blocks); returns each kernel's worst max-abs error."""
-    from stutter_tpu_torch.cli import flash_tiles_ab
+def error_map(out, ref) -> str:
+    """Max-abs error of clip 0, head 0 by block of 16 rows and 8 columns."""
+    err = (out[0, 0].float() - ref[0, 0].float()).abs()
+    L = err.shape[0]
+    lines = []
+    for r0 in range(0, min(L, 128), 16):
+        row = [float(err[r0:r0 + 16, c0:c0 + 8].max()) for c0 in range(0, 64, 8)]
+        lines.append(f"    rows {r0:4d}+16: " + " ".join(f"{x:8.1e}" for x in row))
+    return "\n".join(lines)
 
-    check((flash_tiles_ab.BF16_MAX_ABS, flash_tiles_ab.BF16_COSINE)
-          == (BF16_MAX_ABS, BF16_COSINE), "flash_tiles_ab's bars differ from this script's")
-    cases, failures, worst = flash_tiles_ab.check_cases(torch, mha, verbose=False)
+
+def phase_tile_edges(torch, mha) -> dict:
+    """The bf16 wgmma tiles where they are most likely to be wrong: flash_mha
+    at head_dim 64 and 120 (``flash_mha_hd120``: its zero-filled K panel and
+    its two V panels) and flash_mha_bias, on structured inputs, at ragged
+    lengths and key counts, ab through 16-byte and element-wise copies, a
+    contiguous input, 70,000 blocks. A case that disagrees prints a map of
+    its errors; returns each kernel's worst max-abs error."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    bf16 = torch.bfloat16
+    cases, failures = 0, 0
+    worst = {"flash_mha": 0.0, "flash_mha_bias": 0.0, "flash_mha_hd120": 0.0}
+
+    def report(name, shape, extra, out, ref):
+        nonlocal cases, failures
+        torch.cuda.synchronize()
+        finite = bool(torch.isfinite(out).all())
+        laid_out = out.shape == ref.shape and out.dtype == ref.dtype
+        max_abs = float((out.float() - ref.float()).abs().max())
+        cos = cosine_distance(out.float(), ref.float())
+        ok = finite and laid_out and max_abs <= BF16_MAX_ABS and cos <= BF16_COSINE
+        cases += 1
+        worst[name] = max(worst[name], max_abs)
+        if not ok:
+            failures += 1
+            print(f"[check] {name} {shape} {extra} finite={finite} max_abs={max_abs:.3e} "
+                  f"cosine={cos:.3e} DISAGREES", flush=True)
+            print(error_map(out, ref), flush=True)
+
+    # structured inputs first: they tell a wrong descriptor from a wrong softmax
+    q, k, v = make_qkv(torch, g, 1, 1, 64, bf16)
+    zero = torch.zeros_like(q)
+    report("flash_mha", "1x1x64", "q=0 (out = mean of v)", mha.flash_mha(zero, k, v),
+           mha.flash_mha_reference(zero, k, v))
+    eye = torch.eye(64, device="cuda").bfloat16()[None, :, None, :].transpose(1, 2)
+    report("flash_mha", "1x1x64", "v=I (out = probabilities)", mha.flash_mha(q * 4, k, eye),
+           mha.flash_mha_reference(q * 4, k, eye))
+
+    for L in (64, 65, 127, 128, 129, 37, 1008, 1500, 1504):
+        B, H = (2, 3) if L > 200 else (3, 5)
+        q, k, v = make_qkv(torch, g, B, H, L, bf16)
+        report("flash_mha", f"{B}x{H}x{L}", "kv=all", mha.flash_mha(q, k, v),
+               mha.flash_mha_reference(q, k, v))
+        for valid in (0, 1, 63, 64, 65, L):
+            kv = torch.tensor([min(valid, L), L, max(L - 1, 0)][:B], dtype=torch.int32,
+                              device="cuda")
+            report("flash_mha", f"{B}x{H}x{L}", f"kv={kv.tolist()}", mha.flash_mha(q, k, v, kv),
+                   mha.flash_mha_reference(q, k, v, kv))
+        ab = torch.randn(B, H, L, L, device="cuda", generator=g)
+        ab[:, :, :, L - L // 3:] += -1e9  # keys masked, as WavLM's short clips mask them
+        ab[0] = torch.randn(H, L, L, device="cuda", generator=g)
+        report("flash_mha_bias", f"{B}x{H}x{L}", f"vec={mha.ab_vector_bytes(ab)}",
+               mha.flash_mha_bias(q, k, v, ab), mha.flash_mha_bias_reference(q, k, v, ab))
+        if L % 4 == 0:  # the same through the element-wise copies: ab off 16-byte alignment
+            shifted = torch.empty(ab.numel() + 1, device="cuda")[1:].view_as(ab).copy_(ab)
+            report("flash_mha_bias", f"{B}x{H}x{L}", f"vec={mha.ab_vector_bytes(shifted)}",
+                   mha.flash_mha_bias(q, k, v, shifted),
+                   mha.flash_mha_bias_reference(q, k, v, shifted))
+    # head_dim 120: q = 0 and v = I over 120 keys (each output column one
+    # key's probability, both V panels), then the ragged lengths and key counts
+    q, k, _ = make_qkv(torch, g, 1, 1, 120, bf16, d=120)
+    eye = torch.eye(120, device="cuda").bfloat16()[None, :, None, :].transpose(1, 2)
+    report("flash_mha_hd120", "1x1x120", "q=0 (out = mean of v)",
+           mha.flash_mha(torch.zeros_like(q), k, eye),
+           mha.flash_mha_reference(torch.zeros_like(q), k, eye))
+    report("flash_mha_hd120", "1x1x120", "v=I (out = probabilities)",
+           mha.flash_mha(q * 4, k, eye), mha.flash_mha_reference(q * 4, k, eye))
+    for L in (37, 64, 65, 127, 128, 129, 1008, 1504):
+        B, H = (2, 3) if L > 200 else (3, 5)
+        q, k, v = make_qkv(torch, g, B, H, L, bf16, d=120)
+        report("flash_mha_hd120", f"{B}x{H}x{L}x120", "kv=all", mha.flash_mha(q, k, v),
+               mha.flash_mha_reference(q, k, v))
+        for valid in (0, 1, 63, 64, 65):
+            kv = torch.tensor([min(valid, L), L, max(L - 1, 0)][:B], dtype=torch.int32,
+                              device="cuda")
+            report("flash_mha_hd120", f"{B}x{H}x{L}x120", f"kv={kv.tolist()}",
+                   mha.flash_mha(q, k, v, kv), mha.flash_mha_reference(q, k, v, kv))
+    q, k, v = make_qkv(torch, g, 2, 3, 129, bf16, transposed=False, d=120)
+    report("flash_mha_hd120", "2x3x129x120", "contiguous", mha.flash_mha(q, k, v),
+           mha.flash_mha_reference(q, k, v))
+    # a contiguous [B, H, L, 64] input, and a grid of more than 65,535 blocks
+    q, k, v = make_qkv(torch, g, 2, 3, 129, bf16, transposed=False)
+    report("flash_mha", "2x3x129", "contiguous", mha.flash_mha(q, k, v),
+           mha.flash_mha_reference(q, k, v))
+    q, k, v = make_qkv(torch, g, 3500, 20, 64, bf16)
+    report("flash_mha", "3500x20x64", "70000 blocks", mha.flash_mha(q, k, v),
+           mha.flash_mha_reference(q, k, v))
     say("mha_edges", cases=cases, disagree=failures,
         **{f"{name}_worst_max_abs": f"{err:.3e}" for name, err in worst.items()},
         max_abs_tol=BF16_MAX_ABS, cosine_tol=BF16_COSINE)
@@ -1259,25 +1361,64 @@ TILE_KERNELS = {"KeyPadding<64, 2, 4, 2, 0>", "KeyPadding<120, 2, 4, 1, 0>",
 BWD_TILE_KERNELS = {"dq<0>", "dq<1>", "dkv<0>", "dkv<1>", "dbias"}
 # the stem's wgmma conv kernels, by taps
 STEM_TILE_KERNELS = {"conv<3>", "conv<2>"}
-# the probes' kernels: the int8 prologue and main kernel, the four variants
+# the positional conv's kernels, by channels a group (WavLM-Large's 64, XLS-R 2B's 120)
 POS_CONV_KERNELS = {"pos_conv<64>", "pos_conv<120>"}
+# the probes' kernels: the int8 prologue and main kernel, the four variants
 PROBE_KERNELS = {"quantize_kv", "attn_int8", "softmax_variant<0, 0>", "softmax_variant<1, 0>",
                  "softmax_variant<0, 1>", "softmax_variant<1, 1>"}
 
 
 def phase_gated_edges(torch, attn) -> float:
     """The gated attention's bf16 wgmma tiles where they are most likely to
-    be wrong (``cli.flash_tiles_ab.check_gated_cases``: both grid orders at
-    ragged lengths, output and row statistics, a fully padded and a
-    zero-gate clip, the bias through 16-byte and element-wise copies, a
-    contiguous input); returns the worst max-abs error."""
-    from stutter_tpu_torch.cli import flash_tiles_ab
+    be wrong, in both grid orders, output and row statistics: ragged lengths
+    around the 64- and 128-row edges and the 20 s bucket, where clip 0 has
+    every key, clip 1 half of them, clip 2 none, clip 3 every key and a gate
+    of 0; the bias through its 16-byte copies and, off 16-byte alignment,
+    its element-wise ones; a contiguous input. Returns the worst max-abs
+    error of the output."""
+    from stutter_tpu_torch.ops._attention import vector_bytes
 
-    check((flash_tiles_ab.BF16_MAX_ABS, flash_tiles_ab.BF16_COSINE,
-           flash_tiles_ab.STATS_MAX_ABS) == (BF16_MAX_ABS, BF16_COSINE, BWD_STATS_MAX_ABS),
-          "flash_tiles_ab's bars differ from this script's")
-    cases, failures, worst, worst_stats = flash_tiles_ab.check_gated_cases(
-        torch, attn, verbose=False)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    cases, failures, worst, worst_stats = 0, 0, 0.0, 0.0
+
+    def run(L, args, what, order):
+        nonlocal cases, failures, worst, worst_stats
+        B, H = args[0].shape[:2]
+        stats = torch.empty(2, B, H, L, device="cuda")
+        out = attn.launch_tiles(*args, stats, order)
+        ref = attn.gated_relpos_attention_reference(*args)
+        ref_stats = attn.attention_row_stats_reference(*args[:2], *args[3:])
+        torch.cuda.synchronize()
+        finite = bool(torch.isfinite(out).all())
+        max_abs = float((out.float() - ref.float()).abs().max())
+        cos = cosine_distance(out.float(), ref.float())
+        stats_err = float((stats - ref_stats).abs().max())
+        ok = (finite and out.stride() == args[0].stride() and max_abs <= BF16_MAX_ABS
+              and cos <= BF16_COSINE and stats_err <= BWD_STATS_MAX_ABS)
+        cases += 1
+        worst, worst_stats = max(worst, max_abs), max(worst_stats, stats_err)
+        if not ok:
+            failures += 1
+            print(f"[check] gated {B}x{H}x{L} {what} order={order} "
+                  f"vec={vector_bytes(args[3], args[5])} finite={finite} "
+                  f"max_abs={max_abs:.3e} cosine={cos:.3e} stats_max_abs={stats_err:.3e} "
+                  f"DISAGREES", flush=True)
+            print(error_map(out, ref), flush=True)
+
+    for L in (37, 63, 64, 65, 127, 128, 129, 160, 1008):
+        B, H = 4, (3 if L > 200 else 5)
+        lengths = torch.tensor([L, max(L // 2, 1), 0, L], device="cuda")
+        args = attention_inputs(torch, g, B, H, L, torch.bfloat16, lengths)
+        args[4][3] = 0.0
+        for order in (attn.QUERY_TILE_FASTEST, attn.CLIP_FASTEST):
+            run(L, args, "", order)
+        if L % 4 == 0:  # the bias off 16-byte alignment: element-wise copies
+            bias = args[3]
+            shifted = torch.empty(bias.numel() + 1, device="cuda")[1:].view_as(bias).copy_(bias)
+            run(L, (*args[:3], shifted, *args[4:]), "bias+4B", attn.CLIP_FASTEST)
+    lengths = torch.tensor([129, 100, 0], device="cuda")
+    args = attention_inputs(torch, g, 3, 4, 129, torch.bfloat16, lengths, transposed=False)
+    run(129, args, "contiguous", attn.QUERY_TILE_FASTEST)
     say("gated_edges", cases=cases, disagree=failures, worst_max_abs=f"{worst:.3e}",
         worst_stats_max_abs=f"{worst_stats:.3e}", max_abs_tol=BF16_MAX_ABS,
         cosine_tol=BF16_COSINE, stats_tol=BWD_STATS_MAX_ABS)
@@ -1285,77 +1426,262 @@ def phase_gated_edges(torch, attn) -> float:
     return worst
 
 
-def phase_bwd_edges(torch, attn) -> float:
-    """The bf16 backward where its tiles are most likely to be wrong
-    (``cli.flash_tiles_ab.check_bwd_cases``: ragged lengths to 1008, both
-    grid orders, one and two clip groups, a fully padded and a zero-gate
-    clip, the f32 planes through 16-byte and element-wise copies, a
-    contiguous input); returns the worst max-abs error over the plain
-    result's max."""
-    from stutter_tpu_torch.cli import flash_tiles_ab
+def bwd_inputs(torch, g, B, H, L, lengths, transposed=True, zero_gate_clip=None):
+    """The backward's operands: ``attention_inputs`` in bf16 (clip
+    ``zero_gate_clip``'s gate 0), the forward's output and row statistics,
+    and a do laid out like q."""
+    from stutter_tpu_torch.ops import wavlm_attention as attn
 
-    check((flash_tiles_ab.BWD_BF16_REL, flash_tiles_ab.BWD_BF16_COSINE)
-          == (BWD_BF16_REL, BWD_BF16_COSINE), "flash_tiles_ab's bars differ from this script's")
-    cases, failures, worst = flash_tiles_ab.check_bwd_cases(torch, attn, verbose=False)
+    args = attention_inputs(torch, g, B, H, L, torch.bfloat16, lengths, transposed)
+    if zero_gate_clip is not None:
+        args[4][zero_gate_clip] = 0.0
+    stats = torch.empty(2, B, H, L, device="cuda")
+    out = attn.gated_relpos_attention(*args, stats)
+    do = make_qkv(torch, g, B, H, L, torch.bfloat16, transposed)[0]
+    return args, out, do, stats
+
+
+def compare_grads(torch, got, ref) -> tuple[bool, dict]:
+    """Each gradient against the plain backward's: finite, shaped and typed
+    alike, max-abs error over the plain result's max and cosine distance
+    within the bf16 bars. Returns (all agree, {name: (rel, cosine)})."""
+    ok, errs = True, {}
+    for name, a, b in zip(("dq", "dk", "dv", "dbias", "dgate"), got, ref):
+        same = a.shape == b.shape and a.dtype == b.dtype and bool(torch.isfinite(a).all())
+        rel = float((a.float() - b.float()).abs().max()) / float(b.float().abs().max())
+        cos = cosine_distance(a.float(), b.float())
+        errs[name] = (rel, cos)
+        ok = ok and same and rel <= BWD_BF16_REL and cos <= BWD_BF16_COSINE
+    return ok, errs
+
+
+# the backward's edge lengths: around the tiles' 64-row edges, then 512 and 1008
+BWD_EDGE_LENGTHS = (37, 63, 64, 65, 127, 128, 129, 160, 512, 1008)
+
+
+def phase_bwd_edges(torch, attn) -> float:
+    """The bf16 backward where its tiles are most likely to be wrong, against
+    the plain backward at ``BWD_EDGE_LENGTHS``: clip 0 has every key, clip 1
+    half of them, clip 2 none, clip 3 every key and a gate of 0; the dq and
+    dk+dv kernels in both grid orders; the dbias kernel with one group of
+    clips and with two (partial planes added by a second kernel); the f32
+    planes through their 16-byte and, with the bias off 16-byte alignment,
+    their element-wise copies; a contiguous input. Returns the worst max-abs
+    error over the plain result's max."""
+    from stutter_tpu_torch.ops._attention import vector_bytes
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    cases, failures, worst = 0, 0, 0.0
+
+    def run(L, args, out, do, stats, what, order, groups):
+        nonlocal cases, failures, worst
+        got = attn.launch_backward(*args, out, do, stats, order, groups)
+        ref = attn.gated_relpos_attention_backward_reference(*args, out, do)
+        torch.cuda.synchronize()
+        ok, errs = compare_grads(torch, got, ref)
+        ok = ok and all(t.stride() == args[0].stride() for t in got[:3])
+        cases += 1
+        worst = max([worst] + [rel for rel, _ in errs.values()])
+        if not ok:
+            failures += 1
+            B, H = args[0].shape[:2]
+            print(f"[check] bwd {B}x{H}x{L} {what} order={order} groups={groups} "
+                  f"vec={vector_bytes(args[3], args[5])} "
+                  + " ".join(f"{n}={r:.2e}/{c:.2e}" for n, (r, c) in errs.items())
+                  + " DISAGREES", flush=True)
+
+    for L in BWD_EDGE_LENGTHS:
+        B, H = 4, (2 if L > 200 else 3)
+        lengths = torch.tensor([L, max(L // 2, 1), 0, L], device="cuda")
+        args, out, do, stats = bwd_inputs(torch, g, B, H, L, lengths, zero_gate_clip=3)
+        for order in (attn.QUERY_TILE_FASTEST, attn.CLIP_FASTEST):
+            run(L, args, out, do, stats, "", order, 1)
+        run(L, args, out, do, stats, "", attn.grid_order_for(H, L), 2)
+        if L % 4 == 0:  # the bias off 16-byte alignment: element-wise copies
+            bias = args[3]
+            shifted = torch.empty(bias.numel() + 1, device="cuda")[1:].view_as(bias).copy_(bias)
+            run(L, (*args[:3], shifted, *args[4:]), out, do, stats, "bias+4B",
+                attn.CLIP_FASTEST, 2)
+    lengths = torch.tensor([129, 100, 0], device="cuda")
+    args, out, do, stats = bwd_inputs(torch, g, 3, 4, 129, lengths, transposed=False)
+    run(129, args, out, do, stats, "contiguous", attn.QUERY_TILE_FASTEST, 3)
     say("bwd_edges", cases=cases, disagree=failures, worst_rel=f"{worst:.3e}",
         rel_tol=BWD_BF16_REL, cosine_tol=BWD_BF16_COSINE)
     check(failures == 0, f"{failures} of {cases} backward edge cases disagree")
     return worst
 
 
+def tile_kernels(build) -> list[dict]:
+    """ptxas's rows for the bf16 tiles' kernels, each named by its policy and
+    its <head_dim, warpgroups, stages, blocks an SM, grid order>."""
+    import re
+
+    rows = build.resource_report("4sm9021attention_bf16_kernel")
+    for row in rows:
+        m = re.search(r"(\w+?)((?:ELi\d+){5})E", row["kernel"])
+        scope, ints = m.group(1), re.findall(r"[0-9]+", m.group(2))
+        # the policy is the last <length><name> of its mangled scope
+        policy = next(n.group(2) for i in range(len(scope) - 1, -1, -1)
+                      if (n := re.fullmatch(r"([0-9]+)([A-Za-z_]\w*)", scope[i:]))
+                      and int(n.group(1)) == len(n.group(2)))
+        row["tiles"] = f"{policy}<{', '.join(ints)}>"
+    return rows
+
+
+def kernel_rows(build, kernel: str, pattern: str, name) -> list[dict]:
+    """ptxas's rows for the kernels whose mangled names contain ``kernel``
+    and match the regular expression ``pattern``, each named ``name(match)``
+    under ``tiles``."""
+    import re
+
+    return [dict(row, tiles=name(m)) for row in build.resource_report(kernel)
+            if (m := re.search(pattern, row["kernel"]))]
+
+
+def sass_functions(lib_path: Path) -> dict[str, list[tuple[int, str]]]:
+    """The SASS of every kernel of a built library (``cuobjdump -sass``):
+    {mangled name: [(address, instruction text)]}, branch targets written as
+    addresses."""
+    import re
+
+    from stutter_tpu_torch.ops._build import _nvcc
+
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    funcs, name, labels, pending = {}, None, {}, []
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name, labels, pending = m.group(1), {}, []
+            funcs[name] = []
+            continue
+        if name is None:
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            addr = int(m.group(1), 16)
+            for label in pending:
+                labels[label] = addr
+            pending = []
+            funcs[name].append((addr, m.group(2)))
+    for name, instrs in funcs.items():  # labels -> addresses
+        funcs[name] = [(a, re.sub(r"`?\(?(\.L_x_\d+)\)?", lambda m: hex(labels.get(m.group(1), -1)),
+                                  s)) for a, s in instrs]
+    return funcs
+
+
+def opcode(text: str) -> str:
+    """An instruction's opcode without its predicate: MUFU keeps its
+    function (MUFU.EX2), the others lose their modifiers."""
+    op = text.split()[1] if text.startswith("@") else text.split()[0]
+    return op if op.startswith("MUFU") else op.split(".")[0]
+
+
+def sass_loops(instrs: list[tuple[int, str]]) -> list[dict]:
+    """The loops of one kernel that issue wgmma, in program order, with the
+    opcodes their body always runs: the instructions between a loop's head
+    and its backward branch that no forward branch inside the body jumps
+    over (the edge tile's masking, a rescale, the 4-byte copies are skipped
+    on the common path). ``tiles``: key tiles an iteration (MUFU.EX2 / 32,
+    one exponential a score and 32 scores a thread and tile)."""
+    import re
+
+    index = {a: i for i, (a, _) in enumerate(instrs)}
+    branches = []
+    for i, (a, text) in enumerate(instrs):
+        m = re.search(r"\bBRA\S*\s+(?:[^,;]*,\s*)?(0x[0-9a-f]+)", text)
+        if m and int(m.group(1), 16) in index:
+            branches.append((i, index[int(m.group(1), 16)]))
+    loops = []
+    last = {}  # a loop's head -> its last backward branch
+    for i, head in branches:
+        if head < i:
+            last[head] = max(i, last.get(head, i))
+    for head, i in last.items():
+        body = range(head, i + 1)
+        if not any("GMMA" in opcode(instrs[j][1]) for j in body):
+            continue
+        skipped = set()
+        for a, target in branches:
+            if head <= a < target <= i:
+                skipped.update(range(a + 1, target))
+        counts = {}
+        for j in body:
+            if j not in skipped:
+                op = opcode(instrs[j][1])
+                counts[op] = counts.get(op, 0) + 1
+        loops.append({"head": instrs[head][0], "counts": counts,
+                      "tiles": max(1, round(counts.get("MUFU.EX2", 0) / 32))})
+    return sorted(loops, key=lambda loop: loop["head"])
+
+
+# the opcodes of a score's chain, shown per score
+CHAIN_OPS = ("FFMA", "FMUL", "FADD", "FMNMX", "FSEL", "MUFU.EX2", "F2FP", "HFMA2", "HADD2",
+             "HMUL2", "HMNMX2", "PRMT", "IADD3", "LOP3", "I2F", "F2I", "LDS", "SHFL")
+
+
+def probe_sass(lib_path: Path) -> list[dict]:
+    """Per probe kernel: its wgmma and mma.sync opcodes, and per wgmma loop
+    (a pass) the chain's opcodes per score and all instructions per score."""
+    import re
+
+    rows = []
+    for name, instrs in sass_functions(lib_path).items():
+        m = re.search(r"softmax_variant_kernelILb(\d)ELb(\d)EE", name)
+        kernel = (f"softmax_variant<{m.group(1)}, {m.group(2)}>" if m else
+                  "attn_int8" if "attn_int8_kernel" in name else None)
+        if kernel is None:
+            continue
+        ops = [opcode(text) for _, text in instrs]
+        row = {"kernel": kernel, **{op: ops.count(op) for op in ("HGMMA", "IGMMA", "HMMA", "IMMA")},
+               "passes": []}
+        for loop in sass_loops(instrs):
+            per = 32 * loop["tiles"]
+            row["passes"].append({
+                "tiles_an_iteration": loop["tiles"],
+                "per_score": {op: round(loop["counts"].get(op, 0) / per, 3) for op in CHAIN_OPS
+                              if loop["counts"].get(op)},
+                "all_per_score": round(sum(loop["counts"].values()) / per, 3)})
+        rows.append(row)
+    return sorted(rows, key=lambda row: row["kernel"])
+
+
 def phase_tile_resources(build) -> None:
     """What ptxas said of the bf16 wgmma kernels at the build, every
     instantiation of the forward tiles, of the backward, of the stem's conv
-    layers, of the positional conv and of the probes: no spill, no stack, no serialised wgmma; and,
-    from the SASS, that the probes' main kernels issue wgmma and no
-    mma.sync."""
-    import re
-
-    from stutter_tpu_torch.cli.flash_tiles_ab import (
-        bwd_tile_kernels,
-        probe_kernel_rows,
-        probe_sass,
-        stem_tile_kernels,
-        tile_kernels,
-    )
-
-    rows = tile_kernels(build)
-    found = {row["tiles"] for row in rows}
-    check(len(rows) == len(TILE_KERNELS) and found == TILE_KERNELS,
-          f"expected the bf16 tiles {sorted(TILE_KERNELS)}, found {sorted(found)}")
-    bwd_rows = bwd_tile_kernels(build)
-    found = {row["tiles"] for row in bwd_rows}
-    check(len(bwd_rows) == len(BWD_TILE_KERNELS) and found == BWD_TILE_KERNELS,
-          f"expected the backward's kernels {sorted(BWD_TILE_KERNELS)}, found {sorted(found)}")
-    stem_rows = stem_tile_kernels(build)
-    found = {row["tiles"] for row in stem_rows}
-    check(len(stem_rows) == len(STEM_TILE_KERNELS) and found == STEM_TILE_KERNELS,
-          f"expected the stem's kernels {sorted(STEM_TILE_KERNELS)}, found {sorted(found)}")
-    pos_conv_rows = []
-    for row in build.resource_report("pos_conv_kernel"):
-        m = re.search(r"pos_conv_kernelILi(\d+)EE", row["kernel"])
-        if m:
-            pos_conv_rows.append(dict(row, tiles=f"pos_conv<{m.group(1)}>"))
-    found = {row["tiles"] for row in pos_conv_rows}
-    check(len(pos_conv_rows) == len(POS_CONV_KERNELS) and found == POS_CONV_KERNELS,
-          f"expected the positional conv's kernels {sorted(POS_CONV_KERNELS)}, found "
-          f"{sorted(found)}")
-    probe_rows = probe_kernel_rows(build)
-    found = {row["tiles"] for row in probe_rows}
-    check(len(probe_rows) == len(PROBE_KERNELS) and found == PROBE_KERNELS,
-          f"expected the probes' kernels {sorted(PROBE_KERNELS)}, found {sorted(found)}")
-    named = ([(f"attention_bf16_kernel<{row['tiles']}>", row) for row in rows]
-             + [(f"bwd_{row['tiles']}", row) for row in bwd_rows]
-             + [(f"stem_{row['tiles']}", row) for row in stem_rows]
-             + [(row["tiles"], row) for row in pos_conv_rows]
-             + [(f"probe_{row['tiles']}", row) for row in probe_rows])
-    for name, row in named:
-        say("ptxas", kernel=name,
-            registers=row["registers"], stack_bytes=row["stack_bytes"],
-            spill_store_bytes=row["spill_store_bytes"],
-            spill_load_bytes=row["spill_load_bytes"])
-        check(row["stack_bytes"] == 0 and row["spill_store_bytes"] == 0
-              and row["spill_load_bytes"] == 0, f"{name}: the bf16 tiles spill")
+    layers, of the positional conv and of the probes: no spill, no stack, no
+    serialised wgmma; and, from the SASS, that the probes' main kernels issue
+    wgmma and no mma.sync."""
+    # (how its [ptxas] lines name a kernel, its rows, the instantiations expected)
+    families = [
+        ("attention_bf16_kernel<{}>", tile_kernels(build), TILE_KERNELS),
+        ("bwd_{}", kernel_rows(build, "_bf16_kernel",
+                               r"bwd_(dq|dkv|dbias)_bf16_kernel(?:ILi(\d+)EE)?",
+                               lambda m: m[1] + (f"<{m[2]}>" if m[2] else "")), BWD_TILE_KERNELS),
+        ("stem_{}", kernel_rows(build, "stem_conv_kernel", r"stem_conv_kernelILi(\d+)EE",
+                                lambda m: f"conv<{m[1]}>"), STEM_TILE_KERNELS),
+        ("{}", kernel_rows(build, "pos_conv_kernel", r"pos_conv_kernelILi(\d+)EE",
+                           lambda m: f"pos_conv<{m[1]}>"), POS_CONV_KERNELS),
+        ("probe_{}", kernel_rows(
+            build, "_kernel",
+            r"(quantize_kv|attn_int8)_kernel|softmax_variant_kernelILb(\d)ELb(\d)EE",
+            lambda m: m[1] or f"softmax_variant<{m[2]}, {m[3]}>"), PROBE_KERNELS)]
+    for label, rows, expected in families:
+        found = sorted(row["tiles"] for row in rows)
+        check(found == sorted(expected), f"expected the kernels {sorted(expected)}, found {found}")
+        for row in rows:
+            name = label.format(row["tiles"])
+            say("ptxas", kernel=name,
+                registers=row["registers"], stack_bytes=row["stack_bytes"],
+                spill_store_bytes=row["spill_store_bytes"],
+                spill_load_bytes=row["spill_load_bytes"])
+            check(row["stack_bytes"] == 0 and row["spill_store_bytes"] == 0
+                  and row["spill_load_bytes"] == 0, f"{name}: the bf16 tiles spill")
     warnings = build.serialized_wgmma_warnings()
     say("ptxas", serialized_wgmma_warnings=len(warnings))
     check(not warnings, "ptxas serialised a wgmma:\n" + "\n".join(warnings))
@@ -1382,8 +1708,7 @@ def mha_cases(torch, mha, cases, head_dim: int, phase: str):
     g = torch.Generator(device="cuda").manual_seed(0 if head_dim == 64 else 21)
     worst, rows = 0.0, []
     for B, H, L, dtype, kv in cases:
-        q, k, v = ((torch.randn(B, L, H, head_dim, device="cuda", generator=g) * 0.5)
-                   .to(dtype).transpose(1, 2) for _ in range(3))
+        q, k, v = make_qkv(torch, g, B, H, L, dtype, d=head_dim)
         kv_valid = None if kv is None else torch.tensor(kv, dtype=torch.int32, device="cuda")
         out = mha.flash_mha(q, k, v, kv_valid)
         ref = mha.flash_mha_reference(q, k, v, kv_valid)
@@ -1531,18 +1856,43 @@ def phase_mha_bias(torch, mha):
     return worst, headline
 
 
+def probe_inputs(torch, g, B, L):
+    """The probes' operands on the card: contiguous bf16 q, k, v (randn *
+    0.3), bias, gate, and a key mask that cuts the last clip short."""
+    H = 16
+    q, k, v = ((torch.randn(B, H, L, 64, device="cuda", generator=g) * 0.3).to(torch.bfloat16)
+               for _ in range(3))
+    bias = torch.randn(H, L, L, device="cuda", generator=g)
+    gate = torch.rand(B, H, L, device="cuda", generator=g)
+    mask = torch.zeros(B, L, device="cuda")
+    mask[-1, L // 2:] = -1e9
+    return q, k, v, bias, gate, mask
+
+
+def int8_operands_equal(torch, probes, k, v) -> bool:
+    """Whether the int8 prologue's k and v and their scales equal the plain
+    version's bit for bit, vq in its padded transposed layout."""
+    kq, sk, vqt, sv = probes.quantize_kv(k, v)
+    rkq, rsk, rvq, rsv = probes.quantize_kv_reference(k, v)
+    return (torch.equal(kq, rkq) and torch.equal(sk, rsk) and torch.equal(sv, rsv)
+            and torch.equal(vqt, probes.transpose_padded_reference(rvq)))
+
+
+# the probes' cases (clips, frames), 16 heads: their CLIs' 30 s and 20 s
+# defaults, then ragged lengths: under one 64-key tile, 64 * 16 + 1, one
+# tile, one key past it and one past two
+PROBE_CASES = ((25, 1504), (30, 1008), (3, 37), (4, 1025), (2, 64), (2, 65), (2, 129))
+
+
 def phase_probe_kernels(torch, probes, card: str):
     """The int8 probe's kernels and the four softmax variants against their
-    plain versions at the probes' 30 s and 20 s cases (25 x 16 x 1504 x 64,
-    30 x 16 x 1008 x 64) and two ragged lengths (37, under one 64-key tile,
-    and 1025 = 64 * 16 + 1), the int8 operands bit-equal; returns {kernel:
-    (worst max-abs error, the numbers at the 30 s case)}."""
-    from stutter_tpu_torch.cli.flash_tiles_ab import int8_operands_equal, probe_inputs
+    plain versions at ``PROBE_CASES``, the int8 operands bit-equal; returns
+    {kernel: (worst max-abs error, the numbers at the 30 s case)}."""
     from stutter_tpu_torch.utils.benchmarking import BF16_PEAK, INT8_PEAK, bound
 
     g = torch.Generator(device="cuda").manual_seed(12)
     result = {"attn_int8": (0.0, None), "attn_softmax_variants": (0.0, None)}
-    for B, L in ((25, 1504), (30, 1008), (3, 37), (4, 1025)):
+    for B, L in PROBE_CASES:
         q, k, v, bias, gate, mask = args = probe_inputs(torch, g, B, L)
         check(int8_operands_equal(torch, probes, k, v),
               f"int8 k, v or their scales differ from the plain version's at {B}x16x{L}")
@@ -2664,6 +3014,24 @@ def stem_flops_bytes(st, B: int, T: int, weights, table):
     return flops, io, between, weight_reads
 
 
+def seeded_stem_layers(torch):
+    """WavLM-Large's conv stem in bf16 on the card: weights drawn like
+    init_wavlm's, biases and norm affines given seeded noise so that every
+    term of the epilogue is exercised."""
+    from stutter_tpu_torch.models.wavlm import ConvFeatureEncoder, WavLMConfig
+
+    g = torch.Generator().manual_seed(0)
+    stem = ConvFeatureEncoder(WavLMConfig.large())
+    with torch.no_grad():
+        for layer in stem.layers:
+            c_out, c_in, k = layer.weight.shape
+            layer.weight.copy_(torch.randn(layer.weight.shape, generator=g) * (c_in * k) ** -0.5)
+            layer.bias.copy_(torch.randn(c_out, generator=g) * 0.1)
+            layer.norm_scale.copy_(1.0 + 0.1 * torch.randn(c_out, generator=g))
+            layer.norm_bias.copy_(0.1 * torch.randn(c_out, generator=g))
+    return stem.to("cuda", torch.bfloat16)
+
+
 # the stem's cases (clips, samples, timed): the 3 s and 30 s buckets; then one
 # clip, a one-frame clip (T = 400), an unaligned length, and 1 s clips, whose
 # layers 1 and 6 leave a cluster with a CTA of no rows
@@ -2681,8 +3049,6 @@ def phase_stem(torch, card: str):
     from stutter_tpu_torch.models.wavlm import WavLMConfig, wavlm_feature_lengths
     from stutter_tpu_torch.ops import wavlm_stem as st
     from stutter_tpu_torch.utils.benchmarking import BF16_PEAK, bound
-
-    from stutter_tpu_torch.cli.flash_tiles_ab import seeded_stem_layers
 
     cfg = WavLMConfig.large()
     stem = seeded_stem_layers(torch)
@@ -2720,7 +3086,7 @@ def phase_stem(torch, card: str):
                       nrmse=f"{nrmse:.3e}", nrmse_tol=STEM_NRMSE, cosine_dist=f"{cos:.3e}",
                       cosine_tol=STEM_COSINE, vs_convfeature_nrmse=f"{lib_nrmse:.3e}",
                       vs_convfeature_cosine=f"{lib_cos:.3e}")
-        if timing:
+        if timed:
             ms, plain_ms, library_ms = time_turns(
                 torch, lambda: st.wavlm_fused_stem(wave, weights, table),
                 lambda: st.wavlm_fused_stem_reference(wave, weights, table),
@@ -2864,43 +3230,6 @@ def phase_pos_conv(torch, card: str):
         torch.cuda.empty_cache()
     say("pos_conv", launches=pc.pos_conv_residual.launches)
     return worst, cases["8x1504x1920"], cases
-
-
-def phase_stem_ab(torch, card: str) -> int:
-    """cli.stem_fused_ab.main at its defaults (turbo) and with --preset fast:
-    fidelity of the fused path against the f32 path and against the plain
-    stem's, one stem launch per encode, the four timings. Returns the stem
-    kernel's launches over both runs."""
-    import io
-
-    from stutter_tpu_torch.cli import stem_fused_ab
-
-    zero_counts()
-    for argv in ([], ["--preset", "fast"]):
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            rc = stem_fused_ab.main(argv)
-        check(rc == 0, f"stem_fused_ab {argv} returned {rc}")
-        r = json.loads(buf.getvalue().strip().splitlines()[-1])
-        bar = TURBO_COSINE if r["preset"] == "turbo" else STEM_AB_FAST_COSINE
-        fused, plain = r["fused_fidelity_vs_f32"], r["plain_fidelity_vs_f32"]
-        say("stem_ab", preset=r["preset"], batch=f"{r['batch']}x{r['n_samples']}",
-            fused_cosine_vs_f32=f"{fused:.3e}", plain_cosine_vs_f32=f"{plain:.3e}",
-            bar=bar, ratio_bar=f"{STEM_AB_RATIO}x max(plain, {STEM_AB_FLOOR})",
-            launches_per_encode=r["stem_launches_per_encode"],
-            **{k: ",".join(f"{t:.3f}" for t in r[k])
-               for k in ("stem_plain_ms", "stem_fused_ms", "e2e_plain_ms", "e2e_fused_ms")},
-            e2e_plain_audio_s_per_s=f"{r['e2e_plain_audio_s_per_s']:.1f}",
-            e2e_fused_audio_s_per_s=f"{r['e2e_fused_audio_s_per_s']:.1f}", card=f'"{card}"')
-        check(r["stem_launches_per_encode"] == 1,
-              f"{r['stem_launches_per_encode']} stem launches in one fused encode")
-        check(fused <= bar, f"{r['preset']}: fused path {fused:.3e} from f32, bar {bar}")
-        check(fused <= STEM_AB_RATIO * max(plain, STEM_AB_FLOOR),
-              f"{r['preset']}: fused path {fused:.3e} from f32, plain path {plain:.3e}")
-        torch.cuda.empty_cache()
-    launches = read_counts()["wavlm_fused_stem"]
-    check(launches > 0, "the stem A/B launched no stem kernel")
-    return launches
 
 
 def worst_pooled(a, b) -> float:
@@ -4800,10 +5129,15 @@ def main() -> int:
             with timed("turbo_slice"):
                 phase_slice(torch, turbo, work, phase="turbo_slice")
                 wave, lengths = wavlm_test_batch(torch, extractor.cfg)
+                zero_counts()
                 phase_turbo_fidelity(
                     torch, "wavlm-large",
                     lambda m: m.encode(wave, extractor.layer_indices, lengths),
                     turbo.model, extractor.model, fid_model)
+                # the f32 model keeps the plain stem; turbo and fast take the fused one
+                stem_calls = read_counts()["wavlm_fused_stem"]
+                check(stem_calls == 2, f"{stem_calls} fused stem calls in the turbo fidelity "
+                      "batch, expected 2")
             with timed("turbo_ffn_slice"):
                 turbo_ffn = WavLMExtractor(copy.deepcopy(fid_model), "cuda", preset="turbo_ffn")
                 ffn_counts = phase_slice(torch, turbo_ffn, work, phase="turbo_ffn_slice")
@@ -4823,8 +5157,6 @@ def main() -> int:
             torch.save(extractor.model.state_dict(), work / "wavlm_fast.pt")  # for [parallel]
             del extractor, turbo, base
             torch.cuda.empty_cache()
-            with timed("stem_ab"):
-                stem_launches = phase_stem_ab(torch, card)
 
             with timed("whisper_init"):
                 cfg = WhisperConfig.large()
@@ -4970,7 +5302,6 @@ def main() -> int:
     line[1]["also_replaces"] = ["stutter_tpu/ops/wavlm_attention_vjp.py:68",
                                 "stutter_tpu/ops/wavlm_attention_vjp.py:115"]
     line[1]["max_rel_err"] = bwd_rel
-    line[4]["stem_ab_launches"] = stem_launches
     # no Pallas kernel: the JAX package's positional conv is XLA's conv
     line[6]["jax_counterpart"] = "stutter_tpu/models/wavlm.py:316 (conv_general_dilated)"
     line[6]["cases"] = pos_conv_cases

@@ -172,9 +172,9 @@ class Wav2Vec2Model(nn.Module):
         # checkpoint converts without loss
         self.masked_spec_embed = param((D,), device, dtype)
 
-    def _run(self, waveform, sample_lengths, collect, use_fused_stem):
+    def _run(self, waveform, sample_lengths, collect):
         cfg = self.cfg
-        feats = self.feature_encoder.fused(waveform, sample_lengths) if use_fused_stem else None
+        feats = self.feature_encoder.fused(waveform, sample_lengths)
         if feats is None:
             feats = self.feature_encoder(waveform, sample_lengths)
         hidden = self.feature_projection(feats)
@@ -197,18 +197,16 @@ class Wav2Vec2Model(nn.Module):
         return hidden, collected, frame_lengths
 
     @torch.inference_mode()
-    def forward(self, waveform, sample_lengths=None, use_fused_stem=True):
+    def forward(self, waveform, sample_lengths=None):
         """waveform [B, T] f32 (frontend-normalised); sample_lengths [B] true
         sample counts. Returns (last [B, L, D], hidden states [N+1, B, L, D],
         frame lengths [B]). The stem takes the fused kernel where
         ``ConvFeatureEncoder.fused`` gives its frames."""
-        last, states, frame_lengths = self._run(waveform, sample_lengths,
-                                                lambda i, h, fl: h, use_fused_stem)
+        last, states, frame_lengths = self._run(waveform, sample_lengths, lambda i, h, fl: h)
         return last, torch.stack(states), frame_lengths
 
     @torch.inference_mode()
-    def encode(self, waveform, layer_indices, sample_lengths=None, use_fused_stem=True,
-               attention_fn=None):
+    def encode(self, waveform, layer_indices, sample_lengths=None, attention_fn=None):
         """Masked mean-pooled hidden states at ``layer_indices``:
         [len(layer_indices), B, D] f32. ``attention_fn`` is ``WavLMModel.encode``'s
         hook for its long buckets, so that ``WavLMExtractor`` drives both
@@ -220,5 +218,5 @@ class Wav2Vec2Model(nn.Module):
         def collect(i, h, frame_lengths):
             return masked_mean_pool(h, frame_lengths) if i in wanted else None
 
-        _, pooled, _ = self._run(waveform, sample_lengths, collect, use_fused_stem)
+        _, pooled, _ = self._run(waveform, sample_lengths, collect)
         return torch.stack([pooled[i] for i in layer_indices])

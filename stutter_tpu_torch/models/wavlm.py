@@ -8,8 +8,8 @@ on the card, its plain version on the CPU). Public functions keep the JAX
 package's layouts ([B, L, C] frames and hidden states) so that the two
 packages compare like with like; inside, the stem runs PyTorch's [B, C, T].
 ``forward``/``encode`` run the stem through the fused kernel of
-``ops.wavlm_stem`` wherever it applies and can run; ``use_fused_stem=False``
-forces the plain stem. ``PosConvEmbedding`` returns hidden plus the positional
+``ops.wavlm_stem`` wherever ``ConvFeatureEncoder.fused``'s gate passes.
+``PosConvEmbedding`` returns hidden plus the positional
 embedding, through ``ops.pos_conv``'s kernel where its gate passes (bf16 on
 the card, no autograd). The projections go through ``ops.quant.linear``, which
 takes the turbo presets' int8 weights, or with ``int8_forward`` set on a
@@ -296,7 +296,14 @@ class ConvFeatureEncoder(nn.Module):
         """The frames of ``ops.wavlm_stem.wavlm_fused_stem`` where it applies
         exactly (bf16 weights and ``fused_stem_applicable``) and can run
         (``fused_stem_supported``), zeroed past each clip's frames; None
-        elsewhere, where the caller runs the plain stem."""
+        elsewhere, where the caller runs the plain stem.
+
+        ``forward`` and ``encode`` of ``WavLMModel`` and ``Wav2Vec2Model``,
+        the inference passes (under ``inference_mode``), take these frames
+        wherever this gate passes. The differentiable
+        ``WavLMModel.pooled_states`` never calls it, with or without
+        ``stop_stem_gradient`` and under ``no_grad`` too: the kernel has no
+        backward, so fine-tuning's stem stays on the plain path."""
         cfg = self.cfg
         if not (self.layers[0].weight.dtype == torch.bfloat16
                 and fused_stem_applicable(cfg, waveform.shape[1], self.layers)
@@ -550,11 +557,11 @@ class WavLMModel(nn.Module):
         return table[self._buckets[key]].permute(2, 0, 1).float().contiguous()
 
     def _run(self, waveform, sample_lengths, collect, attention_fn, params=None,
-             stop_stem_gradient=False, augment=None, remat=None, use_fused_stem=False):
+             stop_stem_gradient=False, augment=None, remat=None, plain_stem=False):
         """The forward. ``params`` ({state-dict name: tensor}) replaces the
-        module's parameters (the training step's cast weights);
-        ``use_fused_stem`` is ``encode``'s; the other options are
-        ``pooled_states``'."""
+        module's parameters (the training step's cast weights); ``plain_stem``
+        keeps the stem off ``ConvFeatureEncoder.fused``; these and the other
+        options are ``pooled_states``'."""
         cfg = self.cfg
         if remat not in REMAT_MODES:
             raise ValueError(f"remat must be one of {REMAT_MODES}, got {remat!r}")
@@ -570,7 +577,7 @@ class WavLMModel(nn.Module):
             return getattr(self, name) if params is None else params[name]
 
         stem = self.feature_encoder
-        feats = stem.fused(waveform, sample_lengths) if use_fused_stem else None
+        feats = None if plain_stem else stem.fused(waveform, sample_lengths)
         if feats is None:
             with torch.no_grad() if stop_stem_gradient else contextlib.nullcontext():
                 feats = call(stem, "feature_encoder.", waveform, sample_lengths)
@@ -631,35 +638,27 @@ class WavLMModel(nn.Module):
         return hidden, collected, frame_lengths
 
     @torch.inference_mode()
-    def forward(self, waveform, sample_lengths=None, use_fused_stem=True):
+    def forward(self, waveform, sample_lengths=None):
         """waveform [B, T] f32 (frontend-normalised); sample_lengths [B] true
         sample counts. Returns (last [B, L, D], hidden states [N+1, B, L, D],
-        frame lengths [B]).
-
-        The conv stem runs through ``ops.wavlm_stem.wavlm_fused_stem`` where
-        it applies exactly (bf16 parameters and ``fused_stem_applicable``),
-        as ``wavlm_forward(use_fused_stem=True)`` does in the JAX package,
-        and where it can run (``fused_stem_supported``: on the card, a
-        512-wide stem); elsewhere, and with ``use_fused_stem=False``, through
-        the plain ``ConvFeatureEncoder``."""
+        frame lengths [B]). The stem takes the fused kernel where
+        ``ConvFeatureEncoder.fused`` gives its frames."""
         last, states, frame_lengths = self._run(
-            waveform, sample_lengths, lambda i, h, fl: h, None, use_fused_stem=use_fused_stem)
+            waveform, sample_lengths, lambda i, h, fl: h, None)
         return last, torch.stack(states), frame_lengths
 
     @torch.inference_mode()
-    def encode(self, waveform, layer_indices, sample_lengths=None, attention_fn=None,
-               use_fused_stem=True):
+    def encode(self, waveform, layer_indices, sample_lengths=None, attention_fn=None):
         """Masked mean-pooled hidden states at ``layer_indices``:
         [len(layer_indices), B, D] f32. ``attention_fn`` replaces the
-        attention core (the default is the kernel wrapper);
-        ``use_fused_stem`` is ``forward``'s."""
+        attention core (the default is the kernel wrapper); the stem is
+        ``forward``'s."""
         wanted = set(layer_indices)
 
         def collect(i, h, frame_lengths):
             return masked_mean_pool(h, frame_lengths) if i in wanted else None
 
-        _, pooled, _ = self._run(waveform, sample_lengths, collect, attention_fn,
-                                 use_fused_stem=use_fused_stem)
+        _, pooled, _ = self._run(waveform, sample_lengths, collect, attention_fn)
         return torch.stack([pooled[i] for i in layer_indices])
 
     def pooled_states(self, waveform, sample_lengths=None, params=None,
@@ -684,5 +683,5 @@ class WavLMModel(nn.Module):
         _, pooled, _ = self._run(
             waveform, sample_lengths, lambda i, h, fl: masked_mean_pool(h, fl),
             attention_fn or gated_relpos_attention_diff, params, stop_stem_gradient,
-            augment, remat)
+            augment, remat, plain_stem=True)
         return torch.stack(pooled)

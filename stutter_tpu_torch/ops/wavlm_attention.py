@@ -163,7 +163,7 @@ def launch_tiles(q, k, v, position_bias, gate, key_mask_bias, row_stats, grid_or
     """Launch the CUDA kernel on checked CUDA inputs with the given bf16
     grid order (read by the bf16 path only), uncounted.
     ``gated_relpos_attention`` calls it with ``grid_order_for``'s order;
-    ``cli/flash_tiles_ab.py`` times the other one through it."""
+    ``chip_smoke.py`` [gated_edges] checks both orders through it."""
     if q.device.type != "cuda":
         raise ValueError(f"launch_tiles launches a CUDA kernel; got a tensor on {q.device}")
     from stutter_tpu_torch.ops._build import kernel_library
@@ -232,8 +232,8 @@ def launch_backward(q, k, v, position_bias, gate, key_mask_bias, out, do, row_st
     like q) with the given bf16 grid order and clip groups (read by the bf16
     path only), uncounted: (dq, dk, dv, dbias, dgate).
     ``gated_relpos_attention_backward`` calls it with ``grid_order_for``'s
-    order and ``clip_groups_for``'s groups; ``cli/flash_tiles_ab.py`` runs
-    the others through it."""
+    order and ``clip_groups_for``'s groups; ``chip_smoke.py`` [bwd_edges]
+    checks the others through it."""
     if _device_kind(q) != "cuda":
         raise ValueError(f"launch_backward launches CUDA kernels; got a tensor on {q.device}")
     from stutter_tpu_torch.ops._build import kernel_library

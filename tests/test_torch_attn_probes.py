@@ -217,28 +217,6 @@ def test_transpose_padded_reference_at_key_align(L):
     assert torch.equal(vqt[..., :L], vq.transpose(-1, -2))
 
 
-def test_ab_tool_raises_for_the_probes_without_card(monkeypatch):
-    from stutter_tpu_torch.cli import flash_tiles_ab
-
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        flash_tiles_ab.main(["--kernels", "probes", "--skip_timing"])
-
-
-@pytest.mark.parametrize("align", [32, 64])
-def test_prev_key_align_reads_the_checkout(tmp_path, align):
-    """The A/B tool pads an earlier checkout's int8 v to that checkout's own
-    KEY_ALIGN, which its attn_int8 entries check."""
-    from stutter_tpu_torch.cli import flash_tiles_ab
-
-    ops = tmp_path / "stutter_tpu_torch" / "ops"
-    ops.mkdir(parents=True)
-    (ops / "attn_probes.py").write_text(
-        f"BLOCK_Q = 32\nKEY_ALIGN = {align}  # the key tile\nLp = KEY_ALIGN\n")
-    assert flash_tiles_ab.prev_key_align(tmp_path) == align
-    assert flash_tiles_ab.prev_key_align(REPO) == attn_probes.KEY_ALIGN
-
-
 # cuobjdump's layout: a kernel's name, then one instruction a line (address,
 # optional predicate, opcode, operands), branch targets as addresses
 _SASS = """
@@ -290,14 +268,14 @@ def _sass_body() -> str:
 
 
 def test_probe_sass_counts_the_common_path(monkeypatch, tmp_path):
-    """``flash_tiles_ab.probe_sass`` names the probes' kernels, counts
+    """``chip_smoke.probe_sass`` names the probes' kernels, counts
     their wgmma and mma.sync opcodes, and per loop the opcodes its body
     always runs: a block that a forward branch skips (a rescale) and the
     loop inside it are left out; MUFU.EX2 / 32 gives the tiles an
     iteration."""
     import subprocess
 
-    from stutter_tpu_torch.cli import flash_tiles_ab
+    import chip_smoke
     from stutter_tpu_torch.ops import _build
 
     text = _SASS.replace("{body}", _sass_body())
@@ -309,7 +287,7 @@ def test_probe_sass_counts_the_common_path(monkeypatch, tmp_path):
         return subprocess.CompletedProcess(cmd, 0, stdout=text, stderr="")
 
     monkeypatch.setattr(subprocess, "run", run)
-    rows = flash_tiles_ab.probe_sass(tmp_path / "lib.so")
+    rows = chip_smoke.probe_sass(tmp_path / "lib.so")
     assert calls[0][:2] == ["/toolkit/bin/cuobjdump", "-sass"]
     assert [row["kernel"] for row in rows] == ["attn_int8", "softmax_variant<1, 0>"]
     int8, variant = rows

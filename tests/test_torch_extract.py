@@ -315,7 +315,7 @@ def test_port_imports_neither_jax_nor_pandas():
         "import stutter_tpu_torch.train.heads, stutter_tpu_torch.train.metrics\n"
         "import stutter_tpu_torch.train.optim, stutter_tpu_torch.train.persistence\n"
         "import stutter_tpu_torch.ops.quant, stutter_tpu_torch.ops.wavlm_stem\n"
-        "import stutter_tpu_torch.cli.stem_fused_ab, stutter_tpu_torch.ops.attn_probes\n"
+        "import stutter_tpu_torch.ops.attn_probes\n"
         "import stutter_tpu_torch.cli.attn_int8_probe, stutter_tpu_torch.cli._attn_probe\n"
         "import stutter_tpu_torch.cli.attn_softmax_variants_probe\n"
         "import stutter_tpu_torch.cli.common, stutter_tpu_torch.models.verify\n"

@@ -19,6 +19,8 @@ Bars:
   L as -inf.
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,7 +29,6 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 import stutter_tpu.models.attention as jattention
-from stutter_tpu_torch.cli import flash_tiles_ab
 from stutter_tpu_torch.ops import flash_mha as tmha
 from tests.conftest import cosine_distance
 
@@ -135,10 +136,89 @@ def test_wrappers_refuse_cpu_tensors_with_no_card(monkeypatch, L):
     assert torch.equal(out, tmha.flash_mha_reference(q, k, v))
 
 
-def test_ab_script_raises_without_card(monkeypatch):
+def test_chip_smoke_needs_a_card(monkeypatch, capsys):
+    """The card check refuses to run with no card rather than fall back to
+    the CPU."""
+    import chip_smoke
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        flash_tiles_ab.main([])
+    assert chip_smoke.main() == 1
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+# the mangled names of the kernels whose ptxas rows chip_smoke.py reads, as
+# nvcc 12.8 printed them for sm_90a; then two it must leave out (f32 tiles)
+_PTXAS_KERNELS = [
+    "_ZN4sm9021attention_bf16_kernelIN45_GLOBAL__N__89d3f55a_12_flash_mha_cu_03f1aa2010Key"
+    "PaddingELi120ELi2ELi4ELi1ELi0EEEvPK13__nv_bfloat16S5_S5_NT_6ParamsEPS3_Pfiiiiixxx",
+    "_ZN4sm9021attention_bf16_kernelIN45_GLOBAL__N__89d3f55a_12_flash_mha_cu_03f1aa2010Key"
+    "PaddingELi64ELi2ELi4ELi2ELi0EEEvPK13__nv_bfloat16S5_S5_NT_6ParamsEPS3_Pfiiiiixxx",
+    "_ZN4sm9021attention_bf16_kernelIN45_GLOBAL__N__89d3f55a_12_flash_mha_cu_03f1aa208Full"
+    "BiasELi64ELi2ELi4ELi1ELi0EEEvPK13__nv_bfloat16S5_S5_NT_6ParamsEPS3_Pfiiiiixxx",
+    *("_ZN4sm9021attention_bf16_kernelIN51_GLOBAL__N__a806e445_18_wavlm_attention_cu_e73ede5a"
+      f"13GatedBiasRingELi64ELi1ELi3ELi2ELi{order}EEEvPK13__nv_bfloat16S5_S5_NT_6ParamsEPS3_"
+      "Pfiiiiixxx" for order in (0, 1)),
+    *(f"_ZN55_GLOBAL__N__be996e00_22_wavlm_attention_bwd_cu_8fd40e8c{part}_bf16_kernelILi"
+      f"{order}EEEvNS_7BwdArgsEii" for part in ("18bwd_dq", "19bwd_dkv") for order in (0, 1)),
+    "_ZN55_GLOBAL__N__be996e00_22_wavlm_attention_bwd_cu_8fd40e8c21bwd_dbias_bf16_kernelENS_7"
+    "BwdArgsEiiiPf",
+    *(f"_ZN46_GLOBAL__N__ce95eed6_13_wavlm_stem_cu_5bff1e5316stem_conv_kernelILi{taps}EEEv14"
+      "CUtensorMap_stPK13__nv_bfloat16PKfPS2_iii" for taps in (2, 3)),
+    *(f"_ZN44_GLOBAL__N__b5f12560_11_pos_conv_cu_315cbbe415pos_conv_kernelILi{cg}EEEvPK13__nv_"
+      "bfloat16S3_PKfPS1_iiii" for cg in (64, 120)),
+    "_ZN47_GLOBAL__N__f6e91de3_14_attn_probes_cu_0550803e16attn_int8_kernelEPK13__nv_bfloat16PK"
+    "aPKfS4_S6_NS_11ProbeParamsEPS0_iiiiii",
+    "_ZN47_GLOBAL__N__f6e91de3_14_attn_probes_cu_0550803e18quantize_kv_kernelEPK13__nv_bfloat16"
+    "S2_PaPfS3_S4_ii",
+    *(f"_ZN47_GLOBAL__N__f6e91de3_14_attn_probes_cu_0550803e22softmax_variant_kernelILb{a}ELb{b}"
+      "EEEvPK13__nv_bfloat16S3_S3_NS_11ProbeParamsEPS1_iiiii" for a in (0, 1) for b in (0, 1)),
+    "_ZN45_GLOBAL__N__89d3f55a_12_flash_mha_cu_03f1aa2020attention_f32_kernelINS_10KeyPadding"
+    "ELi64EEEvPKfS3_S3_NT_6ParamsEPfS6_iiixxx",
+    "_ZN55_GLOBAL__N__be996e00_22_wavlm_attention_bwd_cu_8fd40e8c13dq_f32_kernelENS_7BwdArgsE",
+]
+
+
+@pytest.mark.parametrize("fault", [None, "spill", "stack", "missing", "serialised"])
+def test_tile_resources_read_every_instantiation(monkeypatch, tmp_path, capsys, fault):
+    """chip_smoke.py's [ptxas] check names each bf16 kernel of a ptxas report
+    by its tiles and passes a clean build; a spill, a stack frame, a missing
+    instantiation or a serialised wgmma fails it."""
+    import chip_smoke
+    from stutter_tpu_torch.ops import _build
+
+    kernels = _PTXAS_KERNELS[1:] if fault == "missing" else _PTXAS_KERNELS
+    entries = []
+    for i, name in enumerate(kernels):
+        stack, spill = (16 if fault == "stack" and i == 5 else 0,
+                        8 if fault == "spill" and i == 9 else 0)
+        entries.append(
+            f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+            f"ptxas info    : Function properties for {name}\n"
+            f"    {stack} bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads\n"
+            f"ptxas info    : Used {100 + i} registers, used 1 barriers\n")
+    if fault == "serialised":
+        entries.append("ptxas info    : (C7520) Potential Performance Loss: wgmma.mma_async "
+                       "instructions are serialized due to the presence of Extern calls\n")
+    (tmp_path / "lib.ptxas.txt").write_text("".join(entries))
+    monkeypatch.setattr(_build, "library_path", lambda: tmp_path / "lib.so")
+    monkeypatch.setattr(chip_smoke, "probe_sass", lambda path: [])
+    if fault is None:
+        chip_smoke.phase_tile_resources(_build)
+        named = re.findall(r"^\[ptxas\] kernel=(.*) registers=", capsys.readouterr().out, re.M)
+        assert named == [
+            "attention_bf16_kernel<KeyPadding<120, 2, 4, 1, 0>>",
+            "attention_bf16_kernel<KeyPadding<64, 2, 4, 2, 0>>",
+            "attention_bf16_kernel<FullBias<64, 2, 4, 1, 0>>",
+            "attention_bf16_kernel<GatedBiasRing<64, 1, 3, 2, 0>>",
+            "attention_bf16_kernel<GatedBiasRing<64, 1, 3, 2, 1>>",
+            "bwd_dq<0>", "bwd_dq<1>", "bwd_dkv<0>", "bwd_dkv<1>", "bwd_dbias",
+            "stem_conv<2>", "stem_conv<3>", "pos_conv<64>", "pos_conv<120>",
+            "probe_attn_int8", "probe_quantize_kv", "probe_softmax_variant<0, 0>",
+            "probe_softmax_variant<0, 1>", "probe_softmax_variant<1, 0>",
+            "probe_softmax_variant<1, 1>"]
+    else:
+        with pytest.raises(chip_smoke.CheckFailed):
+            chip_smoke.phase_tile_resources(_build)
 
 
 @pytest.mark.parametrize("L", RAGGED)

@@ -28,7 +28,6 @@ from stutter_tpu.ops.wavlm_attention_pallas import (
     wavlm_fused_attention,
     wavlm_fused_attention_long,
 )
-from stutter_tpu_torch.cli import flash_tiles_ab
 from stutter_tpu_torch.ops._attention import vector_bytes
 from stutter_tpu_torch.ops import wavlm_attention as tattn
 from tests.conftest import cosine_distance
@@ -157,8 +156,3 @@ def test_cpu_tensors_take_the_plain_version_and_never_a_kernel(monkeypatch):
     with pytest.raises(ValueError, match="CUDA"):
         tattn.launch_tiles(*args, None, tattn.CLIP_FASTEST)
 
-
-def test_ab_tool_raises_for_the_gated_kernel_without_card(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        flash_tiles_ab.main(["--kernels", "gated", "--skip_timing"])

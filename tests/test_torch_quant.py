@@ -302,10 +302,10 @@ def test_unknown_preset_raises():
                        "cpu", preset="int4")
 
 
-@pytest.mark.parametrize("entry", ["profile_wavlm", "profile_whisper", "stem_fused_ab"])
+@pytest.mark.parametrize("entry", ["profile_wavlm", "profile_whisper"])
 def test_card_clis_take_turbo_and_need_a_card(monkeypatch, entry):
-    """The profilers and the stem A/B take --preset turbo and, with no card,
-    refuse to run rather than fall back to the CPU."""
+    """The profilers take --preset turbo and, with no card, refuse to run
+    rather than fall back to the CPU."""
     import importlib
 
     cli = importlib.import_module(f"stutter_tpu_torch.cli.{entry}")

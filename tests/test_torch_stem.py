@@ -12,8 +12,8 @@ but sum in another order, and one flipped bf16 rounding propagates through
 seven layer norms. Padded frames are exactly 0 after end-masking. The
 encode bar is the repo's 1e-3 pooled cosine distance.
 
-Which calls take the fused stem with no flag set: ``encode`` and
-``forward`` wherever the gate passes, never ``pooled_states``.
+Which calls take the fused stem: ``encode`` and ``forward`` of WavLM and
+XLS-R wherever the gate passes, never WavLM's ``pooled_states``.
 """
 
 import dataclasses
@@ -33,9 +33,14 @@ from stutter_tpu_torch.extract.batcher import BucketBatcher
 from stutter_tpu_torch.extract.pipeline import WavLMExtractor
 from stutter_tpu_torch.frontend.wavlm_frontend import wavlm_prepare_batch
 from stutter_tpu_torch.models import wavlm as tw
+from stutter_tpu_torch.models.wav2vec2 import Wav2Vec2Config
 from stutter_tpu_torch.ops import wavlm_stem as tstem
 from stutter_tpu_torch.ops.quant import QuantizedWeight, quantize_weight
-from stutter_tpu_torch.weights.convert import init_wavlm, wavlm_params_from_numpy
+from stutter_tpu_torch.weights.convert import (
+    init_wav2vec2,
+    init_wavlm,
+    wavlm_params_from_numpy,
+)
 from tests.conftest import cosine_distance
 
 torch.set_num_threads(2)  # six xdist workers share the host
@@ -229,8 +234,8 @@ def large_two_layers_bf16():
 
 
 def _encode_both(cfg, jparams, model, T, lengths, monkeypatch, dtype):
-    """Pooled embeddings of both packages with use_fused_stem=True, and how
-    often each took its fused stem."""
+    """Pooled embeddings of both packages (the JAX one with
+    use_fused_stem=True), and how often each took its fused stem."""
     calls = {"jax": 0, "port": 0}
     interp = functools.partial(jstem.wavlm_fused_stem, interpret=True)
 
@@ -260,13 +265,14 @@ def _encode_both(cfg, jparams, model, T, lengths, monkeypatch, dtype):
     m = model.to(dtype)
     lens = torch.from_numpy(lengths).long()
     ours = m.encode(wavlm_prepare_batch(torch.from_numpy(w), lens, cfg.do_normalize), layers,
-                    lens, use_fused_stem=True).numpy()
+                    lens).numpy()
     return ours, ref, calls
 
 
 def test_fused_encode_matches_jax(large_two_layers_bf16, monkeypatch):
-    """Both packages' encode(use_fused_stem=True) on a frame-aligned 16-frame
-    bucket with a ragged second clip, bf16."""
+    """Both packages' encode with the fused stem (the JAX one's
+    use_fused_stem=True) on a frame-aligned 16-frame bucket with a ragged
+    second clip, bf16."""
     cfg, jparams, model = large_two_layers_bf16
     T = 16 * 320 + 80
     ours, ref, calls = _encode_both(cfg, jparams, model, T, np.array([T, 3600]),
@@ -341,37 +347,47 @@ def stem_calls(monkeypatch):
     return calls
 
 
+# XLS-R 2B's stem and plain attention at the same small widths
+SMALL_XLS_R = dataclasses.replace(Wav2Vec2Config.xls_r_2b(), hidden_size=64,
+                                  num_hidden_layers=2, num_attention_heads=4,
+                                  intermediate_size=128, conv_dim=(C,) * 7)
+
+
 def _small_model(dtype):
     return init_wavlm(SMALL, torch.Generator().manual_seed(3)).to(dtype)
 
 
 @pytest.mark.parametrize("case,fused", [
     ("encode", True), ("forward", True), ("f32_params", False), ("unaligned_length", False),
-    ("use_fused_stem_false", False), ("pooled_states", False),
-    ("pooled_states_stop_stem_gradient", False)])
+    ("pooled_states", False), ("pooled_states_stop_stem_gradient", False),
+    ("pooled_states_no_grad", False), ("xls_r_encode", True), ("xls_r_forward", True),
+    ("xls_r_f32_params", False), ("xls_r_unaligned_length", False)])
 def test_stem_selection_follows_the_gate(stem_calls, case, fused):
-    """Without a flag, encode and forward take the fused stem once a call on
-    a frame-aligned bf16 batch; f32 weights, an unaligned length and
-    use_fused_stem=False keep the plain stem, and so does the
-    differentiable pooled_states, with or without its stem's gradient."""
-    model = _small_model(torch.float32 if case == "f32_params" else torch.bfloat16)
-    T = ALIGNED + (320 if case == "unaligned_length" else 0)
+    """WavLM's and XLS-R's encode and forward take the fused stem once a
+    call on a frame-aligned bf16 batch; f32 weights and an unaligned length
+    keep the plain stem, and so does WavLM's differentiable pooled_states,
+    with or without its stem's gradient and under no_grad."""
+    dtype = torch.float32 if case.endswith("f32_params") else torch.bfloat16
+    if case.startswith("xls_r"):
+        model = init_wav2vec2(SMALL_XLS_R, torch.Generator().manual_seed(3)).to(dtype)
+    else:
+        model = _small_model(dtype)
+    T = ALIGNED + (320 if case.endswith("unaligned_length") else 0)
     r = np.random.RandomState(7)
     lens = torch.tensor([T, 3600])
     w = wavlm_prepare_batch(torch.from_numpy((r.randn(2, T) * 0.1).astype(np.float32)), lens,
                             SMALL.do_normalize)
-    if case == "forward":
+    if case.endswith("forward"):
         out = model(w, lens)[1]
+    elif case == "pooled_states_no_grad":
+        with torch.no_grad():
+            out = model.pooled_states(w, lens)
     elif case.startswith("pooled_states"):
         out = model.pooled_states(w, lens, stop_stem_gradient=case.endswith("gradient"))
     else:
-        out = model.encode(w, (2, 1), lens, **(
-            {"use_fused_stem": False} if case == "use_fused_stem_false" else {}))
+        out = model.encode(w, (2, 1), lens)
     assert torch.isfinite(out.float()).all()
     assert stem_calls == ([(2, T)] if fused else [])
-    if case == "encode":  # the default is the fused path itself
-        explicit = model.encode(w, (2, 1), lens, use_fused_stem=True)
-        assert torch.equal(out, explicit)
 
 
 def test_fast_extractor_takes_the_fused_stem(stem_calls, tmp_path):
