@@ -81,6 +81,16 @@ Phases, one line each on stdout ([time] lines give each phase's seconds):
    XLS-R 2B's 20 and 30 s ones (timed per launch and 8 queued, with the
    bound), and untimed at the edges of its 256-frame tiles and 64-row
    sub-tiles (L = 1 ... 257) with clips' tails zeroed at odd counts;
+5d''. layer_norm: the layer norm kernel, alone and with the residual add in
+   front of it, against its plain version and F.layer_norm at the main
+   path's shapes (WavLM-Large, XLS-R 2B and Whisper-large widths and the
+   feature projection's 512; per launch, and 8 queued over inputs larger
+   than the L2, with the bound from bytes) and untimed at 1 and 3 rows and
+   edge rows (constant, +-1e4, 1e-3, zeroed padding): the sum bit-equal, the
+   outputs within a bf16 step, the share flipped, and bit-equal at rows whose
+   statistics are exact in any order; then a WavLM-Large and an
+   XLS-R 2B batch through encode: 50 and 98 launches, the pooled rows
+   against the same batch with the gate closed;
 5e. decode: the host audio runtime (audio/csrc/wavio.cpp, ffdecode.cpp,
    built with g++ into build/): its build seconds, whether libav was found,
    os.cpu_count(); the native parser bit-equal to the numpy plain version on
@@ -89,8 +99,8 @@ Phases, one line each on stdout ([time] lines give each phase's seconds):
    x 3 s at 16 kHz and 44.1 kHz (resampled): median ms per batch of 5;
 6. slice: a synthetic 16 kHz corpus through ExtractionPipeline.run with
    WavLM-Large (random weights, seed 0) in the fast preset; checks the store,
-   the checkpoints, that every attention call went through the kernel, and
-   that a resumed run skips finished rows;
+   the checkpoints, that every attention call went through the kernel, 50
+   layer norm launches a batch, and that a resumed run skips finished rows;
 6b. decode_flac: with libav, the slice's corpus and its FLAC copy through
    ExtractionPipeline with one batcher's settings: store rows bit-equal, 24
    gated launches a batch (without libav a line saying so);
@@ -640,6 +650,7 @@ def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port, by kernel name."""
     from stutter_tpu_torch.ops.attn_probes import int8_attention_long, softmax_variant_attention
     from stutter_tpu_torch.ops.flash_mha import flash_mha, flash_mha_bias
+    from stutter_tpu_torch.ops.layer_norm import add_layer_norm
     from stutter_tpu_torch.ops.logmel import whisper_log_mel
     from stutter_tpu_torch.ops.pos_conv import pos_conv_residual
     from stutter_tpu_torch.ops.wavlm_attention import (
@@ -652,25 +663,45 @@ def kernel_wrappers() -> dict:
             "gated_relpos_attention_bwd": gated_relpos_attention_backward,
             "flash_mha": flash_mha, "whisper_log_mel": whisper_log_mel,
             "wavlm_fused_stem": wavlm_fused_stem, "pos_conv_residual": pos_conv_residual,
-            "flash_mha_bias": flash_mha_bias,
+            "flash_mha_bias": flash_mha_bias, "layer_norm": add_layer_norm,
             "attn_int8": int8_attention_long, "attn_softmax_variants": softmax_variant_attention}
 
 
 def zero_counts() -> None:
-    """Every kernel's launch count, and the int8 GEMM count, to 0."""
+    """Every kernel's launch count, the layer norm's fused launches and the
+    int8 GEMM count, to 0."""
+    from stutter_tpu_torch.ops.layer_norm import add_layer_norm
     from stutter_tpu_torch.ops.quant import qdot
 
     for wrapper in kernel_wrappers().values():
         wrapper.launches = 0
+    add_layer_norm.launches_fused = 0
     qdot.calls = 0
 
 
 def read_counts() -> dict:
+    from stutter_tpu_torch.ops.layer_norm import add_layer_norm
     from stutter_tpu_torch.ops.quant import qdot
 
     counts = {name: wrapper.launches for name, wrapper in kernel_wrappers().items()}
+    counts["layer_norm_fused"] = add_layer_norm.launches_fused
     counts["int8_gemm"] = qdot.calls
     return counts
+
+
+# the layer norm's launch counts, which the checks of whole runs leave to
+# ``check_layer_norms``
+LN_COUNTS = ("layer_norm", "layer_norm_fused")
+
+
+def check_layer_norms(what: str, counts: dict, n_layers: int, batches: int) -> None:
+    """A bf16 pre-LN encoder's norms on the card: per batch 2 a layer (the
+    first norm, then the residual add and the second norm fused), the final
+    norm and the feature projection's."""
+    want = ((2 * n_layers + 2) * batches, n_layers * batches)
+    check(tuple(counts[k] for k in LN_COUNTS) == want,
+          f"{what}: layer norm launches {tuple(counts[k] for k in LN_COUNTS)} "
+          f"(all, fused), expected {want}")
 
 
 def check_resume(torch, pipe, extractor, meta, out: Path, results) -> None:
@@ -699,16 +730,18 @@ def check_resume(torch, pipe, extractor, meta, out: Path, results) -> None:
     say("resume", skipped_rows=skipped, extracted_rows=len(seen["paths"]))
 
 
-def check_wavlm_kernels(what: str, counts: dict, batches: int, on_card: bool) -> None:
+def check_wavlm_kernels(what: str, counts: dict, batches: int, on_card: bool,
+                        n_layers: int) -> None:
     """A bf16 WavLM run's kernels beside the gated attention: the positional
     conv once a batch, the fused stem at most once (frame-aligned buckets
-    take it), and no other kernel."""
+    take it), the layer norms (``check_layer_norms``), and no other kernel."""
     check(counts["pos_conv_residual"] == batches * on_card,
           f"{what}: {counts['pos_conv_residual']} positional conv calls for {batches} batches")
     check(counts["wavlm_fused_stem"] <= batches * on_card,
           f"{what}: {counts['wavlm_fused_stem']} fused stem calls for {batches} batches")
+    check_layer_norms(what, counts, n_layers, batches * on_card)
     check(not any(v for k, v in counts.items() if k not in (
-        "gated_relpos_attention", "pos_conv_residual", "wavlm_fused_stem")),
+        "gated_relpos_attention", "pos_conv_residual", "wavlm_fused_stem", *LN_COUNTS)),
           f"{what}: other kernels launched: {counts}")
 
 
@@ -747,6 +780,8 @@ def phase_slice(torch, extractor, work: Path, phase: str = "slice") -> dict:
     check(counts["pos_conv_residual"] == seen["batches"],
           f"{counts['pos_conv_residual']} positional conv calls for {seen['batches']} batches")
     check(counts["flash_mha_bias"] == 0, "the pipeline took the long-bucket hatch (off by default)")
+    # bf16 on the card: 50 norms a WavLM-Large batch
+    check_layer_norms(phase, counts, cfg.num_hidden_layers, seen["batches"])
     # turbo: the six projections of each layer; turbo_ffn: the FFN's two
     int8 = INT8_GEMMS_A_LAYER["wavlm"].get(extractor.preset, 0) * cfg.num_hidden_layers \
         * seen["batches"]
@@ -768,6 +803,7 @@ def phase_slice(torch, extractor, work: Path, phase: str = "slice") -> dict:
     say(phase, preset=extractor.preset, clips=len(meta), audio_s=f"{audio_s:.2f}",
         batches=seen["batches"], launches=launches,
         expected=f"{cfg.num_hidden_layers}x{seen['batches']}", int8_gemms=counts["int8_gemm"],
+        layer_norm_launches=counts["layer_norm"], layer_norm_fused=counts["layer_norm_fused"],
         wall_s=f"{wall:.2f}",
         store=f"3 splits x layers {','.join(map(str, layers))} x [n,{dim}]")
 
@@ -1966,6 +2002,7 @@ def phase_long_slice(torch, extractor, work: Path) -> dict:
         long_batches = sum(L >= 1008 for L in lengths)
         hatch = n_layers * long_batches if mode == "materialized_bias" else 0
         check(sorted(lengths) == [160, 1008, 1504], f"{mode}: batches of L = {lengths}")
+        check_layer_norms(f"long_slice {mode}", counts, n_layers, len(lengths))
         check(counts["flash_mha_bias"] == hatch
               and counts["gated_relpos_attention"] == n_layers * len(lengths) - hatch
               and counts["pos_conv_residual"] == len(lengths),
@@ -1982,7 +2019,9 @@ def phase_long_slice(torch, extractor, work: Path) -> dict:
         say("long_slice", long_attention=mode, clips=len(meta), audio_s=f"{audio_s:.2f}",
             frames=",".join(map(str, lengths)), flash_mha_bias=counts["flash_mha_bias"],
             gated_relpos_attention=counts["gated_relpos_attention"],
-            expected=f"{hatch},{n_layers * len(lengths) - hatch}", wall_s=f"{wall:.2f}")
+            expected=f"{hatch},{n_layers * len(lengths) - hatch}",
+            layer_norm_launches=counts["layer_norm"], layer_norm_fused=counts["layer_norm_fused"],
+            fused_stem_calls=counts["wavlm_fused_stem"], wall_s=f"{wall:.2f}")
     worst = max(cosine_distance(torch.from_numpy(a[f"layer_{layer}"]),
                                 torch.from_numpy(b[f"layer_{layer}"]))
                 for split in sizes
@@ -2083,6 +2122,13 @@ def phase_whisper_slice(torch, extractor, work: Path, phase: str = "whisper_slic
     check(counts["gated_relpos_attention"] == counts["gated_relpos_attention_bwd"]
           == counts["wavlm_fused_stem"] == counts["pos_conv_residual"] == 0,
           "the Whisper path launched WavLM's kernels")
+    # the encoder's 2 norms a layer (the residual add and the second norm in
+    # one launch) and its final norm; the decoder's 3 a layer and its final norm
+    enc, dec = cfg.encoder_layers, cfg.decoder_layers
+    want = ((2 * enc + 3 * dec + 2) * batches, enc * batches)
+    check((counts["layer_norm"], counts["layer_norm_fused"]) == want,
+          f"{counts['layer_norm']} layer norms ({counts['layer_norm_fused']} fused) for "
+          f"{batches} batches, expected {want}")
     # turbo: q, k, v, fc1, fc2 of each encoder layer; turbo_ffn: fc1, fc2; attn_o
     # and the decoder stay bf16
     int8 = INT8_GEMMS_A_LAYER["whisper"].get(extractor.preset, 0) * cfg.encoder_layers * batches
@@ -2092,6 +2138,7 @@ def phase_whisper_slice(torch, extractor, work: Path, phase: str = "whisper_slic
         batches=batches, batch=pipe.batcher.batch_size_for(30.0),
         log_mel_launches=counts["whisper_log_mel"], flash_mha_launches=counts["flash_mha"],
         int8_gemms=counts["int8_gemm"], expected=f"{batches},{cfg.encoder_layers}x{batches}",
+        layer_norm_launches=counts["layer_norm"], layer_norm_fused=counts["layer_norm_fused"],
         wall_s=f"{wall:.2f}", store=f"3 splits x {','.join(extractor.column_names)} x [n,{dim}]")
     check_resume(torch, pipe, extractor, meta, out, results)
     return dict(counts, batches=batches)
@@ -2344,13 +2391,17 @@ def phase_finetune_path(torch, attn, cfg_model, device: str = "cuda", T: int = 5
               f"{name} kernel step launched {counts}, expected {2 * n_layers} forwards "
               f"and {n_layers} backwards")
         check(not any(plain_counts.values()), f"the plain step launched {plain_counts}")
+        # autograd records every norm of a training step: the plain path
+        check(counts["layer_norm"] == 0, f"{name} kernel step launched {counts['layer_norm']} "
+              "layer norms")
         loss_rel = abs(loss_k - loss_p) / abs(loss_p)
         cos = group_cosines(g_k, g_p)
         say("finetune_path", batch=f"{B}x3s", dtype=name, layers=n_layers, loss=f"{loss_k:.6f}",
             plain_loss=f"{loss_p:.6f}", loss_rel=f"{loss_rel:.2e}", loss_rel_tol=loss_bar,
             **{f"{k}_grad_cosine_dist": f"{v:.3e}" for k, v in cos.items()},
             grad_cosine_tol=cos_bar, fwd_launches=counts["gated_relpos_attention"],
-            bwd_launches=counts["gated_relpos_attention_bwd"])
+            bwd_launches=counts["gated_relpos_attention_bwd"],
+            layer_norm_launches=counts["layer_norm"])
         check(np.isfinite(loss_k) and loss_rel <= loss_bar,
               f"{name}: kernel step loss {loss_k} vs plain {loss_p}")
         for group, d in cos.items():
@@ -2931,7 +2982,7 @@ def phase_downstream(torch, work: Path, card: str, device: str = "cuda",
     check(launches == n_layers * batches * on_card,
           f"gated attention launched {launches} times for {batches} re-extraction batches, "
           f"expected {n_layers}x{batches}")
-    check_wavlm_kernels("the downstream run", counts, batches, on_card)
+    check_wavlm_kernels("the downstream run", counts, batches, on_card, n_layers)
     (aug_args, _, (meta_out, emb_out)), = clock.results["augmentation"]
     n_aug = len(meta_out) - len(aug_args[0])
     (waves_args, _, embedded), = clock.results["reextract"]
@@ -3230,6 +3281,288 @@ def phase_pos_conv(torch, card: str):
         torch.cuda.empty_cache()
     say("pos_conv", launches=pc.pos_conv_residual.launches)
     return worst, cases["8x1504x1920"], cases
+
+
+# the layer norm kernel against its plain version: the residual sum is the
+# same bf16 add, so bit-equal; the statistics sum in another order, so the
+# f32 output moves by a few f32 steps of its terms ((v - mean) r scale,
+# |.| < ~8, and the bias): an output may flip its last bf16 bit, rarely, and
+# one that the bias cancels to near 0 may move by a few of its own small
+# steps, each within 2^-16. The share of flipped outputs read 1.3e-6 to
+# 1.3e-5 in every case, a one-pass variance 1.7e-4 to 6.8e-3 at the edge
+# rows. On rows whose every sum is exact in f32 in any order
+# (``ln_exact_inputs``) nothing but the arithmetic after the statistics can
+# differ: there the kernel is the plain version bit for bit, where a build
+# with fused multiply-adds flips outputs (PERF.md §6 PR 24). A model
+# batch's pooled rows read 1.1e-6 from the gate-closed batch, with either
+# build: that bar catches gross faults only
+LN_MAX_ULPS, LN_NEAR_ZERO_ABS, LN_FLIP_SHARE = 1, 2.0**-16, 1e-4
+LN_POOLED_COSINE = 1e-5
+# (B, L, D) at the main path's shapes, every one timed in both forms:
+# WavLM-Large's 3, 20 and 30 s buckets, XLS-R 2B's 20 and 30 s ones,
+# Whisper-large's 30 s window, the feature projection's 512 channels at 3
+# and 30 s
+LN_CASES = ((80, 149, 1024), (12, 1008, 1024), (8, 1504, 1024), (12, 1008, 1920),
+            (8, 1504, 1920), (16, 1500, 1280), (80, 149, 512), (8, 1504, 512))
+L2_BYTES = 50e6  # the H100's L2
+
+
+def device_turns(torch, *fns, runs: int = 10, reps: int = 8):
+    """Median device ms per launch of each function, in turns: the stream
+    first sleeps ~1 ms, so that the host has queued all ``reps`` launches
+    before the first event runs, and the events enclose the device's work
+    alone."""
+    for _ in range(3):
+        for fn in fns:
+            fn()
+    times = tuple([] for _ in fns)
+    for _ in range(runs):
+        for fn, acc in zip(fns, times):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(2_000_000)
+            e0.record()
+            for _ in range(reps):
+                fn()
+            e1.record()
+            e1.synchronize()
+            acc.append(e0.elapsed_time(e1) / reps)
+    return tuple(sorted(t)[len(t) // 2] for t in times)
+
+
+def bf16_ulps(torch, a, b):
+    """Each element's distance in bf16 steps between two bf16 tensors (the
+    bit patterns laid on one ordered integer line, -0 on +0)."""
+    def line(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -32768 - i, i)
+
+    return (line(a) - line(b)).abs()
+
+
+def ln_inputs(torch, B: int, L: int, D: int, g, edges: bool):
+    """x and delta [B, L, D] bf16 on the card, like a residual stream and an
+    attention output; with ``edges``: a constant row, rows about +1e4 and
+    -1e4, a row of ~1e-3, and each clip's tail zeroed from an odd frame on
+    (padding)."""
+    x = (torch.randn(B, L, D, device="cuda", generator=g) * 2.0
+         + torch.randn(B, L, 1, device="cuda", generator=g))
+    delta = torch.randn(B, L, D, device="cuda", generator=g) * 0.5
+    if edges:
+        rows, drows = x.view(-1, D), delta.view(-1, D)
+        n = rows.shape[0]
+        rows[n // 2], drows[n // 2] = 3.0, 0.0
+        if n > 3:
+            rows[n // 3] = rows[n // 3] * 1e-3 + 1e4
+            rows[n // 4] = rows[n // 4] * 1e3 - 1e4
+            drows[n // 4] *= 1e4
+            rows[n - 1] *= 1e-3
+        for b in range(1, B):
+            x[b, (L // (b + 1)) | 1:] = 0.0
+            delta[b, (L // (b + 1)) | 1:] = 0.0
+    return x.to(torch.bfloat16), delta.to(torch.bfloat16)
+
+
+def ln_exact_inputs(torch, B: int, L: int, D: int, g):
+    """x and delta [B, L, D] bf16 on the card whose rows, and the rows of
+    their sum, are D / 2 multiples of 2^-3 of at most 32 steps (64 in the
+    sum) and their negatives, shuffled alike, each row scaled by its own
+    power of two from 2^-4 to 2^4: the sum is exact, its mean 0, and the sum
+    of its squares below 2^24 steps, so every statistic is exact in f32 in
+    any order."""
+    rows = B * L
+
+    def half():
+        return torch.randint(-32, 33, (rows, D // 2), device="cuda", generator=g).float() / 8
+
+    scale = torch.exp2(torch.randint(-4, 5, (rows, 1), device="cuda", generator=g).float())
+    order = torch.argsort(torch.rand(rows, D, device="cuda", generator=g), dim=1)
+    x, delta = ((torch.gather(torch.cat([h, -h], dim=1), 1, order) * scale)
+                .view(B, L, D).to(torch.bfloat16) for h in (half(), half()))
+    return x, delta
+
+
+def cycling(fn, copies: list):
+    """fn called on the next of ``copies`` at each call."""
+    state = {"i": 0}
+
+    def call():
+        state["i"] = (state["i"] + 1) % len(copies)
+        return fn(*copies[state["i"]])
+
+    return call
+
+
+def phase_layer_norm(torch, card: str):
+    """The layer norm kernel, alone and with the residual add, against its
+    plain version (the models' f32 statistics) and ``F.layer_norm`` (the
+    library's yardstick, which the port never calls) at ``LN_CASES``: per
+    launch (the wrapper and its enqueue) and device time of 8 queued, the
+    queued runs cycling through copies of the inputs larger together than
+    the L2, with the bound from bytes; untimed at 1 and 3 rows and at edge
+    rows of every width. The residual sum bit-equal, each output within
+    ``LN_MAX_ULPS`` bf16 steps, the share of flipped outputs; at rows whose
+    statistics are exact (``ln_exact_inputs``, 8 x 1504 of every width) the
+    outputs bit-equal. Then one batch
+    of WavLM-Large (8 x 3 s) and of XLS-R 2B (2 x 20 s), bf16 with seeded
+    weights, through ``encode``: the launches, 2 a layer with the final norm
+    and the feature projection's (50 and 98), and the pooled rows against
+    the same batch with the gate closed. Returns (worst ulps, the numbers of
+    the fused form at XLS-R's 30 s bucket, every timed case's numbers)."""
+    import math
+
+    import torch.nn.functional as F
+
+    from stutter_tpu_torch.ops import layer_norm as ln
+    from stutter_tpu_torch.utils.benchmarking import BF16_PEAK, bound
+
+    g = torch.Generator(device="cuda").manual_seed(24)
+    eps = 1e-5
+    params = {D: ((1.0 + 0.1 * torch.randn(D, device="cuda", generator=g)).to(torch.bfloat16),
+                  (0.02 * torch.randn(D, device="cuda", generator=g)).to(torch.bfloat16))
+              for D in ln.WIDTHS}
+    cases = ([(B, L, D, "timed") for B, L, D in LN_CASES]
+             + [(1, rows, D, "edges") for D in ln.WIDTHS for rows in (1, 3)]
+             + [(4, 37, D, "edges") for D in ln.WIDTHS]
+             + [(8, 1504, D, "exact") for D in ln.WIDTHS])
+    worst, numbers = 0, {}
+    for B, L, D, kind in cases:
+        timed = kind == "timed"
+        if kind == "exact":
+            x, delta = ln_exact_inputs(torch, B, L, D, g)
+        else:
+            x, delta = ln_inputs(torch, B, L, D, g, edges=not timed)
+        scale, bias = params[D]
+        for fused in (False, True):
+            d = delta if fused else None
+            form = "fused" if fused else "norm"
+            before = ln.add_layer_norm.launches, ln.add_layer_norm.launches_fused
+            s, out = ln.add_layer_norm(x, d, scale, bias, eps)
+            check((ln.add_layer_norm.launches, ln.add_layer_norm.launches_fused)
+                  == (before[0] + 1, before[1] + fused),
+                  f"layer_norm {B}x{L}x{D} {form}: the wrapper counted "
+                  f"{ln.add_layer_norm.launches - before[0]} launches")
+            s_ref, ref = ln.add_layer_norm_reference(x, d, scale, bias, eps)
+            lib = F.layer_norm(s_ref, (D,), scale, bias, eps)
+            torch.cuda.synchronize()
+            check(out.shape == x.shape and out.dtype == torch.bfloat16
+                  and bool(torch.isfinite(out).all()),
+                  f"layer_norm output {out.dtype} {tuple(out.shape)} or non-finite")
+            check(torch.equal(s, s_ref), f"layer_norm {B}x{L}x{D}: the residual sum differs")
+            ulps, diff = bf16_ulps(torch, out, ref), (out.float() - ref.float()).abs()
+            steps = ulps > LN_MAX_ULPS  # more than a step: only where the bias cancels
+            max_ulps, steps_abs = int(ulps.max()), float(diff[steps].max()) if bool(
+                steps.any()) else 0.0
+            share, max_abs = float((ulps > 0).sum()) / ulps.numel(), float(diff.max())
+            lib_max_abs = float((lib.float() - ref.float()).abs().max())
+            fields = dict(shape=f"{B}x{L}x{D}", rows=kind, form=form, max_abs_err=f"{max_abs:.3e}",
+                          max_ulps=max_ulps, ulps_tol=LN_MAX_ULPS,
+                          multi_step_max_abs=f"{steps_abs:.2e}",
+                          multi_step_tol=f"{LN_NEAR_ZERO_ABS:.2e}", flipped_share=f"{share:.2e}",
+                          share_tol=LN_FLIP_SHARE, library_vs_plain_max_abs=f"{lib_max_abs:.3e}")
+            if timed:
+                def library(x, d):
+                    return F.layer_norm(x if d is None else x + d, (D,), scale, bias, eps)
+
+                def kernel(x, d):
+                    return ln.add_layer_norm(x, d, scale, bias, eps)
+
+                def plain(x, d):
+                    return ln.add_layer_norm_reference(x, d, scale, bias, eps)
+
+                ms, plain_ms, library_ms = time_turns(
+                    torch, lambda: kernel(x, d), lambda: plain(x, d), lambda: library(x, d))
+                nbytes = (8 if fused else 4) * x.numel() + 2 * scale.numel() * 2
+                copies = [(x.clone(), None if d is None else d.clone())
+                          for _ in range(max(2, math.ceil(2 * L2_BYTES / nbytes)))]
+                queued_ms, library_queued_ms = device_turns(
+                    torch, cycling(kernel, copies), cycling(library, copies))
+                bound_ms, bound_by = bound(0, nbytes, BF16_PEAK)  # ~10 f32 operations an element
+                fields.update(ms=f"{ms:.4f}", queued_ms=f"{queued_ms:.4f}",
+                              plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
+                              library_queued_ms=f"{library_queued_ms:.4f}",
+                              bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+                              roofline_pct=f"{100 * bound_ms / queued_ms:.1f}",
+                              input_copies=len(copies), card=f'"{card}"')
+                numbers[f"{B}x{L}x{D}_{form}"] = dict(
+                    timing(ms, plain_ms, bound_ms, bound_by, library_ms), queued_ms=queued_ms,
+                    library_queued_ms=library_queued_ms, max_ulps=max_ulps, flipped_share=share)
+                del copies
+            say("layer_norm", **fields)
+            check(steps_abs <= LN_NEAR_ZERO_ABS and share <= LN_FLIP_SHARE,
+                  f"layer_norm {B}x{L}x{D} {form}: {max_ulps} bf16 steps from the plain "
+                  f"version ({steps_abs:.2e} where more than {LN_MAX_ULPS}), {share:.2e} of "
+                  "the outputs flipped")
+            check(kind != "exact" or max_ulps == 0,
+                  f"layer_norm {B}x{L}x{D} {form}: {share:.2e} of the outputs flipped on rows "
+                  "whose statistics are exact")
+            worst = max(worst, max_ulps)
+            del s, out, s_ref, ref, lib, ulps, diff, steps
+        del x, delta
+        torch.cuda.empty_cache()
+    for family in ("wavlm", "wav2vec2"):
+        layer_norm_model_batch(torch, family)
+        torch.cuda.empty_cache()
+    return worst, numbers["8x1504x1920_fused"], numbers
+
+
+def layer_norm_model_batch(torch, family: str) -> None:
+    """One bf16 batch with seeded weights through ``encode``: WavLM-Large at
+    8 x 3 s or XLS-R 2B at 2 x 20 s, frame-aligned (the fused stem writes
+    the projection's frames). The launches: 2 a layer (the first norm, then
+    the add and the second norm, fused), the final norm and the projection's;
+    the pooled rows against the same batch with the gate closed."""
+    import math
+
+    from stutter_tpu_torch.frontend.wavlm_frontend import wavlm_prepare_batch
+    from stutter_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Model
+    from stutter_tpu_torch.models.wavlm import WavLMConfig, WavLMModel
+    from stutter_tpu_torch.ops import layer_norm as ln
+
+    if family == "wavlm":
+        cfg, B, L = WavLMConfig.large(), 8, 160
+        model = WavLMModel(cfg, device="cuda", dtype=torch.bfloat16)
+    else:
+        cfg, B, L = Wav2Vec2Config.xls_r_2b(), 2, 1008
+        model = Wav2Vec2Model(cfg, device="cuda", dtype=torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(25)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.dim() >= 2:  # dense [out, in], conv [out, in, k]
+                p.normal_(0.0, math.prod(p.shape[1:]) ** -0.5, generator=g)
+            elif name.endswith(("_s", "ln_scale", "norm_scale", "gru_const")):
+                p.normal_(1.0, 0.1, generator=g)
+            else:
+                p.normal_(0.0, 0.02, generator=g)
+    T = L * 320 + 80
+    lengths = torch.tensor([T] + [T * 2 // 3] * (B - 1), device="cuda")
+    wave = torch.randn(B, T, device="cuda", generator=g) * 0.1
+    wave[1:, T * 2 // 3:] = 0.0
+    wave = wavlm_prepare_batch(wave, lengths, cfg.do_normalize)
+    layers = tuple(range(0, cfg.num_hidden_layers + 1, 4))
+    zero_counts()
+    rows = model.encode(wave, layers, lengths)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    n = cfg.num_hidden_layers
+    check(counts["wavlm_fused_stem"] == 1, f"layer_norm {family}: the fused stem did not run")
+    check((counts["layer_norm"], counts["layer_norm_fused"]) == (2 * n + 2, n),
+          f"layer_norm {family}: {counts['layer_norm']} launches, {counts['layer_norm_fused']} "
+          f"fused, expected {2 * n + 2} and {n}")
+    real = ln._on_card
+    ln._on_card = lambda t: False
+    try:
+        plain = model.encode(wave, layers, lengths)
+        torch.cuda.synchronize()
+    finally:
+        ln._on_card = real
+    check(read_counts()["layer_norm"] == 2 * n + 2, "the closed gate launched the kernel")
+    worst = worst_pooled(rows.float(), plain.float())
+    say("layer_norm", model=family, batch=f"{B}x{L}", launches=counts["layer_norm"],
+        fused=counts["layer_norm_fused"], expected=f"{2 * n + 2},{n}",
+        pooled_cosine_vs_gate_closed=f"{worst:.3e}", tol=LN_POOLED_COSINE)
+    check(worst <= LN_POOLED_COSINE,
+          f"layer_norm {family}: pooled rows {worst:.3e} from the gate-closed batch")
+    del model, rows, plain, wave
 
 
 def worst_pooled(a, b) -> float:
@@ -3549,7 +3882,7 @@ def phase_chunk(torch, extractor, work: Path, card: str, short=(3.0, 8.0), long=
     launches = counts["gated_relpos_attention"]
     check(launches == n_layers * seen["batches"] * on_card,
           f"chunk: gated attention launched {launches} times for {seen['batches']} batches")
-    check_wavlm_kernels("chunk", counts, seen["batches"], on_card)
+    check_wavlm_kernels("chunk", counts, seen["batches"], on_card, n_layers)
     rows = [r for split in results.values() for r in split]
     long_rows = [r for r in rows if "chunks" in r]
     check(len(rows) == 11 and len(long_rows) == 3,
@@ -3660,7 +3993,7 @@ def phase_serve(torch, extractor, store: Path, work: Path, card: str, durations=
     check(failed == ["bad"], f"serve: failed requests {failed}, expected only 'bad'")
     check(launches == n_layers * seen["batches"] * on_card,
           f"serve: gated attention launched {launches} times for {seen['batches']} batches")
-    check_wavlm_kernels("serve", counts, seen["batches"], on_card)
+    check_wavlm_kernels("serve", counts, seen["batches"], on_card, n_layers)
     served = [r for r in responses if r.ok]
     worst = max(cosine_distance(torch.from_numpy(r.embeddings[c]),
                                 torch.from_numpy(by_path[r.path][c]))
@@ -4533,7 +4866,7 @@ def check_rank_launches(what: str, reports: list, n_layers: int, heads: int,
     check(all(r["heads"] == [heads] for r in reports),
           f"{what}: attention heads {[r['heads'] for r in reports]}, expected {heads}")
     for r, n in zip(reports, batches):
-        check_wavlm_kernels(f"{what} rank", r["counts"], n, on_card)
+        check_wavlm_kernels(f"{what} rank", r["counts"], n, on_card, n_layers)
     return launches
 
 
@@ -4870,9 +5203,12 @@ def phase_serve_combined(torch, wavlm_ex, work: Path, card: str, wavlm_ckpt: Pat
                 "flash_mha": n_layers[1] * n_batches * on_card}
     # the fused stem: at most once a batch (frame-aligned buckets take it)
     check(counts["wavlm_fused_stem"] <= n_batches * on_card
-          and {k: v for k, v in counts.items() if v and k != "wavlm_fused_stem"}
+          and {k: v for k, v in counts.items() if v and k not in ("wavlm_fused_stem", *LN_COUNTS)}
           == {k: v for k, v in expected.items() if v},
           f"serve_combined: launches {counts}, expected {expected}")
+    # the residual add and second norm of every layer of both encoders
+    check(counts["layer_norm_fused"] == sum(n_layers) * n_batches * on_card,
+          f"serve_combined: {counts['layer_norm_fused']} fused layer norms")
     say("serve_combined", requests=len(lines), batches=n_batches, columns=len(columns),
         gated_launches=counts["gated_relpos_attention"],
         log_mel_calls=counts["whisper_log_mel"], flash_mha_launches=counts["flash_mha"],
@@ -4956,8 +5292,11 @@ def phase_train_whisper(torch, work: Path, card: str, whisper_ckpt: Path,
           f"train_whisper: {seen['augmented']} augmented rows in {batches} batches, "
           f"expected 12 in 1")
     expected = {"whisper_log_mel": batches * on_card, "flash_mha": n_layers * batches * on_card}
-    check({k: v for k, v in counts.items() if v} == {k: v for k, v in expected.items() if v},
-          f"train_whisper: launches {counts}, expected {expected}")
+    check({k: v for k, v in counts.items() if v and k not in LN_COUNTS}
+          == {k: v for k, v in expected.items() if v}
+          and counts["layer_norm_fused"] == n_layers * batches * on_card,
+          f"train_whisper: launches {counts}, expected {expected} and "
+          f"{n_layers * batches * on_card} fused layer norms")
 
     meta, stored = load_embeddings(str(store), "whisper")
     row_of = {r["path"]: i for i, r in enumerate(meta)}
@@ -5104,6 +5443,8 @@ def main() -> int:
             stem_err, stem_times = phase_stem(torch, card)
         with timed("pos_conv"):
             pos_conv_err, pos_conv_times, pos_conv_cases = phase_pos_conv(torch, card)
+        with timed("layer_norm"):
+            ln_ulps, ln_times, ln_cases = phase_layer_norm(torch, card)
 
         with tempfile.TemporaryDirectory() as tmp:
             work = Path(tmp)
@@ -5265,6 +5606,7 @@ def main() -> int:
          long_counts["flash_mha_bias"], mha_bias_err, mha_bias_times),
         ("pos_conv_residual", "pos_conv.cu", None, wavlm_counts["pos_conv_residual"],
          pos_conv_err, pos_conv_times),
+        ("layer_norm", "layer_norm.cu", None, wavlm_counts["layer_norm"], ln_ulps, ln_times),
         ("attn_int8", "attn_probes.cu", "scripts/attn_int8_probe.py:66",
          probe_counts["attn_int8"], *probe_numbers["attn_int8"]),
         ("attn_softmax_variants", "attn_probes.cu", "scripts/attn_softmax_variants_probe.py:54",
@@ -5308,8 +5650,14 @@ def main() -> int:
     line[6]["long_slice_launches"] = long_counts["pos_conv_residual"]
     line[6]["chunk_launches"] = chunk_counts["pos_conv_residual"]
     line[6]["serve_launches"] = serve_counts["pos_conv_residual"]
-    line[7]["also_replaces"] = "scripts/attn_int8_probe.py:100"  # its pallas_call
-    line[8]["also_replaces"] = "scripts/attn_softmax_variants_probe.py:98"
+    # no Pallas kernel: XLA fused the JAX package's norm; its error in bf16 steps
+    line[7]["max_abs_err"] = None
+    line[7]["max_ulps"] = ln_ulps
+    line[7]["cases"] = ln_cases
+    line[7]["fused_launches"] = wavlm_counts["layer_norm_fused"]
+    line[7]["long_slice_launches"] = long_counts["layer_norm"]
+    line[8]["also_replaces"] = "scripts/attn_int8_probe.py:100"  # its pallas_call
+    line[9]["also_replaces"] = "scripts/attn_softmax_variants_probe.py:98"
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,7 +33,7 @@ import dataclasses
 import torch
 from torch import nn
 
-from stutter_tpu_torch.models.common import layer_norm, param
+from stutter_tpu_torch.models.common import add_layer_norm, layer_norm, param
 from stutter_tpu_torch.models.wavlm import (
     ConvFeatureEncoder,
     FeatureProjection,
@@ -143,8 +143,10 @@ class EncoderLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, kv_valid: torch.Tensor | None) -> torch.Tensor:
         eps = self.eps
-        x = x + self.attention(layer_norm(x, self.ln1_s, self.ln1_b, eps), kv_valid)
-        return (x + self.feed_forward(layer_norm(x, self.ln2_s, self.ln2_b, eps))).to(x.dtype)
+        x, ff_in = add_layer_norm(
+            x, self.attention(layer_norm(x, self.ln1_s, self.ln1_b, eps), kv_valid),
+            self.ln2_s, self.ln2_b, eps)
+        return (x + self.feed_forward(ff_in)).to(x.dtype)
 
 
 class Wav2Vec2Model(nn.Module):

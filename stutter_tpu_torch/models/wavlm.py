@@ -55,7 +55,7 @@ from torch.utils.checkpoint import (
     noop_context_fn,
 )
 
-from stutter_tpu_torch.models.common import gelu, layer_norm, param
+from stutter_tpu_torch.models.common import add_layer_norm, gelu, layer_norm, param
 from stutter_tpu_torch.ops.flash_mha import flash_mha_bias, flash_mha_bias_reference
 from stutter_tpu_torch.ops.pooling import masked_mean_pool
 from stutter_tpu_torch.ops.pos_conv import (
@@ -367,7 +367,10 @@ class FeatureProjection(nn.Module):
         self.bias = param((cfg.hidden_size,), device, dtype)
 
     def forward(self, feats: torch.Tensor) -> torch.Tensor:
-        feats = layer_norm(feats, self.ln_scale, self.ln_bias, self.eps)
+        # the plain stem's frames are a [B, C, T] tensor seen as [B, T, C]:
+        # rows of their own let the norm take its kernel (4 bytes an
+        # element, where the plain norm moves ~68)
+        feats = layer_norm(feats.contiguous(), self.ln_scale, self.ln_bias, self.eps)
         return F.linear(feats, self.weight, self.bias).to(feats.dtype)
 
 
@@ -498,8 +501,9 @@ class EncoderLayer(nn.Module):
         eps = self.eps
         if self.stable:
             attn_in = layer_norm(x, self.ln1_s, self.ln1_b, eps)
-            x = x + self.attention(attn_in, position_bias, key_mask_bias, attention_fn)
-            ff_in = layer_norm(x, self.ln2_s, self.ln2_b, eps)
+            x, ff_in = add_layer_norm(
+                x, self.attention(attn_in, position_bias, key_mask_bias, attention_fn),
+                self.ln2_s, self.ln2_b, eps)
             return (x + self.feed_forward(ff_in)).to(x.dtype)
         x = x + self.attention(x, position_bias, key_mask_bias, attention_fn)
         x = layer_norm(x, self.ln1_s, self.ln1_b, eps)

@@ -43,7 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from stutter_tpu_torch.models.common import gelu, layer_norm, param
+from stutter_tpu_torch.models.common import add_layer_norm, gelu, layer_norm, param
 from stutter_tpu_torch.ops.flash_mha import mha_self
 from stutter_tpu_torch.ops.quant import linear
 
@@ -231,8 +231,8 @@ class EncoderLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, attention_fn) -> torch.Tensor:
         h = layer_norm(x, self.ln1_s, self.ln1_b, self.eps)
-        new = x + self.attn.self_attention(h, attention_fn)
-        h = layer_norm(new, self.ln2_s, self.ln2_b, self.eps)
+        new, h = add_layer_norm(x, self.attn.self_attention(h, attention_fn),
+                                self.ln2_s, self.ln2_b, self.eps)
         return (new + self.ffn(h)).to(x.dtype)
 
 
@@ -356,7 +356,7 @@ def whisper_decoder_step(decoder: WhisperDecoder, encoder_hidden: torch.Tensor,
     dtype = decoder.ln_s.dtype
     B = encoder_hidden.shape[0]
     x = (decoder.embed_tokens[token_id] + decoder.pos_embed[0]).to(dtype)
-    x = x.view(1, 1, cfg.d_model).expand(B, 1, cfg.d_model)
+    x = x.view(1, 1, cfg.d_model).expand(B, 1, cfg.d_model).contiguous()  # rows for the norm
     enc = encoder_hidden.to(dtype)
     enc_f32 = enc.float()
     states = []

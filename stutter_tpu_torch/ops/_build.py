@@ -41,6 +41,7 @@ SIGNATURES = {
     "whisper_log_mel": ([_p] * 7 + [_i, _i, _p], _i),
     "wavlm_fused_stem": ([_p, _p, _p, _p, _p, _p, _i, _i, _p], _i),
     "pos_conv_residual": ([_p] * 4 + [_i] * 4 + [_p], _i),
+    "layer_norm_bf16": ([_p] * 6 + [_ll, _i, ctypes.c_float, _p], _i),
     "attn_int8_quantize_kv": ([_p] * 6 + [_i, _i, _i, _p], _i),
     "attn_int8": ([_p] * 9 + [_i, _i, _i, _i, _p], _i),
     "attn_softmax_variant": ([_p] * 7 + [_i] * 5 + [_p], _i),
