@@ -46,6 +46,19 @@ Phases, one line each on stdout ([time] lines give each phase's seconds):
    against its plain version at 12 x 16 x 1504 x 64 and 19 x 16 x 1008 x 64
    in bf16 with keys masked, and f32 at a ragged length;
    scaled_dot_product_attention with the same bias timed beside it;
+5a1. relkey_attn: w2v-BERT's relative-key attention kernel against its
+   plain version at 8 x 16 x 1499 x 64 and 12 x 16 x 999 x 64 (the 30 s and
+   20 s buckets; the second with keys masked), at 1504 and 1008, bf16 and
+   f32, timed per launch and 8 queued beside the plain version and
+   scaled_dot_product_attention given the materialised bias, and untimed at
+   ragged lengths around the 64-row tiles with key counts of 1, 63, 64, 65
+   and L (``--only-relkey``: this phase and the next alone, after the build
+   and ptxas's report);
+5a1b. w2v_bert_slice: w2v-BERT 2.0 at its published widths through
+   W2VBertExtractor (fast) on one 12 x 20 s and one 8 x 30 s batch: 24
+   relative-key launches a batch, 144 norms (96 fused) and no other kernel,
+   and the pooled rows against the same batch with the norm's and the
+   attention's gates closed;
 5a2. mha_edges: both kernels' bf16 wgmma tiles at their edges (flash_mha
    at head_dim 64 and 120), checked and not timed: L of 37, 64, 65, 127,
    128, 129, 1008, 1500 and 1504 with key counts of 0, 1, 63, 64, 65 and L,
@@ -657,6 +670,7 @@ def kernel_wrappers() -> dict:
         gated_relpos_attention,
         gated_relpos_attention_backward,
     )
+    from stutter_tpu_torch.ops.relkey_attention import relkey_attention
     from stutter_tpu_torch.ops.wavlm_stem import wavlm_fused_stem
 
     return {"gated_relpos_attention": gated_relpos_attention,
@@ -664,6 +678,7 @@ def kernel_wrappers() -> dict:
             "flash_mha": flash_mha, "whisper_log_mel": whisper_log_mel,
             "wavlm_fused_stem": wavlm_fused_stem, "pos_conv_residual": pos_conv_residual,
             "flash_mha_bias": flash_mha_bias, "layer_norm": add_layer_norm,
+            "relkey_attention": relkey_attention,
             "attn_int8": int8_attention_long, "attn_softmax_variants": softmax_variant_attention}
 
 
@@ -1392,7 +1407,7 @@ def phase_tile_edges(torch, mha) -> dict:
 # blocks an SM, grid order (0 query tile fastest, 1 clip fastest)>
 TILE_KERNELS = {"KeyPadding<64, 2, 4, 2, 0>", "KeyPadding<120, 2, 4, 1, 0>",
                 "FullBias<64, 2, 4, 1, 0>", "GatedBiasRing<64, 1, 3, 2, 0>",
-                "GatedBiasRing<64, 1, 3, 2, 1>"}
+                "GatedBiasRing<64, 1, 3, 2, 1>", "RelKeyTable<64, 2, 4, 2, 0>"}
 # the bf16 backward's wgmma kernels: dq and dk+dv in either grid order, dbias
 BWD_TILE_KERNELS = {"dq<0>", "dq<1>", "dkv<0>", "dkv<1>", "dbias"}
 # the stem's wgmma conv kernels, by taps
@@ -1556,6 +1571,7 @@ def tile_kernels(build) -> list[dict]:
     for row in rows:
         m = re.search(r"(\w+?)((?:ELi\d+){5})E", row["kernel"])
         scope, ints = m.group(1), re.findall(r"[0-9]+", m.group(2))
+        scope = re.sub(r"I\d\w*E$", "", scope)  # a policy's own template arguments
         # the policy is the last <length><name> of its mangled scope
         policy = next(n.group(2) for i in range(len(scope) - 1, -1, -1)
                       if (n := re.fullmatch(r"([0-9]+)([A-Za-z_]\w*)", scope[i:]))
@@ -1835,6 +1851,195 @@ def phase_flash_mha_hd120(torch, mha):
           f"the 120-wide calls were counted as {counted}")
     return worst, {shape + ("" if kv is None else "_padded"): numbers
                    for shape, dtype, kv, numbers in rows if dtype == torch.bfloat16}
+
+
+RELKEY_EDGE_LENGTHS = (37, 64, 65, 127, 128, 129, 999, 1499)
+
+
+def relkey_inputs(torch, g, B, H, L, dtype, lengths):
+    """q, k, v of ``make_qkv``, the [73, 64] distance embeddings (randn * 0.5,
+    at k's scale, as the benchmark draws them) and the [B] int32 key counts."""
+    q, k, v = make_qkv(torch, g, B, H, L, dtype)
+    emb = (torch.randn(73, 64, device="cuda", generator=g) * 0.5).to(dtype)
+    return q, k, v, emb, lengths.to(torch.int32).contiguous()
+
+
+def relkey_bias(torch, rk, q, emb, kv_valid):
+    """The [B, H, L, L] f32 additive bias the library call is given: the
+    gathered relative-key terms and the key mask."""
+    L = q.shape[2]
+    table = torch.matmul(q.float(), emb.float().t())
+    bias = torch.gather(table, -1, rk.relative_terms(L, q.device).expand(*q.shape[:2], L, L))
+    keys = torch.arange(L, device=q.device)
+    return bias.add_(torch.where(keys[None, :] < kv_valid[:, None], 0.0, -1e9)[:, None, None])
+
+
+def phase_relkey_attn(torch, rk):
+    """The relative-key attention kernel (w2v-BERT) against its plain version:
+    at the 30 s bucket's 8 x 16 x 1499 x 64 and the 20 s bucket's
+    12 x 16 x 999 x 64 (the benchmark's rows), and at 1504 and
+    1008 with keys masked, in bf16, timed per launch and 8 queued beside
+    the plain version and scaled_dot_product_attention given the
+    materialised bias; f32 (the fidelity preset) at the 20 s bucket; then,
+    checked and not timed, bf16 at ragged lengths around the 64-row tiles
+    with key counts of 1, 63, 64, 65 and L. Returns (worst max-abs error,
+    the numbers of each timed case)."""
+    import torch.nn.functional as F
+
+    from stutter_tpu_torch.utils.benchmarking import bound
+
+    g = torch.Generator(device="cuda").manual_seed(25)
+    worst, numbers_by_case = 0.0, {}
+    timed_cases = [(8, 16, 1499, torch.bfloat16, False), (12, 16, 999, torch.bfloat16, True),
+                   (8, 16, 1504, torch.bfloat16, False), (12, 16, 1008, torch.bfloat16, True),
+                   (12, 16, 999, torch.float32, True)]
+    edge_cases = [(5, 4, L, torch.bfloat16, True) for L in RELKEY_EDGE_LENGTHS]
+    before = rk.relkey_attention.launches
+    for B, H, L, dtype, padded in timed_cases + edge_cases:
+        lengths = torch.full((B,), L, device="cuda")
+        if padded:
+            lengths = torch.randint(L // 3, L + 1, (B,), device="cuda", generator=g)
+            lengths[0] = L
+            if B == 5:  # the edge cases: key counts around a tile
+                lengths = torch.tensor([L, 1, min(63, L), min(64, L), min(65, L)], device="cuda")
+        q, k, v, emb, kv = relkey_inputs(torch, g, B, H, L, dtype, lengths)
+        out = rk.relkey_attention(q, k, v, emb, kv)
+        ref = rk.relkey_attention_reference(q, k, v, emb, kv)
+        torch.cuda.synchronize()
+        check(out.shape == ref.shape and out.dtype == dtype and out.stride() == q.stride(),
+              f"relkey_attention output {out.dtype} {tuple(out.shape)} {out.stride()}")
+        check(bool(torch.isfinite(out).all()), "relkey_attention output has non-finite values")
+        max_abs = float((out.float() - ref.float()).abs().max())
+        cos = cosine_distance(out.float(), ref.float())
+        tol_abs, tol_cos = ((BF16_MAX_ABS, BF16_COSINE) if dtype == torch.bfloat16
+                            else (F32_MAX_ABS, F32_COSINE))
+        shape = f"{B}x{H}x{L}x64"
+        fields = {}
+        if (B, H, L, dtype, padded) in timed_cases:
+            bias_q = relkey_bias(torch, rk, q, emb, kv).to(dtype)
+            ms, plain_ms, library_ms = time_turns(
+                torch, lambda: rk.relkey_attention(q, k, v, emb, kv),
+                lambda: rk.relkey_attention_reference(q, k, v, emb, kv),
+                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias_q, scale=1.0))
+            queued_ms, queued_library_ms = time_turns(
+                torch, lambda: rk.relkey_attention(q, k, v, emb, kv),
+                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias_q, scale=1.0),
+                reps=8)
+            emb80 = F.pad(emb, (0, 0, 0, rk.TABLE_PITCH - rk.TERMS))
+            table_ms, = time_turns(torch, lambda: torch.matmul(q.transpose(1, 2), emb80.t()),
+                                   reps=8)
+            del bias_q
+            n = B * H * L * 64  # q k^T, p v and q E^T; q, k, v, out, E and kv once each
+            numbers = timing(ms, plain_ms, *bound(
+                4 * n * L + 2 * n * 73, 4 * n * q.element_size() + 73 * 64 * q.element_size()
+                + 4 * B, peak_flops(torch, dtype)), library_ms)
+            numbers_by_case[shape + ("_padded" if padded else "") + (
+                "" if dtype == torch.bfloat16 else "_f32")] = dict(
+                numbers, queued_ms=queued_ms, queued_library_ms=queued_library_ms,
+                table_queued_ms=table_ms)
+            fields = dict(shown(numbers), queued_ms=f"{queued_ms:.4f}",
+                          queued_library_ms=f"{queued_library_ms:.4f}",
+                          table_queued_ms=f"{table_ms:.4f}",
+                          queued_share=f"{100 * numbers['bound_ms'] / queued_ms:.1f}")
+        say("relkey_attn", shape=shape, dtype=str(dtype).split(".")[-1],
+            keys=",".join(map(str, lengths.tolist()[:5])), max_abs_err=f"{max_abs:.3e}",
+            max_abs_tol=tol_abs, cosine_dist=f"{cos:.3e}", cosine_tol=tol_cos, **fields)
+        check(max_abs <= tol_abs and cos <= tol_cos,
+              f"relkey_attention disagrees with its plain version at {shape} {dtype}")
+        worst = max(worst, max_abs)
+        del q, k, v, out, ref
+        torch.cuda.empty_cache()
+    check(rk.relkey_attention.launches > before, "relkey_attention.launches did not count")
+    return worst, numbers_by_case
+
+
+def seeded_w2v_bert(torch, cfg, device: str = "cuda"):
+    """A float32 ``W2VBertModel`` on ``device``, loaded with the benchmark's
+    kind of draw: dense and conv weights normal * fan_in^-1/2, norm scales
+    1 + 0.1 n, other vectors 0.02 n, the distance embeddings at k's scale."""
+    import math
+
+    from stutter_tpu_torch.models.w2v_bert import W2VBertModel
+
+    model = W2VBertModel(cfg, device=device)
+    g = torch.Generator(device=device).manual_seed(25)
+    state = {}
+    for name, p in model.state_dict().items():
+        std, mean = 0.02, 0.0
+        if name.endswith("distance_embedding"):
+            std = 1.0
+        elif p.dim() >= 2:
+            std = math.prod(p.shape[1:]) ** -0.5
+        elif name.endswith(("_s", "ln_scale")):
+            std, mean = 0.1, 1.0
+        state[name] = torch.randn(p.shape, device=device, generator=g) * std + mean
+    model.load_state_dict(state)
+    return model
+
+
+def phase_w2v_bert_slice(torch, rk, cfg=None, device: str = "cuda") -> dict:
+    """w2v-BERT 2.0 at its published widths through ``W2VBertExtractor``
+    (fast), one batch of each bucket the benchmark's cell fills: 12 x 20 s
+    (999 rows) and 8 x 30 s (1499 rows), ragged clips. Per batch: one
+    relative-key launch a layer and six norms (four with the residual add
+    fused; the 160-wide projection norm is plain), and no other kernel; the
+    pooled rows against the same batch with both gates closed (the plain
+    norms and the plain relative-key attention, bf16). Returns the launch
+    counts of both batches. (``cfg`` and ``device`` are for a dry run on
+    the CPU: a smaller model, and no kernel counted.)"""
+    import numpy as np
+
+    import stutter_tpu_torch.models.w2v_bert as w2v_bert
+    from stutter_tpu_torch.extract.batcher import Batch
+    from stutter_tpu_torch.extract.pipeline import W2VBertExtractor
+    from stutter_tpu_torch.models.w2v_bert import W2VBertConfig
+    from stutter_tpu_torch.ops import layer_norm as ln
+
+    cfg = cfg or W2VBertConfig.w2v_bert_2_0()
+    ex = W2VBertExtractor(seeded_w2v_bert(torch, cfg, device), device, preset="fast")
+    n = cfg.num_hidden_layers * (device == "cuda")
+    want = {"relkey_attention": n, "layer_norm": 6 * n, "layer_norm_fused": 4 * n}
+    totals = dict.fromkeys(want, 0)
+    rng = np.random.default_rng(25)
+    for B, seconds in ((12, 20), (8, 30)):
+        T = seconds * 16000
+        lengths = rng.integers(T * 3 // 4, T + 1, B)
+        lengths[0] = T
+        waves = np.zeros((B, T), np.float32)
+        for i, m in enumerate(lengths):
+            waves[i, :m] = 0.1 * rng.standard_normal(m)
+        batch = Batch(paths=[f"w2v_bert_{i}" for i in range(B)], rows=list(range(B)),
+                      waves=waves, lengths=lengths, ok=np.ones(B, bool), bucket_s=seconds)
+        zero_counts()
+        got = ex(batch)
+        counts = read_counts()
+        shape = f"{B}x{ex.frame_count(T)}"
+        check({k: counts[k] for k in want} == want,
+              f"w2v_bert_slice {shape}: launches {counts}, expected {want}")
+        check(not any(v for k, v in counts.items() if k not in want),
+              f"w2v_bert_slice {shape}: other kernels launched: {counts}")
+        for k in want:
+            totals[k] += counts[k]
+        real = ln._on_card, w2v_bert.relkey_self_attention
+        ln._on_card = lambda t: False
+        w2v_bert.relkey_self_attention = rk.relkey_attention_reference
+        try:
+            plain = ex(batch)
+        finally:
+            ln._on_card, w2v_bert.relkey_self_attention = real
+        check(read_counts() == counts, "w2v_bert_slice: the closed gates launched a kernel")
+        worst = max(cosine_distance(*map(torch.from_numpy, (got[c][i], plain[c][i])))
+                    for c in got for i in range(B))
+        say("w2v_bert_slice", batch=shape, relkey_launches=counts["relkey_attention"],
+            layer_norm_launches=counts["layer_norm"], fused=counts["layer_norm_fused"],
+            expected=",".join(map(str, want.values())),
+            pooled_cosine_vs_gates_closed=f"{worst:.3e}", tol=FAST_POOLED_COSINE)
+        check(worst <= FAST_POOLED_COSINE,
+              f"w2v_bert_slice {shape}: pooled rows {worst:.3e} from the gates-closed batch")
+    del ex
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return totals
 
 
 def phase_mha_bias(torch, mha):
@@ -5392,6 +5597,7 @@ def main() -> int:
     from stutter_tpu_torch.ops import attn_probes as probes
     from stutter_tpu_torch.ops import flash_mha as mha
     from stutter_tpu_torch.ops import logmel
+    from stutter_tpu_torch.ops import relkey_attention as rk
     from stutter_tpu_torch.ops import wavlm_attention as attn
     from stutter_tpu_torch.weights.convert import init_wavlm, init_whisper
 
@@ -5408,6 +5614,20 @@ def main() -> int:
     say("build", seconds=f"{build_s:.2f}", library=lib.relative_to(ROOT))
 
     try:
+        if "--only-relkey" in sys.argv[1:]:
+            phase_tile_resources(_build)
+            with timed("relkey_attn"):
+                err, times = phase_relkey_attn(torch, rk)
+            with timed("w2v_bert_slice"):
+                w2v_counts = phase_w2v_bert_slice(torch, rk)
+            print(json.dumps({"kernels": [{
+                "name": "relkey_attention", "route": "cuda",
+                "source": "stutter_tpu_torch/csrc/relkey_attention.cu", "replaces": None,
+                "launches": w2v_counts["relkey_attention"], "max_abs_err": err,
+                "cases": times, "w2v_bert_slice_layer_norm_launches": [
+                    w2v_counts["layer_norm"], w2v_counts["layer_norm_fused"]]}]}),
+                flush=True)
+            return 0
         if "--only-parallel" in sys.argv[1:]:
             parallel_only(torch, card)
             print(json.dumps({"ok": True, "device": {
@@ -5427,6 +5647,10 @@ def main() -> int:
             hd120_err, hd120_times = phase_flash_mha_hd120(torch, mha)
         with timed("mha_bias"):
             mha_bias_err, mha_bias_times = phase_mha_bias(torch, mha)
+        with timed("relkey_attn"):
+            relkey_err, relkey_times = phase_relkey_attn(torch, rk)
+        with timed("w2v_bert_slice"):
+            w2v_counts = phase_w2v_bert_slice(torch, rk)
         with timed("mha_edges"):
             edge_errs = phase_tile_edges(torch, mha)
             mha_err = max(mha_err, edge_errs["flash_mha"])
@@ -5607,6 +5831,10 @@ def main() -> int:
         ("pos_conv_residual", "pos_conv.cu", None, wavlm_counts["pos_conv_residual"],
          pos_conv_err, pos_conv_times),
         ("layer_norm", "layer_norm.cu", None, wavlm_counts["layer_norm"], ln_ulps, ln_times),
+        # no TPU kernel (w2v-BERT is the port's alone); its launches on the
+        # path are [w2v_bert_slice]'s two batches
+        ("relkey_attention", "relkey_attention.cu", None, w2v_counts["relkey_attention"],
+         relkey_err, relkey_times["8x16x1499x64"]),
         ("attn_int8", "attn_probes.cu", "scripts/attn_int8_probe.py:66",
          probe_counts["attn_int8"], *probe_numbers["attn_int8"]),
         ("attn_softmax_variants", "attn_probes.cu", "scripts/attn_softmax_variants_probe.py:54",
@@ -5656,8 +5884,11 @@ def main() -> int:
     line[7]["cases"] = ln_cases
     line[7]["fused_launches"] = wavlm_counts["layer_norm_fused"]
     line[7]["long_slice_launches"] = long_counts["layer_norm"]
-    line[8]["also_replaces"] = "scripts/attn_int8_probe.py:100"  # its pallas_call
-    line[9]["also_replaces"] = "scripts/attn_softmax_variants_probe.py:98"
+    line[7]["w2v_bert_slice_launches"] = w2v_counts["layer_norm"]
+    line[7]["w2v_bert_slice_fused_launches"] = w2v_counts["layer_norm_fused"]
+    line[8]["cases"] = relkey_times
+    line[9]["also_replaces"] = "scripts/attn_int8_probe.py:100"  # its pallas_call
+    line[10]["also_replaces"] = "scripts/attn_softmax_variants_probe.py:98"
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

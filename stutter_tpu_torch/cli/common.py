@@ -183,6 +183,24 @@ def load_wav2vec2_model(model_name: str, random_init: bool, device: str = "cpu")
     return load_wav2vec2(model_name)
 
 
+def load_w2v_bert_model(model_name: str, random_init: bool, device: str = "cpu"):
+    """(W2VBertConfig, float32 W2VBertModel on the CPU, the published
+    weights unfolded). Raises ValueError, before any weight loads, for heads
+    that ``device`` cannot run (``W2VBertExtractor.check_device``)."""
+    import torch
+
+    from stutter_tpu_torch.extract.pipeline import W2VBertExtractor
+    from stutter_tpu_torch.models.w2v_bert import W2VBertConfig
+    from stutter_tpu_torch.weights.convert import init_w2v_bert, load_w2v_bert, w2v_bert_config
+
+    if random_init:
+        cfg = W2VBertConfig.w2v_bert_2_0()
+        logger.warning("--random_init: using fresh w2v-BERT 2.0 weights (seed 0)")
+        return cfg, init_w2v_bert(cfg, torch.Generator().manual_seed(0))
+    W2VBertExtractor.check_device(w2v_bert_config(model_name), device)
+    return load_w2v_bert(model_name)
+
+
 def load_whisper_model(model_name: str, random_init: bool):
     """(WhisperConfig, float32 WhisperModel on the CPU)."""
     import torch

@@ -14,7 +14,8 @@ card before its weights load. The store, its columns (states N, N - 1, N - 2
 and N // 2 of the N + 1 hidden states), the checkpoints and the batcher's
 defaults are ``extract_wavlm``'s. ``--device`` names the torch device
 (default ``cuda``); with no card it fails rather than running on the CPU.
-One device only: ``--devices`` above 1 raises.
+One device only: ``--devices`` above 1 raises. ``parse_args`` and ``run``
+serve ``extract_w2v_bert`` too.
 """
 
 from __future__ import annotations
@@ -26,16 +27,19 @@ from stutter_tpu_torch.cli.common import WAV2VEC2_CONFIGS
 from stutter_tpu_torch.utils.logging import get_logger, setup_logging
 
 
-def parse_args(argv=None):
+def parse_args(argv=None, model: str = "wav2vec 2.0 / XLS-R",
+               model_name: str = "facebook/wav2vec2-xls-r-2b",
+               choices=tuple(sorted(WAV2VEC2_CONFIGS))):
+    """The flags; ``extract_w2v_bert`` takes them with its model's name and
+    default, and any ``--model_name`` (``choices`` None)."""
     parser = argparse.ArgumentParser(
-        description="Extract wav2vec 2.0 / XLS-R embeddings for stuttering classification "
-                    "(PyTorch/CUDA)")
+        description=f"Extract {model} embeddings for stuttering classification (PyTorch/CUDA)")
     parser.add_argument("--data_dir", type=str, required=True,
                         help="Base directory with KSF data (wav/ and lab/ subdirectories)")
     parser.add_argument("--output_dir", type=str, required=True,
                         help="Directory to save embeddings")
-    parser.add_argument("--model_name", type=str, default="facebook/wav2vec2-xls-r-2b",
-                        choices=sorted(WAV2VEC2_CONFIGS), help="wav2vec2 model name")
+    parser.add_argument("--model_name", type=str, default=model_name, choices=choices,
+                        help="model name")
     parser.add_argument("--model_path", type=str, default=None,
                         help="Local checkpoint directory (overrides --model_name source)")
     parser.add_argument("--batch_size", type=int, default=128,
@@ -61,27 +65,34 @@ def parse_args(argv=None):
     parser.add_argument("--preset", type=str, default="fast",
                         choices=["fast", "fidelity", "turbo"],
                         help="Numerics preset: fast=bf16, fidelity=f32 without TF32, "
-                             "turbo=fast with int8 W8A8 projections")
+                             "turbo=fast with int8 W8A8 products")
     parser.add_argument("--device", type=str, default="cuda",
                         help="Torch device to run on (default: cuda)")
     return parser.parse_args(argv)
 
 
 def main(argv=None) -> int:
-    args = parse_args(argv)
-    if args.devices != 1:
-        raise SystemExit(f"--devices {args.devices}: wav2vec2 extraction runs on one device "
-                         "(no data or tensor parallelism for this model)")
-    setup_logging("wav2vec2_embedding")
-    logger = get_logger("cli.extract_wav2vec2")
-
     from stutter_tpu_torch.cli.common import load_wav2vec2_model
+    from stutter_tpu_torch.extract.pipeline import Wav2Vec2Extractor
+
+    return run(parse_args(argv), "wav2vec2", load_wav2vec2_model, Wav2Vec2Extractor)
+
+
+def run(args, family: str, load_model, extractor_cls) -> int:
+    """One device's extraction over ``args``' corpus: the model from
+    ``load_model(name, random_init, device)``, the extractor
+    ``extractor_cls``; the logfile ``{family}_embedding_*.log``."""
+    if args.devices != 1:
+        raise SystemExit(f"--devices {args.devices}: {family} extraction runs on one device "
+                         "(no data or tensor parallelism for this model)")
+    setup_logging(f"{family}_embedding")
+    logger = get_logger(f"cli.extract_{family}")
+
     from stutter_tpu_torch.extract.batcher import BucketBatcher
-    from stutter_tpu_torch.extract.pipeline import ExtractionPipeline, Wav2Vec2Extractor
+    from stutter_tpu_torch.extract.pipeline import ExtractionPipeline
     from stutter_tpu_torch.extract.scanner import create_metadata_from_files
 
-    cfg, model = load_wav2vec2_model(args.model_path or args.model_name, args.random_init,
-                                     args.device)
+    cfg, model = load_model(args.model_path or args.model_name, args.random_init, args.device)
     logger.info("model: %s (%d layers, hidden %d, %d heads of %d) on %s, preset %s",
                 args.model_name, cfg.num_hidden_layers, cfg.hidden_size,
                 cfg.num_attention_heads, cfg.head_dim, args.device, args.preset)
@@ -90,7 +101,7 @@ def main(argv=None) -> int:
     if not metadata:
         logger.error("no files found under %s", args.data_dir)
         return 1
-    extractor = Wav2Vec2Extractor(model, args.device, preset=args.preset)
+    extractor = extractor_cls(model, args.device, preset=args.preset)
     batcher = BucketBatcher(
         target_sr=args.sample_rate,
         audio_budget_s=args.audio_budget,

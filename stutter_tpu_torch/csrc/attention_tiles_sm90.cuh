@@ -5,7 +5,9 @@
 // stutter_tpu/models/attention.py:flash_mha and :flash_mha_bias) and
 // wavlm_attention.cu's gated relative-position-bias attention (policy
 // GatedBiasRing; it replaces stutter_tpu/ops/wavlm_attention_pallas.py's two
-// forward kernels). wavlm_attention_bwd.cu builds the bf16 backward of the
+// forward kernels), and relkey_attention.cu's clamped relative-key attention
+// (policy RelKeyTable, a per-row table; w2v-BERT 2.0, which the JAX package
+// lacks). wavlm_attention_bwd.cu builds the bf16 backward of the
 // gated attention from its primitives (copies, descriptors, wgmma, the ring's
 // discipline), and so does attn_probes.cu the two A/B probes (its own
 // kernels for the int8 probe and the softmax variants: two passes, int8
@@ -124,7 +126,23 @@
 //   const float* key_row() const       (if kStreamsKeyRow) that row;
 //   float biased(a, kj, s, bias, key) const
 //                                      applied to every score; key is the
-//                                      key row at kj, or 0 without one.
+//                                      key row at kj, or 0 without one;
+// and, optionally (a policy without the member has none: RowTableOf),
+//   static constexpr bool kRowTable    whether each query row carries a
+//                                      table of kLeft + kRight + 1 terms,
+//                                      term clamp(kj - i, -kLeft, kRight) +
+//                                      kLeft added to the score of key kj;
+//   static constexpr int kLeft, kRight the clamp's bounds;
+//   float table(a, r) const            term r of row a's table;
+//   int term(a, kj) const              the term key kj takes in row a.
+// A row table does not ride the ring. A 64-row warpgroup meets the unclamped
+// terms only in the key tiles that overlap [q0 - kLeft, q0 + 63 + kRight]
+// (three at kLeft 64, kRight 8, the tiles around its diagonal), and gathers
+// them there. Every tile wholly left of that band adds each row's term 0,
+// every tile wholly right its last term: two registers a row hold both, and
+// they are folded into the tile's max and the exponent's offset, so that
+// such a tile costs no instruction an element more than a policy without a
+// table (w2v-BERT's clamped relative-key attention, relkey_attention.cu).
 
 #pragma once
 
@@ -132,6 +150,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace sm90 {
 
@@ -161,6 +181,13 @@ struct HeadDim {
 
 // L2 policy of a streamed bias's copies
 enum class L2Hint { kEvictFirst, kEvictNormal };
+
+// Whether a policy carries a per-row table (its kRowTable; false without one).
+template <class Score, class = void>
+struct RowTableOf : std::false_type {};
+template <class Score>
+struct RowTableOf<Score, std::void_t<decltype(Score::kRowTable)>>
+    : std::bool_constant<Score::kRowTable> {};
 
 // Grid orders, a template parameter of the kernel (a run-time one cost
 // flash_mha 1-2 %): blockIdx.x = (b * H + h) * n_q_tiles + tile, or
@@ -418,6 +445,18 @@ __global__ void __launch_bounds__(128 * kWgs, kMinBlocks) attention_bf16_kernel(
   const int rows[2] = {q0 + r_lo, q0 + r_lo + 8};
   const Score score(params, b, h, rows, H, L);
   const int edge_from = min(L, score.edge_from());
+  // A row table's first and last terms for this lane's rows, and the first
+  // query row of this warpgroup, which places its band of key tiles.
+  constexpr bool kTable = RowTableOf<Score>::value;
+  float table_lo[2] = {0.f, 0.f}, table_hi[2] = {0.f, 0.f};
+  if constexpr (kTable) {
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      table_lo[a] = score.table(a, 0);
+      table_hi[a] = score.table(a, Score::kLeft + Score::kRight);
+    }
+  }
+  const int wg_q0 = q0 + 64 * wg;
 
   // Each thread's share of a tile's copies stays the same from tile to tile:
   // 16-byte chunk kv_c of K and V rows kv_r + kKvRowStep * i, to the swizzled
@@ -591,6 +630,27 @@ __global__ void __launch_bounds__(128 * kWgs, kMinBlocks) attention_bf16_kernel(
         }
       }
     }
+    // A row table: the band's tiles add each score's term here; a tile
+    // wholly left or right of the band adds one term a row, `shift`, which
+    // the max and the exponent's offset take below.
+    float shift[2] = {0.f, 0.f};
+    if constexpr (kTable) {
+      if (k0 + kTileK - 1 - wg_q0 <= -Score::kLeft) {
+        shift[0] = table_lo[0];
+        shift[1] = table_lo[1];
+      } else if (k0 - (wg_q0 + 63) >= Score::kRight) {
+        shift[0] = table_hi[0];
+        shift[1] = table_hi[1];
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kj = k0 + 8 * nt + 2 * tig + (e & 1);
+            s[4 * nt + e] += score.table(e >> 1, score.term(e >> 1, kj));
+          }
+      }
+    }
     if (k0 + kTileK > edge_from) {
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt)
@@ -608,12 +668,15 @@ __global__ void __launch_bounds__(128 * kWgs, kMinBlocks) attention_bf16_kernel(
         tile_max = fmaxf(tile_max, fmaxf(s[4 * nt + 2 * a], s[4 * nt + 2 * a + 1]));
       tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
       tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
+      if constexpr (kTable) tile_max += shift[a];
       // Key 0 lies in the first tile and every policy keeps a key < L
       // finite, so the running max is finite from then on.
       row_max[a] = fmaxf(row_max[a], tile_max);
       const float max2 = row_max[a] * kLog2e;
       rescale[a] = ex2(row_max2[a] - max2);
       row_max2[a] = max2;
+      float offset = -max2;
+      if constexpr (kTable) offset = fmaf(shift[a], kLog2e, -max2);
       float part = 0.f;
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt)
@@ -622,7 +685,7 @@ __global__ void __launch_bounds__(128 * kWgs, kMinBlocks) attention_bf16_kernel(
           float& x = s[4 * nt + 2 * a + j];
           // one rounding, exact where x is the max even at -1e9: equal
           // scores get equal probabilities, which is what a padded row needs
-          x = ex2(fmaf(x, kLog2e, -max2));
+          x = ex2(fmaf(x, kLog2e, offset));
           part += x;
         }
       row_sum[a] = row_sum[a] * rescale[a] + part;

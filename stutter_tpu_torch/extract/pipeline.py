@@ -1,8 +1,9 @@
-"""Batched, resumable WavLM, wav2vec2 and Whisper embedding extraction on one or many devices.
+"""Batched, resumable WavLM, wav2vec2, w2v-BERT and Whisper embedding extraction.
 
 Counterpart of ``stutter_tpu/extract/pipeline.py``: the split loop feeds
 length-bucketed batches through ``WavLMExtractor``, ``Wav2Vec2Extractor``
-(wav2vec 2.0 / XLS-R, which the JAX package lacks; one device) or
+(wav2vec 2.0 / XLS-R, which the JAX package lacks; one device),
+``W2VBertExtractor`` (w2v-BERT 2.0, which it lacks too; one device) or
 ``WhisperExtractor`` and writes the reference's .npy+CSV store with
 checkpoint/resume. ``submit``
 enqueues a batch's device work and the copy of its pooled result on the
@@ -35,8 +36,10 @@ Spans (``utils.profiling.span``): ``extract.submit`` with its children
 ``extract.pin`` (the bf16 presets' int16 encoding of the batch on the host,
 then its pinned host-to-device copies) and ``extract.encode`` (the model's
 enqueue; its attrs name the model ``family`` and its attention's
-``head_dim``); ``extract.collect_wait`` (the host's wait for a batch's result);
-``extract.rows`` (a batch's rows built for the store); ``extract.checkpoint``
+``head_dim``; w2v-BERT's holds ``frontend.fbank``, its fbank, and
+``w2v_bert.layers``, whose ``relkey_attn_launches`` counts the batch's
+relative-key attention launches); ``extract.collect_wait`` (the host's wait
+for a batch's result); ``extract.rows`` (a batch's rows built for the store); ``extract.checkpoint``
 and ``extract.store`` (in ``checkpoint.py`` and ``store.py``).
 """
 
@@ -63,8 +66,13 @@ from stutter_tpu_torch.extract.checkpoint import (
     save_checkpoint,
 )
 from stutter_tpu_torch.extract.store import save_embeddings
+from stutter_tpu_torch.frontend.w2v_bert_frontend import (
+    w2v_bert_features,
+    w2v_bert_frame_lengths,
+)
 from stutter_tpu_torch.frontend.wavlm_frontend import wavlm_prepare_batch
 from stutter_tpu_torch.frontend.whisper_frontend import whisper_features
+from stutter_tpu_torch.models.w2v_bert import W2VBertModel
 from stutter_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Model
 from stutter_tpu_torch.models.wavlm import (
     LONG_ATTENTION_MIN_L,
@@ -73,14 +81,16 @@ from stutter_tpu_torch.models.wavlm import (
     wavlm_feature_lengths,
 )
 from stutter_tpu_torch.models.whisper import WhisperModel
-from stutter_tpu_torch.ops._attention import HEAD_DIMS
+from stutter_tpu_torch.ops._attention import HEAD_DIM, HEAD_DIMS
 from stutter_tpu_torch.ops.logmel import WHISPER_HOP
 from stutter_tpu_torch.ops.precision import no_tf32
 from stutter_tpu_torch.ops.quant import (
+    W2V_BERT_QUANT_KEYS,
     WAVLM_QUANT_KEYS,
     WHISPER_QUANT_KEYS,
     quantize_layer_stack,
 )
+from stutter_tpu_torch.ops.relkey_attention import relkey_attention
 from stutter_tpu_torch.parallel.mesh import (
     MeshPlan,
     barrier,
@@ -115,14 +125,16 @@ def cast_for_preset(model, device: torch.device, preset: str):
     """Move the float32 model to ``device`` in the preset's dtype and, for the
     turbo presets, quantize the encoder layers' weights from that bf16 cast
     (quantizing the f32 weights would give other int8 values than JAX's), as
-    ``cast_params_for_preset`` does: turbo takes WavLM's six keys and the
-    Whisper encoder's but ``attn.o_w``, turbo_ffn the FFN's. The Whisper
+    ``cast_params_for_preset`` does: turbo takes WavLM's six keys, the
+    Whisper encoder's but ``attn.o_w`` and every product of w2v-BERT's
+    layers, turbo_ffn the FFN's (WavLM's and Whisper's). The Whisper
     decoder, the conv stems, biases, norms and embeddings keep the preset's
     dtype."""
     model = model.to(device=device, dtype=PRESETS[preset]["dtype"]).eval()
     whisper = isinstance(model, WhisperModel)
-    keys = {"turbo": WHISPER_QUANT_KEYS if whisper else WAVLM_QUANT_KEYS,
-            "turbo_ffn": _FFN_QUANT_KEYS}.get(preset)
+    turbo = (WHISPER_QUANT_KEYS if whisper
+             else W2V_BERT_QUANT_KEYS if isinstance(model, W2VBertModel) else WAVLM_QUANT_KEYS)
+    keys = {"turbo": turbo, "turbo_ffn": _FFN_QUANT_KEYS}.get(preset)
     if keys:
         quantize_layer_stack((model.encoder if whisper else model).layers, keys)
     return model
@@ -154,8 +166,9 @@ class _Extractor:
     quantization) of the float32 model, and the batch loop's
     submit/collect/warmup. A subclass sets ``family`` (its model's, for the
     ``extract.encode`` span) and ``column_names`` (the order of
-    ``_forward``'s [S, B, D] result) and defines ``_inputs`` and
-    ``_forward``. Under a
+    ``_forward``'s [S, B, D] result) and defines ``_forward`` (and
+    ``_inputs``, where it takes other tensors than the waves, their scales
+    and sample counts). Under a
     ``plan`` the model is cut to the rank's tensor-parallel share after the
     cast (turbo quantizes the whole weights first, as the JAX package does),
     and a batch is this rank's rows of the global batch."""
@@ -190,8 +203,10 @@ class _Extractor:
 
     def _inputs(self, waves: np.ndarray, scale: np.ndarray, lengths: np.ndarray) -> tuple:
         """The host batch copied to the device (``_to_device``): the
-        tensors ``_forward`` takes."""
-        raise NotImplementedError
+        tensors ``_forward`` takes, here the waves, their scales and their
+        sample counts."""
+        return (self._to_device(waves), self._to_device(scale),
+                self._to_device(lengths.astype(np.int64)))
 
     def _forward(self, *inputs: torch.Tensor) -> torch.Tensor:
         """Enqueue the model on ``_inputs``' tensors: [S, B, D] f32 pooled."""
@@ -289,10 +304,6 @@ class WavLMExtractor(_Extractor):
     def frame_count(self, n_samples: int) -> int:
         return int(wavlm_feature_lengths(self.cfg, n_samples))
 
-    def _inputs(self, waves: np.ndarray, scale: np.ndarray, lengths: np.ndarray) -> tuple:
-        return (self._to_device(waves), self._to_device(scale),
-                self._to_device(lengths.astype(np.int64)))
-
     def _forward(self, waves: torch.Tensor, scale: torch.Tensor, lens: torch.Tensor):
         w = wavlm_prepare_batch(self._waves(waves, scale), lens, self.cfg.do_normalize)
         with self._precision():
@@ -330,6 +341,63 @@ class Wav2Vec2Extractor(WavLMExtractor):
             widths = " or ".join(map(str, HEAD_DIMS))
             raise ValueError(f"heads of {cfg.head_dim}: the attention kernel is built at "
                              f"head_dim {widths}")
+
+
+class W2VBertExtractor(_Extractor):
+    """Layer-selected mean-pooled w2v-BERT 2.0 embeddings, in the store
+    columns, presets and default layers of ``WavLMExtractor`` (states N,
+    N - 1, N - 2 and N // 2 of the N + 1; turbo: int8 in every product of
+    the layers). Each batch's fbank (``frontend.w2v_bert_frontend``) runs on
+    the device from the pinned waves, then the encoder on its rows.
+    ``model`` is a float32 ``W2VBertModel``, its weights loaded (the
+    macaron 1/2 and q's scale folded in at load, before the cast).
+    Buckets are not frame-aligned: a bucket of n samples gives
+    (1 + (n - 400) // 160) // 2 rows (999 at 20 s, 1499 at 30 s). One
+    device: a ``plan`` of more than one rank raises, and so does a card
+    with heads other than the tiles' 64 (``check_device``)."""
+
+    family = "w2v_bert"
+    frame_align = None
+
+    def __init__(self, model: W2VBertModel, device: torch.device | str,
+                 layer_indices: Sequence[int] | None = None, preset: str = "fidelity",
+                 plan: MeshPlan | None = None):
+        if plan is not None and plan.world_size > 1:
+            raise NotImplementedError("w2v-BERT extraction runs on one device; "
+                                      f"got a plan of {plan.world_size} ranks")
+        self.check_device(model.cfg, device)
+        super().__init__(model, device, preset)
+        cfg = self.cfg
+        n_states = cfg.num_hidden_layers + 1
+        self.layer_indices = tuple(
+            layer_indices if layer_indices is not None
+            else (n_states - 1, n_states - 2, n_states - 3, n_states // 2))
+        self.embedding_dim = cfg.hidden_size
+        self.column_names = [f"layer_{i}" for i in self.layer_indices]
+
+    @staticmethod
+    def check_device(cfg, device: torch.device | str) -> None:
+        """Raise ValueError where ``device`` is a card and ``cfg``'s heads
+        are not the 64 the relative-key kernel is built at."""
+        if torch.device(device).type == "cuda" and cfg.head_dim != HEAD_DIM:
+            raise ValueError(f"heads of {cfg.head_dim}: the relative-key attention kernel is "
+                             f"built at head_dim {HEAD_DIM}")
+
+    def frame_count(self, n_samples: int) -> int:
+        return int(w2v_bert_frame_lengths(int(n_samples), self.cfg.stride))
+
+    def _forward(self, waves: torch.Tensor, scale: torch.Tensor, lens: torch.Tensor):
+        cfg = self.cfg
+        with self._precision():
+            with span("frontend.fbank"):
+                feats, rows = w2v_bert_features(self._waves(waves, scale), lens,
+                                                cfg.num_mel_bins, cfg.stride, cfg.sampling_rate)
+            with span("w2v_bert.layers") as s:
+                before = relkey_attention.launches
+                dtype = PRESETS[self.preset]["dtype"]
+                pooled = self.model.encode(feats.to(dtype), self.layer_indices, rows)
+                s.set(relkey_attn_launches=relkey_attention.launches - before)
+        return pooled
 
 
 class WhisperExtractor(_Extractor):

@@ -463,22 +463,24 @@ class GatedRelPosAttention(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """GELU MLP; under tensor parallelism w1 keeps this rank's rows, w2 its
-    columns, and ``tp_group`` is the model group."""
+    """MLP, GELU by default (``activation`` another elementwise function: the
+    Conformer's swish); under tensor parallelism w1 keeps this rank's rows,
+    w2 its columns, and ``tp_group`` is the model group."""
 
-    def __init__(self, cfg: WavLMConfig, device=None, dtype=torch.float32):
+    def __init__(self, cfg: WavLMConfig, device=None, dtype=torch.float32, activation=gelu):
         super().__init__()
         D, Fd = cfg.hidden_size, cfg.intermediate_size
         self.w1 = param((Fd, D), device, dtype)
         self.b1 = param((Fd,), device, dtype)
         self.w2 = param((D, Fd), device, dtype)
         self.b2 = param((D,), device, dtype)
+        self.activation = activation
         self.tp_group = None
         self.int8_forward = False  # w1, w2 through qdot_ste (fine-tuning)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = copy_to_model(x, self.tp_group)
-        h = gelu(linear(x, self.w1, self.b1, ste=self.int8_forward).to(x.dtype))
+        h = self.activation(linear(x, self.w1, self.b1, ste=self.int8_forward).to(x.dtype))
         return linear(h, self.w2, self.b2, self.tp_group,
                       ste=self.int8_forward).to(x.dtype)
 

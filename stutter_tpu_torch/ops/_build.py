@@ -38,6 +38,7 @@ SIGNATURES = {
         [_p] * 16 + [_i] * 6 + [_ll, _ll, _ll, _i, _p], _i),
     "flash_mha": ([_p, _p, _p, _p, _p, _i, _i, _i, _i, _ll, _ll, _ll, _i, _p], _i),
     "flash_mha_bias": ([_p, _p, _p, _p, _p, _i, _i, _i, _i, _ll, _ll, _ll, _i, _p], _i),
+    "relkey_attention": ([_p] * 6 + [_i] * 3 + [_ll] * 6 + [_i, _p], _i),
     "whisper_log_mel": ([_p] * 7 + [_i, _i, _p], _i),
     "wavlm_fused_stem": ([_p, _p, _p, _p, _p, _p, _i, _i, _p], _i),
     "pos_conv_residual": ([_p] * 4 + [_i] * 4 + [_p], _i),

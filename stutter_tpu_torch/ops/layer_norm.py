@@ -12,8 +12,9 @@ fused by XLA: the kernel replaces no Pallas kernel.
 
 ``add_layer_norm`` is the one entry point. Where ``kernel_applies`` (bf16 x,
 delta, scale and bias on the card, contiguous and 16-byte aligned, a width
-the kernel is built for, at least one row, and no autograd: grad off, or
-nothing that requires it) it launches ``csrc/layer_norm.cu`` and counts the
+the kernel is built for (``WIDTHS``, multiples of 128: a width such as
+w2v-BERT's 160 takes the plain version), at least one row, and no autograd:
+grad off, or nothing that requires it) it launches ``csrc/layer_norm.cu`` and counts the
 launch in ``add_layer_norm.launches``, a fused one also in
 ``add_layer_norm.launches_fused``. Everywhere else it runs the plain
 version, ``add_layer_norm_reference``, which the tests and the on-card
@@ -24,7 +25,10 @@ from __future__ import annotations
 
 import torch
 
-WIDTHS = (512, 1024, 1280, 1920)  # the kernel's instances: the stem's channels, then D
+# the kernel's instances: the stem's channels, then D. A lane loads 4 bf16 at
+# a time across a 32-lane row, so a width is a multiple of 128; others (w2v-BERT's
+# 160-wide feature projection norm) take the plain path
+WIDTHS = (512, 1024, 1280, 1920)
 
 
 def layer_norm_reference(x: torch.Tensor, scale, bias, eps: float, dim: int = -1) -> torch.Tensor:

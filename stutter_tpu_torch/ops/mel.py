@@ -1,11 +1,15 @@
-"""Slaney-style mel filter bank in numpy (copy of ``stutter_tpu/ops/mel.py``).
+"""Mel filter banks in numpy: Slaney-style (copy of ``stutter_tpu/ops/mel.py``)
+and Kaldi-style.
 
-The filter bank that Whisper's log-mel frontend multiplies its power
-spectrum by: 201 frequency bins, 80 (or 128) mel filters over 0-8 kHz,
-slaney scale and slaney area normalisation, as HF's
-``WhisperFeatureExtractor`` builds it. Computed once on the host in float64
-and cast to float32; the tests hold it equal, element for element, to the
-JAX package's.
+``mel_filter_bank`` is the bank that Whisper's log-mel frontend multiplies
+its power spectrum by: 201 frequency bins, 80 (or 128) mel filters over
+0-8 kHz, slaney scale and slaney area normalisation, as HF's
+``WhisperFeatureExtractor`` builds it; the tests hold it equal, element for
+element, to the JAX package's. ``kaldi_mel_filter_bank`` is w2v-BERT's
+(``frontend/w2v_bert_frontend.py``), which the JAX package lacks: the Kaldi
+mel scale 1127 ln(1 + f / 700), triangles drawn in mel space, no
+normalisation, as HF's ``SeamlessM4TFeatureExtractor`` builds it. Both are
+computed once on the host in float64 and cast to float32.
 """
 
 from __future__ import annotations
@@ -65,3 +69,21 @@ def mel_filter_bank(
         raise ValueError(f"unsupported norm: {norm!r}")
 
     return fb.astype(dtype)
+
+
+def kaldi_mel_filter_bank(num_frequency_bins: int, num_mel_filters: int, min_frequency: float,
+                          max_frequency: float, sampling_rate: int,
+                          dtype=np.float32) -> np.ndarray:
+    """Triangular filters on the Kaldi mel scale, drawn in mel space and not
+    normalised: shape ``[num_frequency_bins, num_mel_filters]``."""
+    def mel(freq):
+        return 1127.0 * np.log(1.0 + np.asarray(freq, np.float64) / 700.0)
+
+    mel_pts = np.linspace(mel(min_frequency), mel(max_frequency), num_mel_filters + 2)
+    bin_width = sampling_rate / ((num_frequency_bins - 1) * 2)
+    fft_mels = mel(bin_width * np.arange(num_frequency_bins))
+    fdiff = np.diff(mel_pts)
+    slopes = mel_pts[np.newaxis, :] - fft_mels[:, np.newaxis]
+    down = -slopes[:, :-2] / fdiff[:-1]
+    up = slopes[:, 2:] / fdiff[1:]
+    return np.maximum(0.0, np.minimum(down, up)).astype(dtype)

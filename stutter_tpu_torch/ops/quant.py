@@ -66,6 +66,10 @@ _HALF = (torch.bfloat16, torch.float16)
 WAVLM_QUANT_KEYS = ("attention.q_w", "attention.k_w", "attention.v_w", "attention.o_w",
                     "feed_forward.w1", "feed_forward.w2")
 WHISPER_QUANT_KEYS = ("attn.q_w", "attn.k_w", "attn.v_w", "ffn.fc1_w", "ffn.fc2_w")
+# w2v-BERT (no JAX counterpart): every product of its layers, the conv
+# module's pointwise convs included
+W2V_BERT_QUANT_KEYS = ("attention.q_w", "attention.k_w", "attention.v_w", "attention.o_w",
+                       "ffn1.w1", "ffn1.w2", "ffn2.w1", "ffn2.w2", "conv.pw1_w", "conv.pw2_w")
 
 
 class QuantizedWeight(nn.Module):

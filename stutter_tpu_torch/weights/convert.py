@@ -14,10 +14,11 @@ one entry per layer, and dense weights go from JAX's [in, out] to PyTorch's
 (with ``wavlm_params_to_numpy``) is its inverse, for saving a fine-tuned model
 keyed by the JAX tree's paths.
 
-``init_wavlm``, ``init_wav2vec2`` and ``init_whisper`` build a model with a seeded random init
-drawn like the JAX package's (normal * fan_in^-0.5 weights, zero biases, unit
-norm scales), from a ``torch.Generator`` on the CPU so that the same seed
-gives the same weights on every device.
+``init_wavlm``, ``init_wav2vec2``, ``init_w2v_bert`` and ``init_whisper`` build a
+model with a seeded random init drawn like the JAX package's (normal *
+fan_in^-0.5 weights, zero biases, unit norm scales), from a
+``torch.Generator`` on the CPU so that the same seed gives the same weights
+on every device.
 
 ``load_wavlm`` and ``load_whisper`` read a local HF checkpoint directory
 (``config.json``, the weights as ``*.safetensors`` or ``pytorch_model*.bin``
@@ -26,12 +27,14 @@ as the JAX package's loaders of the same names do, without ``transformers``:
 ``read_safetensors`` parses the files by hand where the ``safetensors``
 package is missing. ``load_wav2vec2`` does the same for wav2vec 2.0 / XLS-R
 (``Wav2Vec2Model``, ``Wav2Vec2ForPreTraining`` or a task model's backbone),
-which the JAX package lacks. ``convert_wavlm_state_dict``,
-``convert_wav2vec2_state_dict`` and ``convert_whisper_state_dict`` map an HF
-state dict onto the port's: dense weights stay [out, in], the positional
-conv's weight norm is folded in float64, and every HF key of the backbone
-must be used exactly once. They never download: a name that is not a local
-directory raises ``OSError``.
+which the JAX package lacks, and ``load_w2v_bert`` for w2v-BERT 2.0
+(``Wav2Vec2BertModel`` or a task model's backbone; the frontend's sizes from
+``preprocessor_config.json``), which it lacks too. ``convert_wavlm_state_dict``,
+``convert_wav2vec2_state_dict``, ``convert_w2v_bert_state_dict`` and
+``convert_whisper_state_dict`` map an HF state dict onto the port's: dense
+weights stay [out, in], the positional conv's weight norm is folded in
+float64, and every HF key of the backbone must be used exactly once. They
+never download: a name that is not a local directory raises ``OSError``.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from stutter_tpu_torch.models.w2v_bert import W2VBertConfig, W2VBertModel
 from stutter_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Model
 from stutter_tpu_torch.models.wavlm import WavLMConfig, WavLMModel
 from stutter_tpu_torch.models.whisper import WhisperConfig, WhisperModel, sinusoids
@@ -302,7 +306,8 @@ def _seeded_init(model_cls, cfg, generator: torch.Generator, device):
     state: dict[str, torch.Tensor] = {}
     for name, p in model.named_parameters():
         shape, leaf = tuple(p.shape), name.rsplit(".", 1)[-1]
-        if leaf in ("norm_scale", "ln_scale", "ln1_s", "ln2_s", "gru_const"):
+        if leaf in ("norm_scale", "ln_scale", "ln1_s", "ln2_s", "gru_const") or leaf.endswith(
+                "ln_s"):  # w2v-BERT's norm scales
             state[name] = torch.ones(shape)
         elif name == "rel_attn_embed":
             state[name] = normal(shape, 0.02)
@@ -317,6 +322,14 @@ def _seeded_init(model_cls, cfg, generator: torch.Generator, device):
     model = model_cls(cfg, device=device)
     model.load_state_dict(state, strict=True)
     return model
+
+
+def init_w2v_bert(cfg: W2VBertConfig, generator: torch.Generator,
+                  device: torch.device | str | None = None) -> W2VBertModel:
+    """A float32 ``W2VBertModel`` on ``device`` with ``init_wavlm``'s seeded
+    random init (the distance embeddings normal * 64^-1/2, as a dense
+    weight's)."""
+    return _seeded_init(W2VBertModel, cfg, generator, device)
 
 
 @torch.no_grad()
@@ -612,6 +625,65 @@ def convert_wav2vec2_state_dict(sd: Mapping[str, np.ndarray],
     return state
 
 
+def w2v_bert_config_from_hf(hf: Mapping, preprocessor: Mapping | None = None) -> W2VBertConfig:
+    """``W2VBertConfig`` from an HF ``config.json`` and, where given, its
+    ``preprocessor_config.json`` (as dicts). Raises ``ValueError`` for what
+    the port does not compute (``W2VBertConfig`` says what)."""
+    pp = preprocessor or {}
+    fields = {f.name for f in dataclasses.fields(W2VBertConfig)}
+    known = {k: v for k, v in hf.items() if k in fields}
+    for key in ("num_mel_bins", "stride", "sampling_rate"):
+        if key in pp:
+            known[key] = pp[key]
+    return W2VBertConfig(**known)
+
+
+# port name under layers.{i} -> HF name under encoder.layers.{i}
+_HF_W2V_BERT_LAYER = {
+    **{f"{ln}_{p}": f"{hf}.{w}" for ln, hf in (
+        ("ffn1_ln", "ffn1_layer_norm"), ("attn_ln", "self_attn_layer_norm"),
+        ("ffn2_ln", "ffn2_layer_norm"), ("final_ln", "final_layer_norm"),
+        ("conv.ln", "conv_module.layer_norm"), ("conv.dw_ln", "conv_module.depthwise_layer_norm"))
+       for p, w in (("s", "weight"), ("b", "bias"))},
+    **{f"{ffn}.{p}": f"{ffn}.{hf}" for ffn in ("ffn1", "ffn2") for p, hf in (
+        ("w1", "intermediate_dense.weight"), ("b1", "intermediate_dense.bias"),
+        ("w2", "output_dense.weight"), ("b2", "output_dense.bias"))},
+    **{f"attention.{n}_{p}": f"self_attn.linear_{hf}.{w}" for n, hf in (
+        ("q", "q"), ("k", "k"), ("v", "v"), ("o", "out"))
+       for p, w in (("w", "weight"), ("b", "bias"))},
+    "attention.distance_embedding": "self_attn.distance_embedding.weight",
+    "conv.dw_w": "conv_module.depthwise_conv.weight",
+}
+
+
+def convert_w2v_bert_state_dict(sd: Mapping[str, np.ndarray],
+                                cfg: W2VBertConfig) -> dict[str, torch.Tensor]:
+    """HF ``Wav2Vec2BertModel`` state dict (numpy values; a task model's
+    with its ``wav2vec2_bert.`` prefix, whose head is dropped) ->
+    ``W2VBertModel``'s, the published values unfolded. The pointwise convs'
+    [out, in, 1] weights become [out, in]; SpecAugment's
+    ``masked_spec_embed`` (training only) is dropped. Raises KeyError for a
+    missing entry and ValueError for one left over, naming it."""
+    take = _Leaves(_backbone(sd, "wav2vec2_bert."))
+    state: dict[str, torch.Tensor] = {
+        "feature_projection.ln_scale": take("feature_projection.layer_norm.weight"),
+        "feature_projection.ln_bias": take("feature_projection.layer_norm.bias"),
+        "feature_projection.weight": take("feature_projection.projection.weight"),
+        "feature_projection.bias": take("feature_projection.projection.bias"),
+    }
+    if "masked_spec_embed" in take.leaves:
+        take.array("masked_spec_embed")
+    for layer in range(cfg.num_hidden_layers):
+        src, dst = f"encoder.layers.{layer}", f"layers.{layer}"
+        for name, hf_name in _HF_W2V_BERT_LAYER.items():
+            state[f"{dst}.{name}"] = take(f"{src}.{hf_name}")
+        for pw in ("pw1", "pw2"):
+            state[f"{dst}.conv.{pw}_w"] = take(
+                f"{src}.conv_module.pointwise_conv{pw[-1]}.weight").squeeze(-1)
+    take.check_all_used()
+    return state
+
+
 def _hf_whisper_layer(name: str, decoder: bool) -> str:
     """The port's name under ``{encoder,decoder}.layers.{i}`` -> HF's:
     attn.q_w -> self_attn.q_proj.weight, xattn.o_b -> encoder_attn.out_proj.bias,
@@ -720,6 +792,26 @@ def load_wav2vec2(path: str) -> tuple[Wav2Vec2Config, Wav2Vec2Model]:
     logger.info("converted wav2vec2 %s: %d layers, hidden %d", path, cfg.num_hidden_layers,
                 cfg.hidden_size)
     return cfg, _model_from_state(Wav2Vec2Model, cfg, state)
+
+
+def w2v_bert_config(path: str) -> W2VBertConfig:
+    """The ``W2VBertConfig`` of a local HF checkpoint directory, its
+    frontend's sizes included, without reading the weights."""
+    path = _local_dir(path)
+    pp = os.path.join(path, "preprocessor_config.json")
+    return w2v_bert_config_from_hf(_read_json(os.path.join(path, "config.json")),
+                                   _read_json(pp) if os.path.isfile(pp) else None)
+
+
+def load_w2v_bert(path: str) -> tuple[W2VBertConfig, W2VBertModel]:
+    """A local HF w2v-BERT checkpoint directory -> (config, float32
+    ``W2VBertModel`` on the CPU, unfolded). Any other name raises
+    ``OSError``: this package never downloads."""
+    cfg = w2v_bert_config(path)
+    state = convert_w2v_bert_state_dict(_load_state_dict_from_dir(path), cfg)
+    logger.info("converted w2v-BERT %s: %d layers, hidden %d", path, cfg.num_hidden_layers,
+                cfg.hidden_size)
+    return cfg, _model_from_state(W2VBertModel, cfg, state)
 
 
 def load_whisper(path: str) -> tuple[WhisperConfig, WhisperModel]:

@@ -158,6 +158,9 @@ _PTXAS_KERNELS = [
     *("_ZN4sm9021attention_bf16_kernelIN51_GLOBAL__N__a806e445_18_wavlm_attention_cu_e73ede5a"
       f"13GatedBiasRingELi64ELi1ELi3ELi2ELi{order}EEEvPK13__nv_bfloat16S5_S5_NT_6ParamsEPS3_"
       "Pfiiiiixxx" for order in (0, 1)),
+    "_ZN4sm9021attention_bf16_kernelIN52_GLOBAL__N__32e9d357_19_relkey_attention_cu_197da236"
+    "11RelKeyTableI13__nv_bfloat16EELi64ELi2ELi4ELi2ELi0EEEvPKS3_S6_S6_NT_6ParamsEPS3_"
+    "Pfiiiiixxx",
     *(f"_ZN55_GLOBAL__N__be996e00_22_wavlm_attention_bwd_cu_8fd40e8c{part}_bf16_kernelILi"
       f"{order}EEEvNS_7BwdArgsEii" for part in ("18bwd_dq", "19bwd_dkv") for order in (0, 1)),
     "_ZN55_GLOBAL__N__be996e00_22_wavlm_attention_bwd_cu_8fd40e8c21bwd_dbias_bf16_kernelENS_7"
@@ -211,6 +214,7 @@ def test_tile_resources_read_every_instantiation(monkeypatch, tmp_path, capsys, 
             "attention_bf16_kernel<FullBias<64, 2, 4, 1, 0>>",
             "attention_bf16_kernel<GatedBiasRing<64, 1, 3, 2, 0>>",
             "attention_bf16_kernel<GatedBiasRing<64, 1, 3, 2, 1>>",
+            "attention_bf16_kernel<RelKeyTable<64, 2, 4, 2, 0>>",
             "bwd_dq<0>", "bwd_dq<1>", "bwd_dkv<0>", "bwd_dkv<1>", "bwd_dbias",
             "stem_conv<2>", "stem_conv<3>", "pos_conv<64>", "pos_conv<120>",
             "probe_attn_int8", "probe_quantize_kv", "probe_softmax_variant<0, 0>",
